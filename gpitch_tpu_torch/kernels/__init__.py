@@ -1,0 +1,2 @@
+from .base import Kernel, StackedSum, Sum, absdist, stack_modules  # noqa: F401
+from .spectral import Matern12sm, MercerMatern12sm, cos_mixture, cosine_features  # noqa: F401
