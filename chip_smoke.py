@@ -5,7 +5,7 @@ Run from the repository root:   python3 chip_smoke.py
 
 Phases, each printing one JSON line; any failure raises and exits non-zero:
   1. device   the card, its power limit, and the f32 matmul mode (full f32);
-  2. build    both CUDA kernels, one nvcc each, started together;
+  2. build    the three CUDA sources, one nvcc each, started together;
   3. chol     the Cholesky kernel against its plain version and
               torch.linalg.cholesky_ex, at the bank shapes, on random SPD,
               ill-conditioned and low-rank Grams;
@@ -23,6 +23,14 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               torch.optim.Adam would add;
   8. full     the 14 s mix (222 windows): 20 Adam steps and predict_s;
   9. profile  torch.profiler over 5 of those steps and one predict_s;
+ 10. fused_whiten  the fused build -> whiten -> accumulate pair (kernel A
+              through fused_whiten and fused_whiten_flat, kernel B) against
+              its plain version: (a) the prototypes' inputs at the SoSp width,
+              (b) the AMT width, (c) an 88-pitch dictionary, (d) the trained
+              62- and 222-window banks' own bound (AAT, Aerr and every raw
+              leaf's gradient; the pair's launch counts are read over (d)),
+              (e) times at (a) and (b), and at each split of a window's
+              tiles over blocks;
 then the kernels line, the nvidia-smi line and the result line.
 Exits non-zero without printing a result when there is no CUDA device.
 """
@@ -265,8 +273,9 @@ def phase_specmix(dev) -> dict:
     return out
 
 
-def phase_sosp(dev) -> dict:
-    """The main path: SoSp built, trained, predicted and scored on the card."""
+def phase_sosp(dev):
+    """The main path: SoSp built, trained, predicted and scored on the card.
+    Returns (the phase's record, the trained model)."""
     from gpitch_tpu_torch.linalg.chol import cholesky_batched as chol
     from gpitch_tpu_torch.linalg.specmix import specmix_matrix as spec
     golden = np.load(os.path.join(ROOT, "tests_tpu", "goldens.npz"))["sosp_losses"]
@@ -320,7 +329,7 @@ def phase_sosp(dev) -> dict:
     assert np.isfinite(rmse) and rmse < 0.3 * np.mean(out["source_rms"]), \
         "separation failed"
     assert all(v > 0 for v in launches.values()), f"a kernel never ran: {launches}"
-    return out
+    return out, model
 
 
 def _native_path() -> str:
@@ -444,6 +453,287 @@ def phase_full(dev) -> dict:
     return model
 
 
+# --------------------------------------------- fused whiten (kernels 3-5)
+def _whiten_inputs(nw, n, m, freq, fs, seed=0):
+    """The prototypes' recipe (scripts/proto_fused_whiten.py:321-342 and
+    proto_fused_whiten_bwd.py:242-243), unpadded: f64 numpy arrays.
+    ``freq`` is (S, P); energies 1/p, variances 1, lengthscales 0.1 s."""
+    rng = np.random.default_rng(seed)
+    s, p = freq.shape
+    zc = np.stack([np.linspace(0, (n - 1) / fs, m) for _ in range(nw)])
+    zc = zc + rng.uniform(0, 1e-4, zc.shape)
+    err = rng.standard_normal((nw, n)) * 0.1
+    linv = np.tril(rng.standard_normal((nw, m, m)) * 0.05 + np.eye(m)[None])
+    du = rng.standard_normal((nw, m, m)) * 0.01
+    dv = rng.standard_normal((nw, m, 1)) * 0.01
+    return {"zc": zc[..., None], "xc": np.broadcast_to(np.arange(n) / fs, (nw, 1, n)),
+            "err": err[:, None], "linv": linv, "du": du, "dv": dv,
+            "energy": np.broadcast_to(1.0 / np.arange(1, p + 1), (s, p)), "freq": freq,
+            "var": np.ones(s), "inv_l": np.full(s, 10.0)}
+
+
+def _harmonics(f0, partials, fs):
+    return np.minimum(np.asarray(f0)[:, None] * np.arange(1, partials + 1), 0.45 * fs)
+
+
+def _whiten_bound(nw, m, n, s, p, backward):
+    """bound_ms of kernel A or B, counting what the function needs: Linv is
+    lower triangular in every input here (np.tril, chol_inv), so A = Linv
+    Kuf is M (M + 1) N flops, and U = A A^T, symmetric, M (M + 1) N; v is
+    2 M N and the build (4P + 4) S M N (a multiply-add pair per partial,
+    the envelope, the variance and the sum).  Kernel B: A and the build
+    again, dA = (dU + dU^T) A and the dense dLinv (every entry is an output)
+    2 M^2 N each, dv err^T 2 M N, dK = Linv^T dA M (M + 1) N, and the
+    per-source sums 8 P S M N.  Bytes: each input read once (Linv's lower
+    triangle), each output written once."""
+    build = (4 * p + 4) * s * m * n
+    tri = m * (m + 1) * n
+    params = 2 * s * p + 2 * s
+    linv = m * (m + 1) // 2
+    if backward:
+        flops = nw * (2 * tri + 4 * m * m * n + 2 * m * n + build + 8 * p * s * m * n)
+        floats = nw * (linv + 2 * m * m + 2 * m + 2 * n + params) + params
+    else:
+        flops = nw * (2 * tri + 2 * m * n + build)
+        floats = nw * (linv + m * m + 2 * m + 2 * n) + params
+    return bound_ms(4 * floats, flops)
+
+
+def _no_grad(fn):
+    def run():
+        with torch.no_grad():
+            return fn()
+    return run
+
+
+def _whiten_case(name, d, dev, arbiter=True, timing=False) -> dict:
+    """Kernel A through both entry points and kernel B against the plain
+    version: the f64 plain forward and autograd through it (``arbiter``),
+    else the f32 ones.  Forward limit 1e-4 of max|ref| (the prototype's own,
+    proto_fused_whiten.py:364); backward, per output, the larger of 1e-3 of
+    max|ref| and 4x the error of autograd through the f32 plain version."""
+    from gpitch_tpu_torch.linalg.fused_whiten import (
+        fused_whiten, fused_whiten_bwd, fused_whiten_bwd_plain, fused_whiten_flat,
+        fused_whiten_plain)
+
+    def tensors(dtype):
+        return {k: torch.as_tensor(np.array(v), dtype=dtype, device=dev) for k, v in d.items()}
+
+    def plain_autograd(t):
+        """(U, v) and kernel B's five outputs by autograd, per window."""
+        nw = t["zc"].shape[0]
+        leaves = [t["linv"].clone().requires_grad_(True)] + [
+            t[k].expand((nw,) + t[k].shape).clone().requires_grad_(True)
+            for k in ("energy", "freq", "var", "inv_l")]
+        u, v = fused_whiten_plain(t["zc"], t["xc"], t["err"], *leaves)
+        g = torch.autograd.grad((u * t["du"]).sum() + (v * t["dv"]).sum(), leaves)
+        return (u.detach(), v.detach()), (g[0], g[3][:, None], g[4][:, None], g[1], g[2])
+
+    t32 = tensors(torch.float32)
+    ins = [t32[k] for k in ("zc", "xc", "err", "linv")]
+    par = [t32[k] for k in ("energy", "freq", "var", "inv_l")]
+    nw, m, _ = ins[0].shape
+    n = ins[1].shape[-1]
+    s, p = par[0].shape
+    flat = torch.cat([par[0], par[1], par[2][:, None], par[3][:, None]], 1).reshape(1, -1)
+    with torch.no_grad():
+        fwd = {"fused_whiten": fused_whiten(*ins, *par),
+               "fused_whiten_flat": fused_whiten_flat(*ins, flat, num_sources=s)}
+    bwd = fused_whiten_bwd(*ins, t32["du"], t32["dv"], *par)
+    torch.cuda.synchronize()
+    fwd32, bwd32 = plain_autograd(t32)
+    (fwd_ref, bwd_ref) = plain_autograd(tensors(torch.float64)) if arbiter else (fwd32, bwd32)
+    out = {"phase": "fused_whiten", "case": name, "shape": [nw, m, n, s, p],
+           "reference": "f64 plain" if arbiter else "f32 plain", "forward": {}, "backward": {}}
+    ok = True
+    for entry, got in fwd.items():
+        for what, g, g32, ref in zip(("U", "v"), got, fwd32, fwd_ref):
+            scale = float(ref.abs().max())
+            err = float((g.double() - ref).abs().max())
+            row = {"max_abs_err": err, "max_rel_err": err / scale,
+                   "plain_f32_rel_err": float((g32.double() - ref).abs().max()) / scale,
+                   "finite": bool(torch.isfinite(g).all())}
+            row["ok"] = row["finite"] and err <= 1e-4 * scale
+            out["forward"][f"{entry}.{what}"] = row
+            ok &= row["ok"]
+    for what, g, g32, ref in zip(("dlinv", "dvar", "dinvl", "de", "df"), bwd, bwd32, bwd_ref):
+        scale = float(ref.abs().max())
+        err = float((g.double() - ref).abs().max())
+        err32 = float((g32.double() - ref).abs().max())
+        tol = max(1e-3 * scale, 4 * err32)
+        row = {"max_abs_err": err, "max_rel_err": err / scale, "plain_f32_abs_err": err32,
+               "tol": tol, "finite": bool(torch.isfinite(g).all())}
+        row["ok"] = row["finite"] and tuple(g.shape) == tuple(ref.shape) and err <= tol
+        out["backward"][what] = row
+        ok &= row["ok"]
+    if timing:
+        fw_leaves = [t.clone().requires_grad_(True) for t in [ins[3]] + par]
+
+        def scalar(fn):
+            u, v = fn(*ins[:3], *fw_leaves)
+            return (u * t32["du"]).sum() + (v * t32["dv"]).sum()
+
+        def fwd_bwd(fn):
+            return lambda: torch.autograd.grad(scalar(fn), fw_leaves)
+
+        graph = scalar(fused_whiten_plain)     # the unfused backward alone, on one graph
+
+        tm = {"kernel_A_ms": cuda_ms(_no_grad(lambda: fused_whiten(*ins, *par)), 20),
+              "kernel_A_flat_ms": cuda_ms(_no_grad(
+                  lambda: fused_whiten_flat(*ins, flat, num_sources=s)), 20),
+              "kernel_B_ms": cuda_ms(lambda: fused_whiten_bwd(
+                  *ins, t32["du"], t32["dv"], *par), 10),
+              "plain_fwd_ms": cuda_ms(_no_grad(lambda: fused_whiten_plain(*ins, *par)), 5),
+              "plain_bwd_ms": cuda_ms(lambda: fused_whiten_bwd_plain(
+                  *ins, t32["du"], t32["dv"], *par), 3, warmup=1),
+              "unfused_bwd_ms": cuda_ms(lambda: torch.autograd.grad(
+                  graph, fw_leaves, retain_graph=True), 3, warmup=1),
+              "unfused_fwd_bwd_ms": cuda_ms(fwd_bwd(fused_whiten_plain), 3, warmup=1),
+              "fused_fwd_bwd_ms": cuda_ms(fwd_bwd(fused_whiten), 10)}
+        del graph
+        tm["bound_A_ms"], tm["bound_A_by"] = _whiten_bound(nw, m, n, s, p, False)
+        tm["bound_B_ms"], tm["bound_B_by"] = _whiten_bound(nw, m, n, s, p, True)
+        out["times"] = tm
+    out["ok"] = ok
+    emit(out)
+    assert ok, f"fused-whiten kernels disagree in case {name}"
+    return out
+
+
+_SPLITS = (1, 2, 3, 4, 5, 6, 7, 8, 9, 11, 13, 16, 21, 32, 63)
+
+
+def _whiten_splits(name, d, dev) -> dict:
+    """Kernels A and B with a window's tiles split over each count of blocks
+    in _SPLITS that leaves no block without a tile, and at the count that
+    csrc/fused_whiten.cu's ``plan`` picks; U and dLinv at every split within
+    1e-5 of max|ref| of splits=1's (the partial sums only change order)."""
+    import importlib
+    fw = importlib.import_module("gpitch_tpu_torch.linalg.fused_whiten")
+    t = {k: torch.as_tensor(np.array(v), dtype=torch.float32, device=dev) for k, v in d.items()}
+    ins = [t[k] for k in ("zc", "xc", "err", "linv")]
+    par = [t[k] for k in ("energy", "freq", "var", "inv_l")]
+    nw, m, _ = ins[0].shape
+    n = ins[1].shape[-1]
+    sizes = (nw, m, n) + tuple(par[0].shape)
+    tiles = -(-n // fw.TILE_T)
+    plan = {"A": fw._splits(False, sizes, dev.index), "B": fw._splits(True, sizes, dev.index)}
+
+    def kernels(k):
+        with torch.no_grad():
+            return (fw._forward_kernel(*ins, *par, splits=k)[0],
+                    fw._backward_kernel(*ins[:4], t["du"], t["dv"], *par, splits=k)[0])
+
+    refs = kernels(1)
+    out = {"phase": "fused_whiten", "case": f"splits_{name}", "shape": list(sizes),
+           "tiles": tiles, "plan": plan, "A_ms": {}, "B_ms": {}, "max_rel_diff": 0.0}
+    for k in sorted(set(_SPLITS) | set(plan.values())):
+        if k > tiles or -(-tiles // -(-tiles // k)) != k:
+            continue
+        for got, ref in zip(kernels(k), refs):
+            out["max_rel_diff"] = max(out["max_rel_diff"], float(
+                (got - ref).abs().max() / ref.abs().max()))
+        out["A_ms"][k] = cuda_ms(_no_grad(lambda: fw._forward_kernel(*ins, *par, splits=k)),
+                                 5, warmup=1)
+        out["B_ms"][k] = cuda_ms(lambda: fw._backward_kernel(
+            *ins[:4], t["du"], t["dv"], *par, splits=k), 5, warmup=1)
+    out["ok"] = out["max_rel_diff"] <= 1e-5
+    emit(out)
+    assert out["ok"], f"the split changes the kernels' result ({name})"
+    return out
+
+
+def _whiten_bank(name, model, dev) -> dict:
+    """The pair on a trained bank's own bound: U / sigma^2 against _common's
+    AAT and v against its Aerr (1e-4 of max|ref|); fused_whiten_flat with
+    the per-window flat parameters gives the same; then, for a seeded
+    (dU, dv), the gradient of <U, dU> + <v, dv> in every trainable raw leaf
+    through fused_whiten (Linv from chol_inv under grad) and through
+    _common's A (1e-3 of max|ref|)."""
+    from gpitch_tpu_torch.core.params import named_params
+    from gpitch_tpu_torch.linalg.fused_whiten import fused_whiten, fused_whiten_flat
+    bank = model.bank
+    assert bank.mask is None
+    with torch.no_grad():
+        err, _, _, A, AAT, _, _, sigma2 = bank._common()
+        aerr = A @ err
+        chain = bank.fused_whiten_args()
+        u, v = fused_whiten(*chain)
+        e, f, var, il = chain[4:]
+        nw, s = var.shape
+        flat = torch.cat([e, f, var[..., None], il[..., None]], -1).reshape(nw, -1)
+        uf, vf = fused_whiten_flat(*chain[:4], flat, num_sources=s)
+    torch.cuda.synchronize()
+    out = {"phase": "fused_whiten", "case": name, "windows": nw, "M": int(u.shape[-1]),
+           "N": int(err.shape[-2]), "S": s, "P": int(e.shape[-1]),
+           "AAT_rel_err": float((u / sigma2 - AAT).abs().max() / AAT.abs().max()),
+           "Aerr_rel_err": float((v - aerr).abs().max() / aerr.abs().max()),
+           "flat_equal": bool(torch.equal(uf, u) and torch.equal(vf, v))}
+    gen = torch.Generator().manual_seed(0)
+    du = torch.randn(tuple(u.shape), generator=gen).to(dev)
+    dv = torch.randn(tuple(v.shape), generator=gen).to(dev)
+    grads = {}
+    for route in ("fused", "common"):
+        for _, prm in named_params(bank):
+            prm.raw.grad = None
+        if route == "fused":
+            u, v = fused_whiten(*bank.fused_whiten_args())
+        else:
+            err, _, _, A, *_ = bank._common()
+            u, v = A @ A.mT, A @ err
+        ((u * du).sum() + (v * dv).sum()).backward()
+        grads[route] = {k: prm.raw.grad.clone() for k, prm in named_params(bank)
+                        if prm.raw.grad is not None}
+    for _, prm in named_params(bank):
+        prm.raw.grad = None
+    out["grad_rel_err"] = {k: float((grads["fused"][k] - g).abs().max() / g.abs().max())
+                           for k, g in grads["common"].items()}
+    out["ok"] = (out["AAT_rel_err"] <= 1e-4 and out["Aerr_rel_err"] <= 1e-4
+                 and out["flat_equal"] and sorted(grads["fused"]) == sorted(grads["common"])
+                 and len(grads["common"]) > 0
+                 and all(r <= 1e-3 for r in out["grad_rel_err"].values()))
+    emit(out)
+    assert out["ok"], f"the fused pair disagrees with the bank's bound ({name})"
+    return out
+
+
+def phase_fused_whiten(dev, sosp_model, full_model) -> dict:
+    """Kernels A and B: (a) the prototypes' inputs at the SoSp width (222
+    windows, N 2001, M 112, S 3, P 5, 16 kHz); (b) the AMT width (43
+    windows, 44.1 kHz, M 160, 8 pitches from C4 x 10 harmonics); (c) an
+    88-pitch dictionary (8 windows, M 160, S 88, P 20) against the f32
+    plain version; (d) the trained 62- and 222-window SoSp banks' own bound,
+    the launches counted over (d) alone; (e) times at (a) and (b), and both
+    kernels at each split of a window's tiles over blocks at (a), at 62
+    windows of (a)'s width, and at (b)."""
+    from gpitch_tpu_torch.linalg.fused_whiten import (fused_whiten, fused_whiten_bwd,
+                                                      fused_whiten_flat)
+    sosp_f0 = 261.6 * 2 ** (np.array([0, 4, 7]) / 12)
+    amt_f0 = 261.6 * 2 ** (np.arange(8) / 12)
+    piano_f0 = 27.5 * 2 ** (np.arange(88) / 12)
+    sosp = _harmonics(sosp_f0, 5, 16000.0)
+    a = _whiten_inputs(222, 2001, 112, sosp, 16000.0)
+    b = _whiten_inputs(43, 2001, 160, _harmonics(amt_f0, 10, 44100.0), 44100.0)
+    cases = {
+        "a_sosp": _whiten_case("a_sosp", a, dev, timing=True),
+        "b_amt": _whiten_case("b_amt", b, dev, timing=True),
+        "c_piano88": _whiten_case("c_piano88", _whiten_inputs(
+            8, 2001, 160, _harmonics(piano_f0, 20, 44100.0), 44100.0), dev, arbiter=False),
+    }
+    for name, d in (("a", a), ("62", _whiten_inputs(62, 2001, 112, sosp, 16000.0)),
+                    ("b", b)):
+        cases[f"splits_{name}"] = _whiten_splits(name, d, dev)
+    fused_whiten.launches = fused_whiten_flat.launches = fused_whiten_bwd.launches = 0
+    for name, model in (("d_bank_62", sosp_model), ("d_bank_222", full_model)):
+        cases[name] = _whiten_bank(name, model, dev)
+    launches = {"fused_whiten": fused_whiten.launches,
+                "fused_whiten_flat": fused_whiten_flat.launches,
+                "fused_whiten_bwd": fused_whiten_bwd.launches}
+    emit({"phase": "fused_whiten", "case": "launches_in_d", "launches": launches})
+    assert all(n > 0 for n in launches.values()), f"a kernel never ran: {launches}"
+    return {"cases": cases, "launches": launches}
+
+
 def _device_us(evt) -> float:
     for name in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(evt, name):
@@ -493,10 +783,12 @@ def main() -> int:
     phase_build()
     chol = phase_chol(dev)
     spec = phase_specmix(dev)
-    sosp = phase_sosp(dev)
+    sosp, sosp_model = phase_sosp(dev)
     phase_small(dev)
     phase_first_use()
-    phase_profile(phase_full(dev))
+    full_model = phase_full(dev)
+    phase_profile(full_model)
+    whiten = phase_fused_whiten(dev, sosp_model, full_model)
 
     main_chol = next(r for r in chol["cases"] if r["kind"] == "spd"
                      and r["shape"] == [sosp["windows"], 112, 112]
@@ -520,6 +812,29 @@ def main() -> int:
          "plain_ms": main_spec["plain_ms"], "bound_ms": main_spec["bound_ms"],
          "bound_by": main_spec["bound_by"], "library_ms": None},
     ]
+    # kernels 3 and 4 are one CUDA kernel (A) behind two entry points; 5 is
+    # kernel B.  Times at the prototypes' SoSp-width inputs (case a); the
+    # library time is the unfused torch composition (cuBLAS SGEMM and
+    # elementwise ops): its forward for A, its backward alone (autograd on a
+    # built graph) for B.
+    case_a = whiten["cases"]["a_sosp"]
+    tm = case_a["times"]
+    for name, replaces, ms, err, plain, lib, bound, by in (
+            ("fused_whiten", "scripts/proto_fused_whiten.py:151", tm["kernel_A_ms"],
+             case_a["forward"]["fused_whiten.U"]["max_abs_err"], tm["plain_fwd_ms"],
+             tm["plain_fwd_ms"], tm["bound_A_ms"], tm["bound_A_by"]),
+            ("fused_whiten_flat", "scripts/proto_fused_whiten.py:208", tm["kernel_A_flat_ms"],
+             case_a["forward"]["fused_whiten_flat.U"]["max_abs_err"], tm["plain_fwd_ms"],
+             tm["plain_fwd_ms"], tm["bound_A_ms"], tm["bound_A_by"]),
+            ("fused_whiten_bwd", "scripts/proto_fused_whiten_bwd.py:157", tm["kernel_B_ms"],
+             max(r["max_abs_err"] for r in case_a["backward"].values()), tm["plain_bwd_ms"],
+             tm["unfused_bwd_ms"], tm["bound_B_ms"], tm["bound_B_by"])):
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "gpitch_tpu_torch/csrc/fused_whiten.cu",
+                        "replaces": replaces, "launches": whiten["launches"][name],
+                        "shape": case_a["shape"], "max_abs_err": err, "ms": ms,
+                        "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+                        "library_ms": lib})
     emit({"kernels": kernels})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(device["nvidia_smi"], flush=True)

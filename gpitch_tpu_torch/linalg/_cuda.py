@@ -27,6 +27,12 @@ SIGNATURES = {
     "specmix": {f"gpitch_specmix_{t}": [_P, _P, _P, _P, _P, _P, _P,
                                         _L, _I, _I, _I, _I, _I, _I, _P]
                 for t in ("f32", "f64")},
+    # inputs, partial sums, output; window strides of (S, P) and (S,)
+    # parameters; nw, M, N, S, P, splits; stream.  The split plan: backward?,
+    # nw, M, N, S, P -> splits
+    "fused_whiten": {"gpitch_fused_whiten_fwd": [_P] * 10 + [_I] * 8 + [_P],
+                     "gpitch_fused_whiten_bwd": [_P] * 12 + [_I] * 8 + [_P],
+                     "gpitch_fused_whiten_splits": [_I] * 6 + [ctypes.POINTER(_I)]},
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

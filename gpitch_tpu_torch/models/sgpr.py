@@ -20,6 +20,7 @@ from ..config import NumericsConfig
 from ..core.params import Param, static_field
 from ..core.transforms import Positive
 from ..kernels.base import StackedSum
+from ..kernels.spectral import Matern12sm
 from ..linalg.ops import safe_chol_inv
 
 __all__ = ["SGPR", "SGPRSS", "check_on_grid"]
@@ -112,10 +113,30 @@ class SGPR:
             kuf = kuf * mv[..., None, :]
         return err, kdiag, kuf, kuu
 
+    def _linv(self, kuu):
+        """Linv of Kuu as the bound factors it."""
+        return safe_chol_inv(kuu, self.numerics.jitter_value(kuu.dtype))[1]
+
+    def fused_whiten_args(self):
+        """(zc, xc, err, Linv, energy, freq, var, inv_l): the arguments of
+        ``linalg.fused_whiten`` for this bound's Kuf -> A -> (A A^T, A err)
+        chain, so that its U / sigma^2 and v are ``_common``'s AAT and Aerr.
+        Differentiable in the kernel's parameters; needs a stacked
+        Matern12sm kernel and no mask."""
+        if (self.mask is not None or not isinstance(self.kern, StackedSum)
+                or not isinstance(self.kern.stacked, Matern12sm)):
+            raise ValueError("fused_whiten_args: needs a StackedSum of "
+                             "Matern12sm and no mask")
+        st = self.kern.stacked
+        z = self.Z.value
+        return (z, self.X.value.mT, self.Y.value.mT, self._linv(self.kern.K(z)),
+                st.energy.value, st.frequency.value, st.variance.value,
+                1.0 / st.lengthscales.value)
+
     def _common(self):
         err, kdiag, kuf, kuu = self._covs()
         sigma2 = self.variance.value[..., None, None]
-        _, L_inv = safe_chol_inv(kuu, self.numerics.jitter_value(kuu.dtype))
+        L_inv = self._linv(kuu)
         # 1/sigma2 scales the (M, M) and (M, 1) products, not the (M, N) A
         A = L_inv @ kuf
         AAT = (A @ A.mT) / sigma2

@@ -15,6 +15,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..config import DEFAULT_DEVICE, resolve_device
 from ..core.params import Param, cat_windows, map_params, take_windows, to_device
 from ..kernels.base import StackedSum, Sum
 from ..models.fit import fit_adam_segmented
@@ -106,9 +107,9 @@ def pad_inducing(z_list, m: int | None = None, grid_dt=None) -> np.ndarray:
 def build_window_bank(x_windows, y_windows, z_windows, kern_builder: Callable,
                       noise_variance: float = 1.0, reg: bool = False,
                       y_scale: float = 1.0, grid_dt=None, dtype=torch.float32,
-                      device="cpu"):
+                      device=DEFAULT_DEVICE):
     """One SGPRSS over all windows (leaves (nw, ...)), built on the host and
-    moved to ``device`` once.
+    moved to ``device`` once ('cuda' unless the caller asks for 'cpu').
 
     kern_builder() -> a fresh kernel; every window starts from that copy.
     Per-window centering runs vectorized in f64 (x0 = min of the inputs and
@@ -128,6 +129,7 @@ def build_window_bank(x_windows, y_windows, z_windows, kern_builder: Callable,
     Zc = zw - x0[:, None]
     if grid_dt is not None:
         check_on_grid(Xc, Zc, grid_dt)
+    device = resolve_device(device)
 
     template = SGPRSS.create(
         Xc[0], yw[0], kern_builder(), Z=Zc[0], noise_variance=noise_variance,

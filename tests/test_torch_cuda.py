@@ -13,6 +13,7 @@ import torch
 from gpitch_tpu_torch.linalg import ops
 from gpitch_tpu_torch.linalg.chol import cholesky_batched, cholesky_plain
 from gpitch_tpu_torch.linalg.specmix import specmix_matrix, specmix_plain
+from fused_whiten_inputs import prototype_inputs
 
 
 @pytest.fixture
@@ -105,3 +106,82 @@ def test_cuda_specmix_refuses_gradients(cuda):
     args[4].requires_grad_(True)
     with pytest.raises(RuntimeError, match="forward only"):
         specmix_matrix(*args)
+
+
+def _whiten_args(dev, nw, m, n, s, p, per_window=False, seed=0):
+    """prototype_inputs at (nw, M, N, S, P), float32 on ``dev``."""
+    return [torch.as_tensor(a, dtype=torch.float32, device=dev)
+            for a in prototype_inputs(nw, m, n, s, p, per_window, seed)]
+
+
+def _rel(got, want):
+    return float((got.double() - want).abs().max() / want.abs().max())
+
+
+# (nw, M, N, S, P): a ragged M and N, the SoSp and AMT widths, and sources
+# that take several feature chunks
+_WHITEN_SHAPES = [(3, 16, 300, 2, 3), (4, 112, 2001, 3, 5), (3, 160, 1001, 8, 10),
+                  (2, 40, 77, 17, 20)]
+
+
+@pytest.mark.parametrize("shape", _WHITEN_SHAPES)
+@pytest.mark.parametrize("per_window", [False, True])
+def test_cuda_fused_whiten_kernel_matches_plain(cuda, shape, per_window):
+    """Kernel A through both entry points against the f64 plain forward:
+    1e-4 of max|ref|, the prototype's own limit."""
+    from gpitch_tpu_torch.linalg.fused_whiten import (fused_whiten, fused_whiten_flat,
+                                                      fused_whiten_plain)
+    args = _whiten_args(cuda, *shape, per_window=per_window)
+    with torch.no_grad():
+        want = fused_whiten_plain(*[a.double() for a in args])
+        before = fused_whiten.launches
+        got = fused_whiten(*args)
+        assert fused_whiten.launches == before + 1
+        e, f, v, il = args[4:]
+        s, p = e.shape[-2:]
+        flat = torch.cat([e, f, v[..., None], il[..., None]], -1).reshape(-1, s * (2 * p + 2))
+        before = fused_whiten_flat.launches
+        got_flat = fused_whiten_flat(*args[:4], flat, num_sources=s)
+        assert fused_whiten_flat.launches == before + 1
+    torch.cuda.synchronize()
+    for g in (got, got_flat):
+        for a, b in zip(g, want):
+            assert a.shape == b.shape and bool(torch.isfinite(a).all())
+            assert _rel(a, b) <= 1e-4
+
+
+@pytest.mark.parametrize("shape", _WHITEN_SHAPES)
+def test_cuda_fused_whiten_bwd_kernel_matches_plain(cuda, shape):
+    """Kernel B, explicit and as fused_whiten's backward, against the f64
+    plain backward: 1e-3 of max|ref| per output."""
+    from gpitch_tpu_torch.linalg.fused_whiten import (fused_whiten, fused_whiten_bwd,
+                                                      fused_whiten_bwd_plain)
+    args = _whiten_args(cuda, *shape, per_window=True)
+    nw, m = shape[:2]
+    gen = torch.Generator().manual_seed(1)
+    du = (torch.randn(nw, m, m, generator=gen) * 0.01).to(cuda)
+    dv = (torch.randn(nw, m, 1, generator=gen) * 0.01).to(cuda)
+    want = fused_whiten_bwd_plain(*[a.double() for a in args[:4]], du.double(),
+                                  dv.double(), *[a.double() for a in args[4:]])
+    before = fused_whiten_bwd.launches
+    got = fused_whiten_bwd(*args[:4], du, dv, *args[4:])
+    leaves = [a.clone().requires_grad_(True) for a in args[3:]]
+    u, v = fused_whiten(*args[:3], *leaves)
+    ((u * du).sum() + (v * dv).sum()).backward()
+    assert fused_whiten_bwd.launches == before + 2
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and _rel(a, b) <= 1e-3
+    dlinv, dvar, dinvl, de, df = want
+    for leaf, b in zip(leaves, (dlinv, de, df, dvar[:, 0], dinvl[:, 0])):
+        assert _rel(leaf.grad, b) <= 1e-3
+
+
+def test_cuda_fused_whiten_refuses_what_the_kernels_do_not_take(cuda):
+    from gpitch_tpu_torch.linalg.fused_whiten import fused_whiten
+    args = _whiten_args(cuda, 2, 16, 64, 2, 3)
+    with pytest.raises(TypeError, match="float32"):
+        fused_whiten(*[a.double() for a in args])
+    big = _whiten_args(cuda, 1, 161, 64, 1, 2)
+    with pytest.raises(ValueError, match="M=161"):
+        fused_whiten(*big)
