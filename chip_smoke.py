@@ -9,8 +9,12 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
   3. chol     the Cholesky kernel against its plain version and
               torch.linalg.cholesky_ex, at the bank shapes, on random SPD,
               ill-conditioned and low-rank Grams;
-  4. specmix  the spectral-mixture kernel against its plain version at the
-              prediction shapes, both envelopes;
+  4. specmix  the spectral-mixture kernel against its plain version and the
+              f64 plain version at the prediction shapes, both envelopes,
+              and at the AMT width;
+              in 3 and 4 the kernel, its plain version and the library call
+              (or fill_) are each timed as device time (graph_ms), the
+              kernel and the library call also from Python (cuda_ms);
   5. sosp     separation end to end (4 s synthetic mix, ws 2001, M 112,
               3 pitches x 5 partials): 100 Adam steps in f32 held against
               the CPU-f64 golden trajectory (tests_tpu/goldens.npz), then
@@ -72,6 +76,30 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def graph_ms(fn, reps: int = 20, replays: int = 10) -> float:
+    """Mean device time of one call of ``fn``: ``reps`` calls captured in a
+    CUDA graph, replayed, timed by CUDA events; free of the host's per-call
+    cost, which ``cuda_ms`` includes when a call is short.  A kernel and
+    what it is compared with are timed the same way."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    stop.synchronize()
+    graph.reset()
+    return start.elapsed_time(stop) / (replays * reps)
 
 
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
@@ -172,11 +200,30 @@ def _low_rank_gram(b, dtype, device):
     return add_jitter(kuu.expand(b, m, m).contiguous())
 
 
+def _chol_at_panel(K, nb):
+    """The Cholesky kernel's f32 C entry at panel width ``nb``, called
+    directly (the wrapper takes panel_width(M)): for the sweep of both
+    widths.  Returns a function that launches it into a fixed output."""
+    from gpitch_tpu_torch.linalg import _cuda
+    lib = _cuda.load("chol")
+    b, m = K.shape[0], K.shape[-1]
+    out = torch.empty_like(K)
+    elems = lib.gpitch_chol_scratch(m, nb, K.element_size())
+    scratch = torch.empty((b, elems), dtype=K.dtype, device=K.device) if elems > 0 else None
+
+    def run():
+        _cuda.check(lib.gpitch_chol_f32(
+            K.data_ptr(), out.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            b, m, nb, torch.cuda.current_stream().cuda_stream), "chol sweep")
+    return run
+
+
 def phase_chol(dev) -> dict:
     from gpitch_tpu_torch.linalg.chol import cholesky_batched, cholesky_plain
     gen = torch.Generator().manual_seed(0)
     cases = [("spd", (62, 112), torch.float32), ("spd", (63, 112), torch.float32),
              ("spd", (222, 112), torch.float32), ("spd", (64, 160), torch.float32),
+             ("spd", (43, 160), torch.float32),
              ("spd", (8, 256), torch.float32), ("spd", (5, 24), torch.float32),
              ("spd", (8, 256), torch.float64), ("spd", (62, 112), torch.float64),
              ("ill", (62, 112), torch.float32), ("ill", (64, 160), torch.float32),
@@ -206,9 +253,15 @@ def phase_chol(dev) -> dict:
                "max_abs_err_plain": err_plain, "max_abs_err_library": err_lib,
                "scale": scale, "tol": tol, "ok": ok}
         if kind == "spd" and dtype == torch.float32 and m in (112, 160, 256):
-            row["kernel_ms"] = cuda_ms(lambda: cholesky_batched(K), 50)
-            row["plain_ms"] = cuda_ms(lambda: cholesky_plain(K), 3, warmup=1)
-            row["library_ms"] = cuda_ms(lambda: torch.linalg.cholesky_ex(K), 50)
+            # device times (CUDA graphs), then calls from Python
+            row["kernel_ms"] = graph_ms(lambda: cholesky_batched(K))
+            row["plain_ms"] = graph_ms(lambda: cholesky_plain(K), reps=1, replays=3)
+            row["library_ms"] = graph_ms(lambda: torch.linalg.cholesky_ex(K))
+            row["kernel_call_ms"] = cuda_ms(lambda: cholesky_batched(K), 50)
+            row["library_call_ms"] = cuda_ms(lambda: torch.linalg.cholesky_ex(K), 50)
+            # both panel widths the kernel has; the wrapper takes panel_width(M)
+            for nb in (16, 32):
+                row[f"kernel_ms_nb{nb}"] = graph_ms(_chol_at_panel(K, nb))
             # the kernel reads K's lower triangle and writes all of L
             nbytes = K.element_size() * b * (m * (m + 1) // 2 + m * m)
             row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 2 * b * m ** 3 / 3)
@@ -216,18 +269,25 @@ def phase_chol(dev) -> dict:
         assert ok, f"cholesky kernel disagrees: {row}"
     out = {"phase": "chol", "cases": rows}
     emit(out)
+    torch.cuda.empty_cache()    # later phases start from the allocator state of before
     return out
 
 
 def phase_specmix(dev) -> dict:
+    """The kernel against its plain version in f32 (the same features) and
+    against the f64 plain version on the same inputs (the truth): 1e-6 and
+    2e-6 of max|K| per source, of sum_s max|K_s| for a source sum.  Cases:
+    the prediction shapes at the SoSp width (16 kHz, 3 x 5 partials to
+    4 kHz, times in [0, 0.125) s), both envelopes, and the AMT width (44.1
+    kHz, a centred 2001-sample window, 8 pitches from C4 x 10 partials up
+    to 0.45 fs)."""
     from gpitch_tpu_torch.linalg.specmix import specmix_matrix, specmix_plain
-    b, s, p = 8, 3, 5
     rng = np.random.default_rng(0)
 
     def t(a):
         return torch.as_tensor(a, dtype=torch.float32, device=dev)
 
-    def inputs(n, m):
+    def inputs(b, s, p, n, m):
         """predict_s builds (S, N, N) Grams of a window's points against
         themselves; predict_f sums the sources of the (N=112 inducing, M=2001)
         cross-covariance."""
@@ -238,38 +298,71 @@ def phase_specmix(dev) -> dict:
                 t(rng.uniform(100.0, 4000.0, (b, s, p))), t(rng.uniform(0.5, 2.0, (b, s))),
                 t(rng.uniform(0.05, 0.3, (b, s))))
 
+    def amt_inputs(b, s, p, n):
+        fs = 44100.0
+        x = t(np.broadcast_to((np.arange(n) - (n - 1) / 2) / fs, (b, n)).copy())
+        f0 = 261.6 * 2 ** (np.arange(s) / 12)
+        freq = np.minimum(f0[:, None] * np.arange(1, p + 1), 0.45 * fs)
+        energy = rng.uniform(0.1, 1.0, (b, s, p))
+        return (x, x, t(energy / energy.sum(-1, keepdims=True)),
+                t(np.broadcast_to(freq, (b, s, p)).copy()), t(rng.uniform(0.5, 2.0, (b, s))),
+                t(rng.uniform(0.01, 0.1, (b, s))))
+
     rows = []
-    for n, m, m32, sum_sources in ((2001, 2001, False, False), (2001, 2001, True, False),
-                                   (112, 2001, False, True)):
-        args = inputs(n, m)
+    for name, args, m32, sum_sources in (
+            ("sosp", inputs(8, 3, 5, 2001, 2001), False, False),
+            ("sosp", inputs(8, 3, 5, 2001, 2001), True, False),
+            ("sosp", inputs(8, 3, 5, 112, 2001), False, True),
+            ("amt", amt_inputs(4, 8, 10, 2001), False, False)):
+        b, n = args[0].shape
+        m = args[1].shape[1]
+        s, p = args[2].shape[1:]
         with torch.no_grad():
             K = specmix_matrix(*args, m32=m32, sum_sources=sum_sources)
-            Kp = specmix_plain(*args, m32=m32, sum_sources=sum_sources)
+            Kp = specmix_plain(*args, m32=m32)
+            Kt = specmix_plain(*[a.double() for a in args], m32=m32)
             Ks = specmix_matrix(*args, m32=m32, sum_sources=True)
-            Ksp = Kp if sum_sources else Kp.sum(1)
         torch.cuda.synchronize()
-        scale = float(Kp.abs().max())
-        err = float((K - Kp).abs().max())
-        err_sum = float((Ks - Ksp).abs().max())
-        # same f32 arguments on both sides; cosf/expf vs torch's within a few
-        # ulp, and up to P + 1 terms summed (S (P + 1) with sum_sources)
-        tol = (3e-5 if sum_sources else 1e-5) * scale
-        ok = bool(torch.isfinite(K).all()) and err <= tol and err_sum <= 3e-5 * scale
+        scale = Kt.abs().amax((-1, -2))                       # (B, S)
+        scale_sum = scale.sum(1)                              # (B,)
+
+        def rel(got, want, sc):
+            return float(((got.double() - want.double()).abs().amax((-1, -2)) / sc).max())
+
+        if sum_sources:
+            err_plain, err_truth = rel(K, Kp.sum(1), scale_sum), rel(K, Kt.sum(1), scale_sum)
+        else:
+            err_plain, err_truth = rel(K, Kp, scale), rel(K, Kt, scale)
+        err_sum = rel(Ks, Kt.sum(1), scale_sum)
+        err_plain_truth = rel(Kp, Kt, scale)
+        ok = (bool(torch.isfinite(K).all()) and err_plain <= 1e-6 and err_truth <= 2e-6
+              and err_sum <= 2e-6)
+        del Kt, Ks
         nout = b * n * m * (1 if sum_sources else s)
         nbytes = 4 * b * (n + m + 4 * s * p) + 4 * nout
         flops = b * s * n * m * (4 * p + 6)
-        row = {"m32": m32, "sum_sources": sum_sources, "shape": [b, s, n, m, p],
-               "max_abs_err": err, "max_rel_err": err / scale,
-               "max_abs_err_sum_sources": err_sum, "tol": tol, "ok": ok,
-               "kernel_ms": cuda_ms(lambda: specmix_matrix(
-                   *args, m32=m32, sum_sources=sum_sources), 20),
-               "plain_ms": cuda_ms(lambda: specmix_plain(
-                   *args, m32=m32, sum_sources=sum_sources), 3, warmup=1)}
+        ref = Kp.sum(1) if sum_sources else Kp
+        row = {"case": name, "m32": m32, "sum_sources": sum_sources, "shape": [b, s, n, m, p],
+               "max_abs_err": float((K - ref).abs().max()), "max_rel_err_plain": err_plain,
+               "max_rel_err_f64": err_truth, "max_rel_err_sum_f64": err_sum,
+               "plain_f32_rel_err_f64": err_plain_truth, "ok": ok,
+               # device times (CUDA graphs), then the call from Python
+               "kernel_ms": graph_ms(lambda: specmix_matrix(
+                   *args, m32=m32, sum_sources=sum_sources), reps=5),
+               "plain_ms": graph_ms(lambda: specmix_plain(
+                   *args, m32=m32, sum_sources=sum_sources), reps=1, replays=3),
+               # no torch call computes it; filling the same output with a
+               # constant is the practical floor of its writes
+               "library_ms": None, "fill_ms": graph_ms(lambda: K.fill_(1.0), reps=5),
+               "kernel_call_ms": cuda_ms(lambda: specmix_matrix(
+                   *args, m32=m32, sum_sources=sum_sources), 20)}
+        del Kp, ref
         row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops)
         rows.append(row)
         assert ok, f"specmix kernel disagrees: {row}"
     out = {"phase": "specmix", "cases": rows}
     emit(out)
+    torch.cuda.empty_cache()    # the f64 references and the graphs' pools take GBs
     return out
 
 
@@ -766,9 +859,18 @@ def phase_profile(model) -> None:
             return [{"name": e.key[:70], "device_ms": _device_us(e) / 1e3,
                      "calls": e.count} for e in evts[:n]]
 
+        # the port's own kernels: device ms and launches by kernel name
+        port = {}
+        for e in kernels:
+            for name in ("chol_kernel", "features_kernel", "specmix_kernel", "fused_whiten"):
+                if name in e.key:
+                    ms, n = port.get(name, (0.0, 0))
+                    port[name] = (ms + _device_us(e) / 1e3, n + e.count)
         emit({"phase": "profile", "window": what, "wall_ms": wall_us / 1e3,
               "device_ms": device_us / 1e3, "device_busy_share": device_us / wall_us,
-              "top_ops": top(ops, 10), "top_kernels": top(kernels, 10)})
+              "top_ops": top(ops, 10), "top_kernels": top(kernels, 10),
+              "port_kernels": {k: {"device_ms": ms, "launches": n}
+                               for k, (ms, n) in port.items()}})
 
 
 def main() -> int:
@@ -794,6 +896,8 @@ def main() -> int:
                      and r["shape"] == [sosp["windows"], 112, 112]
                      and r["dtype"] == "float32")
     main_spec = spec["cases"][0]
+    # rows 1-2: ms, plain_ms and library_ms are device times (graph_ms);
+    # rows 3-5: all three from calls from Python (cuda_ms)
     kernels = [
         {"name": "cholesky_batched", "route": "cuda",
          "source": "gpitch_tpu_torch/csrc/chol.cu",
@@ -802,7 +906,8 @@ def main() -> int:
          "shape": main_chol["shape"],
          "max_abs_err": main_chol["max_abs_err_plain"], "ms": main_chol["kernel_ms"],
          "plain_ms": main_chol["plain_ms"], "bound_ms": main_chol["bound_ms"],
-         "bound_by": main_chol["bound_by"], "library_ms": main_chol["library_ms"]},
+         "bound_by": main_chol["bound_by"], "library_ms": main_chol["library_ms"],
+         "timed_by": "cuda_graph"},
         {"name": "specmix_matrix", "route": "cuda",
          "source": "gpitch_tpu_torch/csrc/specmix.cu",
          "replaces": "gpitch_tpu/linalg/pallas/specmix.py:49",
@@ -810,7 +915,7 @@ def main() -> int:
          "shape": main_spec["shape"],
          "max_abs_err": main_spec["max_abs_err"], "ms": main_spec["kernel_ms"],
          "plain_ms": main_spec["plain_ms"], "bound_ms": main_spec["bound_ms"],
-         "bound_by": main_spec["bound_by"], "library_ms": None},
+         "bound_by": main_spec["bound_by"], "library_ms": None, "timed_by": "cuda_graph"},
     ]
     # kernels 3 and 4 are one CUDA kernel (A) behind two entry points; 5 is
     # kernel B.  Times at the prototypes' SoSp-width inputs (case a); the
@@ -834,7 +939,7 @@ def main() -> int:
                         "replaces": replaces, "launches": whiten["launches"][name],
                         "shape": case_a["shape"], "max_abs_err": err, "ms": ms,
                         "plain_ms": plain, "bound_ms": bound, "bound_by": by,
-                        "library_ms": lib})
+                        "library_ms": lib, "timed_by": "python_calls"})
     emit({"kernels": kernels})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(device["nvidia_smi"], flush=True)

@@ -22,11 +22,15 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 # name -> {C function: argtypes}; every function returns a cudaError_t as int
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 SIGNATURES = {
-    "chol": {f"gpitch_chol_{t}": [_P, _P, _P, _L, _I, _P]
-             for t in ("f32", "f64")},
-    "specmix": {f"gpitch_specmix_{t}": [_P, _P, _P, _P, _P, _P, _P,
-                                        _L, _I, _I, _I, _I, _I, _I, _P]
-                for t in ("f32", "f64")},
+    # K, L, scratch, B, M, panel, stream; the scratch query: M, panel, elem
+    "chol": {"gpitch_chol_f32": [_P, _P, _P, _L, _I, _I, _P],
+             "gpitch_chol_f64": [_P, _P, _P, _L, _I, _I, _P],
+             "gpitch_chol_scratch": [_I, _I, _I]},
+    # x, x2, energy, freq, var, ls, feature workspace, out; B, S, N, M, P,
+    # m32, sum_sources; stream.  The workspace query: N, M, P
+    "specmix": {"gpitch_specmix_f32": [_P] * 8 + [_L, _I, _I, _I, _I, _I, _I, _P],
+                "gpitch_specmix_f64": [_P] * 8 + [_L, _I, _I, _I, _I, _I, _I, _P],
+                "gpitch_specmix_workspace": [_I, _I, _I]},
     # inputs, partial sums, output; window strides of (S, P) and (S,)
     # parameters; nw, M, N, S, P, splits; stream.  The split plan: backward?,
     # nw, M, N, S, P -> splits

@@ -11,6 +11,12 @@ sum_s K[b,s].  ``m32`` mirrors the TPU kernel's option: no covariance of
 the port (Matern12sm) passes it yet.  Forward only: the training bound builds its covariances with
 the differentiable feature matmul (kernels/spectral.py), and this wrapper
 refuses inputs that would need a gradient.
+
+The kernel (``gpitch_tpu_torch/csrc/specmix.cu``) and ``specmix_plain`` both
+take the feature form sum_p phi_p(x) . phi_p(x2), phi_p(x) = sqrt(e_p)
+(cos, sin)(2 pi f_p x), with each angle formed and reduced mod 2 pi in f64
+before it is rounded to the working type: in f32 the direct cos(2 pi f
+(x - x2)) loses ~1e-4 of max|K| to the rounding of arguments ~1e3 rad.
 """
 
 from __future__ import annotations
@@ -40,19 +46,28 @@ def _check(x, x2, energy, frequency, variance, lengthscale):
     return b, s, n, m, p
 
 
+def _features(t, energy, frequency):
+    """(B, S, 2P, len) features sqrt(e_p) (cos, sin)(2 pi f_p t) of the points
+    t (B, len): the angle in f64, reduced mod 2 pi in f64, then rounded to
+    the working type, where cos and sin are taken."""
+    ang = ((_TWO_PI * frequency.double())[..., None]
+           * t.double()[:, None, None, :])                   # (B, S, P, len)
+    ang = (ang - _TWO_PI * torch.round(ang / _TWO_PI)).to(t.dtype)
+    root = torch.sqrt(energy)[..., None]
+    return torch.cat([root * torch.cos(ang), root * torch.sin(ang)], -2)
+
+
 def specmix_plain(x, x2, energy, frequency, variance, lengthscale,
                   m32: bool = False, sum_sources: bool = False):
-    """The kernel's formula in torch, partial by partial.  Shapes as in
+    """The kernel's algorithm in torch: features of every point, their
+    products summed over the partials, times the envelope.  Shapes as in
     ``specmix_matrix``."""
+    mix = _features(x, energy, frequency).mT @ _features(x2, energy, frequency)
     d = x[:, None, :, None] - x2[:, None, None, :]           # (B, 1, N, M)
     r1 = d.abs() * (1.0 / lengthscale)[:, :, None, None]     # (B, S, N, M)
     env = torch.exp(-r1)
     if m32:
         env = (1.0 + r1) * env
-    w = _TWO_PI * frequency
-    mix = energy[:, :, 0, None, None] * torch.cos(w[:, :, 0, None, None] * d)
-    for p in range(1, energy.shape[-1]):
-        mix = mix + energy[:, :, p, None, None] * torch.cos(w[:, :, p, None, None] * d)
     K = variance[:, :, None, None] * env * mix
     return K.sum(1) if sum_sources else K
 
@@ -77,16 +92,17 @@ def specmix_matrix(x, x2, energy, frequency, variance, lengthscale,
         raise ValueError(f"unsupported device {x.device}")
     if x.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"unsupported dtype {x.dtype}")
-    if (b if sum_sources else b * s) > 65535:
-        raise ValueError("more than 65535 matrices in one launch")
     inputs = [t.contiguous() for t in inputs]
     out = torch.empty((b, n, m) if sum_sources else (b, s, n, m),
                       dtype=x.dtype, device=x.device)
     lib = _cuda.load("specmix")
+    feat = torch.empty((b, s, lib.gpitch_specmix_workspace(n, m, p)), dtype=x.dtype,
+                       device=x.device)
     fn = (lib.gpitch_specmix_f32 if x.dtype == torch.float32
           else lib.gpitch_specmix_f64)
     with torch.cuda.device(x.device):
-        rc = fn(*(t.data_ptr() for t in inputs), out.data_ptr(), b, s, n, m, p,
+        rc = fn(*(t.data_ptr() for t in inputs), feat.data_ptr(), out.data_ptr(),
+                b, s, n, m, p,
                 int(m32), int(sum_sources),
                 torch.cuda.current_stream(x.device).cuda_stream)
     _cuda.check(rc, "specmix_matrix")

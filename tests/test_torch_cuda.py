@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from gpitch_tpu_torch.linalg import ops
-from gpitch_tpu_torch.linalg.chol import cholesky_batched, cholesky_plain
+from gpitch_tpu_torch.linalg.chol import cholesky_batched, cholesky_plain, panel_width
 from gpitch_tpu_torch.linalg.specmix import specmix_matrix, specmix_plain
 from fused_whiten_inputs import prototype_inputs
 
@@ -33,13 +33,19 @@ def _ill_gram(m):
     return np.exp(-np.abs(i[:, None] - i[None, :]) / max(m / 3.0, 1.0)) + 1e-3 * np.eye(m)
 
 
-@pytest.mark.parametrize("m,dtype", [(24, torch.float32), (112, torch.float32),
-                                     (160, torch.float32), (256, torch.float32),
-                                     (112, torch.float64), (256, torch.float64)])
-def test_cuda_cholesky_kernel_matches_plain(cuda, m, dtype):
-    """f32: 1e-4 of max|L| (f32 rounding along an M-step chain); f64: 1e-11.
-    M = 256 in f64 runs on the device-memory scratch path."""
-    K = torch.as_tensor(_spd(np.random.default_rng(m), 9, m)).to(cuda, dtype)
+@pytest.mark.parametrize("m,dtype,b", [(24, torch.float32, 9), (100, torch.float32, 9),
+                                       (112, torch.float32, 9), (128, torch.float32, 9),
+                                       (136, torch.float32, 9), (160, torch.float32, 9),
+                                       (200, torch.float32, 9), (256, torch.float32, 9),
+                                       (112, torch.float64, 9), (160, torch.float64, 9),
+                                       (256, torch.float64, 9), (112, torch.float32, 1),
+                                       (112, torch.float32, 222), (160, torch.float32, 43)])
+def test_cuda_cholesky_kernel_matches_plain(cuda, m, dtype, b):
+    """f32: 1e-4 of max|L| (f32 rounding along the chain of panels); f64:
+    1e-11.  Panels of 16 up to M 128, of 32 above (panel_width); M 256 in
+    f64 runs on the device-memory scratch path; M 24, 100, 136 and 200 end
+    in a ragged panel."""
+    K = torch.as_tensor(_spd(np.random.default_rng(m), b, m)).to(cuda, dtype)
     before = cholesky_batched.launches
     got = cholesky_batched(K)
     assert cholesky_batched.launches == before + 1
@@ -53,11 +59,18 @@ def test_cuda_cholesky_kernel_matches_plain(cuda, m, dtype):
     assert float((Lg - cholesky_plain(g)).abs().max()) <= 1e-3 * float(Lg.abs().max())
 
 
-def test_cuda_cholesky_not_positive_definite_gives_nan(cuda):
-    K = torch.eye(16, dtype=torch.float32, device=cuda).repeat(2, 1, 1)
-    K[1, 9, 9] = -1.0
+@pytest.mark.parametrize("panel,m", [(16, 40), (32, 160)], ids=["16", "32"])
+def test_cuda_cholesky_not_positive_definite_gives_nan(cuda, panel, m):
+    """NaN from the failing pivot on, finite before it, also past the first
+    panel (in the second panel of 16 at M 40, of 32 at M 160), as the plain
+    version."""
+    assert panel_width(m) == panel
+    k = panel + 9
+    K = torch.eye(m, dtype=torch.float32, device=cuda).repeat(2, 1, 1)
+    K[1, k, k] = -1.0
     L = cholesky_batched(K)
-    assert bool(torch.isfinite(L[0]).all()) and bool(torch.isnan(L[1]).any())
+    assert bool(torch.isfinite(L[0]).all()) and bool(torch.isnan(L[1, k:, k]).all())
+    assert bool(torch.isfinite(L[1, :, :k]).all())
 
 
 def test_cuda_chol_inv_matches_cpu(cuda):
@@ -75,30 +88,46 @@ def test_cuda_chol_inv_matches_cpu(cuda):
         assert float((a - b).abs().max()) <= 1e-9 * float(b.abs().max())
 
 
-def _specmix_args(dev, b, s, n, m, p):
+def _specmix_args(dev, b, s, n, m, p, dtype=torch.float32):
     rng = np.random.default_rng(9)
     arrays = (np.sort(rng.uniform(0.0, 0.125, (b, n)), axis=1),
               np.sort(rng.uniform(0.0, 0.125, (b, m)), axis=1),
               rng.uniform(0.1, 1.0, (b, s, p)), rng.uniform(100.0, 4000.0, (b, s, p)),
               rng.uniform(0.5, 2.0, (b, s)), rng.uniform(0.05, 0.3, (b, s)))
-    return [torch.as_tensor(a, dtype=torch.float32, device=dev) for a in arrays]
+    return [torch.as_tensor(a, dtype=dtype, device=dev) for a in arrays]
 
 
+@pytest.mark.parametrize("shape", [(3, 3, 300, 257, 5), (2, 88, 300, 257, 20)])
 @pytest.mark.parametrize("m32", [False, True])
-def test_cuda_specmix_kernel_matches_plain(cuda, m32):
-    """f32 with cosine arguments up to ~3e3 rad: both sides form the same
-    f32 arguments, so they differ by the cos/exp implementations' few ulp;
-    1e-5 of max|K| per source, 3e-5 for the source sum."""
-    args = _specmix_args(cuda, 3, 3, 300, 257, 5)
+def test_cuda_specmix_kernel_matches_plain(cuda, m32, shape):
+    """f32 with cosine arguments up to ~3e3 rad, per source and summed: the
+    kernel against the f32 plain version (the same features; the sums in
+    another order) at 1e-6 of max|K|, and against the f64 plain version on
+    the same inputs (the truth) at 2e-6; for the sum, of sum_s max|K_s|."""
+    args = _specmix_args(cuda, *shape)
     with torch.no_grad():
         before = specmix_matrix.launches
         got = specmix_matrix(*args, m32=m32)
         summed = specmix_matrix(*args, m32=m32, sum_sources=True)
         assert specmix_matrix.launches == before + 2
         want = specmix_plain(*args, m32=m32)
-    scale = float(want.abs().max())
-    assert float((got - want).abs().max()) <= 1e-5 * scale
-    assert float((summed - want.sum(1)).abs().max()) <= 3e-5 * scale
+        truth = specmix_plain(*[a.double() for a in args], m32=m32)
+    scale = truth.abs().amax((-1, -2))                       # (B, S)
+    assert bool(((got - want).abs().amax((-1, -2)) <= 1e-6 * scale).all())
+    assert bool(((got.double() - truth).abs().amax((-1, -2)) <= 2e-6 * scale).all())
+    scale_sum = scale.sum(1)
+    assert bool(((summed - want.sum(1)).abs().amax((-1, -2)) <= 1e-6 * scale_sum).all())
+    assert bool(((summed.double() - truth.sum(1)).abs().amax((-1, -2))
+                 <= 2e-6 * scale_sum).all())
+
+
+def test_cuda_specmix_f64_matches_plain(cuda):
+    """f64 kernel against the f64 plain version: 1e-12 of max|K|."""
+    args = _specmix_args(cuda, 2, 3, 300, 257, 5, torch.float64)
+    with torch.no_grad():
+        got = specmix_matrix(*args)
+        want = specmix_plain(*args)
+    assert float((got - want).abs().max()) <= 1e-12 * float(want.abs().max())
 
 
 def test_cuda_specmix_refuses_gradients(cuda):

@@ -17,7 +17,7 @@ from gpitch_tpu.linalg.pallas.chol import cholesky_batched as j_cholesky_batched
 from gpitch_tpu.linalg.pallas.specmix import specmix_matrix as j_specmix
 from gpitch_tpu.linalg.pallas.specmix import specmix_matrix_xla as j_specmix_xla
 from gpitch_tpu_torch.linalg import ops as tops
-from gpitch_tpu_torch.linalg.chol import cholesky_batched, cholesky_plain
+from gpitch_tpu_torch.linalg.chol import cholesky_batched, cholesky_plain, panel_width
 from gpitch_tpu_torch.linalg.specmix import specmix_matrix, specmix_plain
 
 
@@ -33,11 +33,20 @@ def _ill_gram(m, dtype=np.float64):
     return (corr + 1e-3 * np.eye(m)).astype(dtype)
 
 
-@pytest.mark.parametrize("b,m,bt", [(5, 24, 4), (3, 112, 2), (2, 160, 2)])
+@pytest.mark.parametrize("b,m,bt", [
+    pytest.param(b, m, bt, id=f"{b}-{m}-{bt}")
+    for b, m, bt in [(5, 24, 4), (3, 100, 3), (3, 112, 2), (2, 128, 2), (2, 136, 2),
+                     (2, 160, 2), (2, 200, 2), (1, 256, 1)]])
 def test_cholesky_plain_matches_pallas_and_xla(b, m, bt):
-    """Both Pallas branches (M < 96 unblocked, M >= 96 panel) in f32, at the
-    tolerance of tests/test_pallas.py (f32 rounding, 3e-5); the f64 plain
-    recurrence against LAPACK at 1e-12 (f64 rounding, well conditioned)."""
+    """Both Pallas branches (unblocked below M 96 and where no panel of
+    32/28/16 divides M: 100, 136, 200; panel at 112, 128, 160, 256) in f32,
+    at the tolerance of tests/test_pallas.py (f32 rounding, 3e-5); the f64
+    plain recurrence against LAPACK at 1e-12 (f64 rounding, well
+    conditioned).  The plain recurrence takes the kernel's panel width
+    (panel_width: 16 up to M 128, 32 above), so M 24-128 run panels of 16
+    and M 136-256 panels of 32; the last panel is ragged at M 24 (under one
+    panel), 100 (6 x 16 + 4), 136 (4 x 32 + 8) and 200 (6 x 32 + 8)."""
+    assert panel_width(m) == (16 if m <= 128 else 32)
     K = _spd(np.random.default_rng(5), b, m, np.float32)
     got = cholesky_plain(torch.as_tensor(K)).numpy()
     pallas = np.asarray(j_cholesky_batched(jnp.asarray(K), batch_tile=bt,
@@ -79,6 +88,20 @@ def test_cholesky_not_positive_definite_gives_nan():
     assert np.isnan(np.asarray(jnp.linalg.cholesky(K[1]))).any()
     L, _ = tops.chol_inv(torch.as_tensor(K))
     assert np.isnan(L[1].numpy()).all() and np.isfinite(L[0].numpy()).all()
+
+
+@pytest.mark.parametrize("panel,m", [(16, 40), (32, 160)], ids=["16", "32"])
+def test_cholesky_nan_starts_at_the_failing_pivot(panel, m):
+    """The columns before a failing pivot stay finite and the pivot's column
+    is NaN, also when the pivot lies past the first panel (in the second
+    panel of 16 at M 40, of 32 at M 160)."""
+    assert panel_width(m) == panel
+    k = panel + 9
+    K = np.eye(m)[None].repeat(2, 0)
+    K[1, k, k] = -1.0
+    got = cholesky_plain(torch.as_tensor(K)).numpy()
+    assert np.isfinite(got[0]).all() and np.isnan(got[1, k:, k]).all()
+    assert np.isfinite(got[1, :, :k]).all()
 
 
 def test_cholesky_wrapper_uses_plain_version_on_cpu():
@@ -124,6 +147,37 @@ def test_specmix_plain_matches_pallas_and_xla(m32):
     summed = specmix_plain(*map(torch.as_tensor, (x, x2, e, f, v, ls)), m32=m32,
                            sum_sources=True).numpy()
     np.testing.assert_allclose(summed, got.sum(1), rtol=1e-13, atol=1e-13)
+
+
+def test_specmix_plain_f32_holds_the_amt_width():
+    """f32 at the AMT width (44.1 kHz, a centred 2001-sample window, 8
+    pitches x 20 partials up to 0.45 fs = 19.8 kHz) against the f64 XLA
+    feature-matmul reference: the feature form with f64 angles keeps each
+    source within 1e-6 of max|K| (f32 rounding of the reduced angle and the
+    products).  The direct form, cos(2 pi f (x - x2)) on f32 arguments of up
+    to ~2.8e3 rad, misses that by two orders of magnitude."""
+    fs, n, s, p = 44100.0, 2001, 8, 20
+    rng = np.random.default_rng(11)
+    x = ((np.arange(n) - (n - 1) / 2) / fs).astype(np.float32)
+    x2 = x[::8].copy()
+    f0 = 27.5 * 2 ** (np.arange(0, 88, 11) / 12)
+    f = np.minimum(f0[:, None] * np.arange(1, p + 1), 0.45 * fs).astype(np.float32)
+    e = rng.uniform(0.1, 1.0, (s, p))
+    e = (e / e.sum(-1, keepdims=True)).astype(np.float32)
+    v = rng.uniform(0.5, 2.0, s).astype(np.float32)
+    ls = rng.uniform(0.01, 0.1, s).astype(np.float32)
+    got = specmix_plain(*map(torch.as_tensor, (x[None], x2[None], e[None], f[None],
+                                               v[None], ls[None]))).numpy()[0]
+    d = x[:, None] - x2[None, :]                                # f32 arguments
+    for si in range(s):
+        want = np.asarray(j_specmix_xla(*(jnp.asarray(a, dtype=jnp.float64) for a in (
+            x[:, None], x2[:, None], e[si], f[si])), float(v[si]), float(ls[si])))
+        scale = np.abs(want).max()
+        assert np.abs(got[si] - want).max() <= 1e-6 * scale
+        direct = v[si] * np.exp(-np.abs(d) / ls[si]) * sum(
+            e[si, q] * np.cos(np.float32(2 * np.pi) * f[si, q] * d) for q in range(p))
+        if si == s - 1:     # the highest partials: the direct form's worst case
+            assert np.abs(direct - want).max() > 30e-6 * scale
 
 
 def test_specmix_wrapper_is_forward_only():
