@@ -26,8 +26,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               of three steps' parts, the first predictions, and what
               torch.optim.Adam would add;
   8. full     the 14 s mix (222 windows): 20 Adam steps and predict_s;
-  9. profile  torch.profiler over 5 of those steps and one predict_s;
- 10. fused_whiten  the fused build -> whiten -> accumulate pair (kernel A
+  9. fused_whiten  the fused build -> whiten -> accumulate pair (kernel A
               through fused_whiten and fused_whiten_flat, kernel B) against
               its plain version: (a) the prototypes' inputs at the SoSp width,
               (b) the AMT width, (c) an 88-pitch dictionary, (d) the trained
@@ -35,6 +34,20 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               leaf's gradient; the pair's launch counts are read over (d)),
               (e) times at (a) and (b), and at each split of a window's
               tiles over blocks;
+ 10. amt      transcription end to end (tests_tpu/workloads.make_amt: 1 s
+              at 44.1 kHz, 43 windows, M 160, 8 pitches x 10 partials,
+              y x 20): 100 Adam steps in windows of 16 held against the
+              CPU-f64 golden trajectory, matrix_var, the MAD pianoroll's
+              F-measure; the Cholesky kernel's launches over this phase;
+ 11. amt_full the AMT bank at full width: 10 s (439 windows, 8 x 10,
+              windows of 64) and the 88-pitch dictionary on 2 s (windows
+              of 16): ms per bank step and peak memory;
+ 12. modgp    the ModGP SVGP model: the golden fixture in f64 and f32, the
+              demo (N 16000, 1000 minibatch Adam steps, source RMSE) and
+              the bench workload (M 128, 2000 steps, steps/s);
+ 13. profile  torch.profiler over 5 bank steps and one predict_s of 8's
+              222-window bank, 5 bank steps of 11's 10 s bank and 50 ModGP
+              steps, last because its tracing may stay attached;
 then the kernels line, the nvidia-smi line and the result line.
 Exits non-zero without printing a result when there is no CUDA device.
 """
@@ -135,6 +148,90 @@ def make_sosp(seconds: float, device, dtype, onsets=ONSETS, max_par=5,
                  max_par=max_par, num_inducing=num_inducing, dec=2,
                  device=device, dtype=dtype)
     return model, [sources[p] for p in PITCHES]
+
+
+AMT_FS = 44100.0
+AMT_PITCHES = [60, 62, 64, 65, 67, 69, 71, 72]          # C major, C4 to C5
+
+
+def make_amt(seconds: float, device, dtype, pitches=AMT_PITCHES, max_par=10,
+             reg=False):
+    """The transcription workload of tests_tpu/workloads.make_amt: the C
+    major scale as piano-like notes (seeded by pitch) with onsets 0.05 +
+    0.11 i s, repeated every 1 s over ``seconds``, at 44.1 kHz; ws 2001, M
+    160, dec 3, y x 20.  ``pitches`` is the model's dictionary (the scale's
+    notes, or MIDI 21-108).  Returns (model, note events (onset, offset,
+    midi))."""
+    from gpitch_tpu_torch.audio.io import synth_piano_note
+    from gpitch_tpu_torch.pipelines import AMT
+    n = int(AMT_FS * seconds)
+    notes = {p: synth_piano_note(fs=AMT_FS, seconds=2.0, f0=_f0(p), seed=p)[1][:, 0]
+             for p in sorted(set(pitches) | set(AMT_PITCHES))}
+    onsets = [(p, 0.05 + 0.11 * i + k) for k in range(int(np.ceil(seconds)))
+              for i, p in enumerate(AMT_PITCHES) if 0.05 + 0.11 * i + k < seconds]
+    mix = np.zeros(n)
+    for p, on in onsets:
+        i0 = int(on * AMT_FS)
+        seg = notes[p][: n - i0]
+        mix[i0: i0 + len(seg)] += seg
+    x = (np.arange(n) / AMT_FS).reshape(-1, 1)
+    model = AMT(train_signals=[notes[p] for p in pitches],
+                train_names=[f"piano_M{p}_train.wav" for p in pitches], fs=AMT_FS,
+                test=(x, mix), pitches=pitches, window_size=2001, kernel_mode="fft",
+                max_par=max_par, num_inducing=160, dec=3, reg=reg, device=device,
+                dtype=dtype)
+    return model, [(on, on + 2.0, p) for p, on in onsets]
+
+
+def golden_modgp(dtype, device):
+    """The seeded 2-source ModGP of tests/test_golden.py:23-50 (random q_mu,
+    scaled lower-triangular q_sqrt), built with the port.  Returns (model,
+    x, y)."""
+    import dataclasses
+    from gpitch_tpu_torch.core.params import Param
+    from gpitch_tpu_torch.core.transforms import FillTriangular
+    from gpitch_tpu_torch.kernels import Matern32, MercerMatern12sm
+    from gpitch_tpu_torch.models import ModGP
+    rng = np.random.default_rng(42)
+    n, m, fs = 32, 8, 800.0
+    x = (np.arange(n) / fs).reshape(-1, 1)
+    y = (np.sin(2 * np.pi * 50.0 * x) * np.exp(-30 * (x - 0.02) ** 2)
+         + 0.3 * np.sin(2 * np.pi * 80.0 * x) + 0.01 * rng.standard_normal((n, 1)))
+    z = x[:: n // m][:m]
+    kern_act = [Matern32.create(1.0, 0.01, dtype=dtype), Matern32.create(0.8, 0.02, dtype=dtype)]
+    kern_com = [MercerMatern12sm.create(1.0, 0.05, [1.0, 0.4], [50.0, 100.0], dtype=dtype),
+                MercerMatern12sm.create(0.7, 0.04, [0.8, 0.3], [80.0, 160.0], dtype=dtype)]
+    model = ModGP.create(z=[[z, z], [z, z]], kern=[kern_act, kern_com],
+                         noise_variance=0.09, dtype=dtype, device=device)
+    q_mu_a = 0.3 * rng.standard_normal((2, m, 1))
+    q_mu_c = 0.2 * rng.standard_normal((2, m, 1))
+    tril = np.tril(0.05 * rng.standard_normal((2, m, m))) + 0.7 * np.eye(m)[None]
+
+    def param(value, *transform):
+        return Param.create(value, *transform, dtype=dtype, device=device)
+
+    model = dataclasses.replace(
+        model, q_mu_act=param(q_mu_a), q_mu_com=param(q_mu_c),
+        q_sqrt_act=param(tril, FillTriangular(m)),
+        q_sqrt_com=param(0.9 * tril, FillTriangular(m)))
+    return (model, torch.as_tensor(x, dtype=dtype, device=device),
+            torch.as_tensor(y, dtype=dtype, device=device))
+
+
+def golden_modgp_values(model, x, y) -> dict:
+    """The modgp_* quantities of tests/golden_values.json, as floats and
+    lists."""
+    with torch.no_grad():
+        elbo = float(model.elbo(x, y))
+        kl = float(model.prior_kl())
+        scaled = float(model.elbo(x[:16], y[:16], num_data=32))
+    names = ("modgp_mean_act", "modgp_var_act", "modgp_mean_com", "modgp_var_com",
+             "modgp_mean_src")
+    preds = model.predict_act_n_com(x[::8])
+    out = {"modgp_elbo_whitened": elbo, "modgp_prior_kl": kl,
+           "modgp_elbo_minibatch_scaled": scaled}
+    out.update({k: p.double().cpu().numpy().ravel().tolist() for k, p in zip(names, preds)})
+    return out
 
 
 # ------------------------------------------------------------------- phases
@@ -546,6 +643,187 @@ def phase_full(dev) -> dict:
     return model
 
 
+# ------------------------------------------------------ transcription (AMT)
+def phase_amt(dev) -> dict:
+    """The AMT path: tests_tpu/workloads.make_amt (1 s, 43 windows, 8
+    pitches x 10 partials, M 160) for 100 Adam steps in windows of 16,
+    held against the CPU-f64 golden trajectory (goldens.npz amt_losses);
+    then the MAD pianoroll scored against the piece's notes.  The Cholesky
+    kernel's launches are read over this phase only."""
+    from gpitch_tpu_torch.audio.pianoroll import Pianoroll
+    from gpitch_tpu_torch.linalg.chol import cholesky_batched as chol
+    from gpitch_tpu_torch.linalg.specmix import specmix_matrix as spec
+    golden = np.load(os.path.join(ROOT, "tests_tpu", "goldens.npz"))["amt_losses"]
+    chol.launches = spec.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model, events = make_amt(1.0, dev, torch.float32)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    losses, (first_s, run_s) = model.optimize(maxiter=100, learning_rate=0.01,
+                                              timed=True, window_chunk=16)
+    torch.cuda.synchronize()
+    opt_s = time.perf_counter() - t0
+    launches = {"cholesky_batched": chol.launches, "specmix_matrix": spec.launches}
+    model.piano_roll = Pianoroll(fs=20, duration=1.0, notes=events)
+    p, r, f = model.evaluate(mode="mad")
+    mv = model.matrix_var
+    out = {"phase": "amt", "windows": model.nwin, "M": int(model.z.shape[1]),
+           "pitches": len(model.pitches), "partials": model.bank.kern.stacked.num_partials,
+           "loss0": float(losses[0]), "loss99": float(losses[-1]),
+           "golden0": float(golden[0]), "golden99": float(golden[-1]),
+           "rel0": float(abs(losses[0] / golden[0] - 1)),
+           "rel99": float(abs(losses[-1] / golden[-1] - 1)),
+           "build_s": build_s, "optimize_s": opt_s, "timed_first_s": first_s,
+           "timed_run_s": run_s, "ms_per_bank_step": opt_s / 100 * 1e3,
+           "matrix_var_shape": list(mv.shape), "matrix_var_finite": bool(np.isfinite(mv).all()),
+           "launches": launches, "chol_launches_per_step": chol.launches / 100,
+           "mad_pianoroll": {"precision": float(p), "recall": float(r), "f": float(f)}}
+    emit(out)
+    assert np.isfinite(losses).all(), "non-finite losses"
+    assert out["rel0"] <= 5e-3, f"loss[0] off the golden: {out['rel0']}"
+    assert out["rel99"] <= 0.1, f"loss[99] off the golden: {out['rel99']}"
+    assert losses[-1] < losses[0], "loss did not decrease"
+    assert out["matrix_var_shape"] == [8, 43] and out["matrix_var_finite"]
+    assert launches["cholesky_batched"] > 0, f"the Cholesky kernel never ran: {launches}"
+    return out
+
+
+def _amt_bank_steps(name, model, window_chunk) -> dict:
+    """2 warm-up bank steps, then 10 timed ones, with the peak memory of
+    the timed run."""
+    t0 = time.perf_counter()
+    model.optimize(maxiter=2, learning_rate=0.01, window_chunk=window_chunk)
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses, (first_s, run_s) = model.optimize(maxiter=10, learning_rate=0.01, timed=True,
+                                              window_chunk=window_chunk)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = {"phase": "amt_full", "case": name, "windows": model.nwin,
+           "pitches": len(model.pitches), "stacked": hasattr(model.bank.kern, "stacked"),
+           "window_chunk": window_chunk, "warmup_2_steps_s": warmup_s,
+           "ms_per_bank_step": wall / 10 * 1e3, "timed_first_s": first_s,
+           "timed_run_s": run_s, "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+           "losses_finite": bool(np.isfinite(losses).all()),
+           "matrix_var_finite": bool(np.isfinite(model.matrix_var).all())}
+    emit(out)
+    assert out["losses_finite"] and out["matrix_var_finite"], f"{name}: not finite"
+    return out
+
+
+def phase_amt_full(dev):
+    """The AMT bank at full width: 10 s (439 windows) with the 8 sounding
+    pitches x 10 partials in windows of 64, and the 88-pitch dictionary
+    (MIDI 21-108, 8 partials, the L1 penalty on) on 2 s in windows of 16.
+    Returns (the records, the 10 s model)."""
+    out = {}
+    t0 = time.perf_counter()
+    model, _ = make_amt(10.0, dev, torch.float32)
+    build_s = time.perf_counter() - t0
+    out["sounding"] = _amt_bank_steps("sounding_8x10_10s", model, 64)
+    out["sounding"]["build_s"] = build_s
+    t0 = time.perf_counter()
+    piano, _ = make_amt(2.0, dev, torch.float32, pitches=list(range(21, 109)),
+                        max_par=8, reg=True)
+    build_s = time.perf_counter() - t0
+    out["piano88"] = _amt_bank_steps("piano88_2s", piano, 16)
+    out["piano88"]["build_s"] = build_s
+    del piano
+    torch.cuda.empty_cache()
+    return out, model
+
+
+# ------------------------------------------------------------ ModGP (SVGP)
+def make_modgp_demo(dev, n=16000, num_inducing=None, noise=1e-6):
+    """The workload of demos/demo_modgp.py:37-54 (num_inducing None, noise
+    1e-6) and of bench.py:37-66 (num_inducing 128 taken evenly from the
+    extrema, noise 1e-6 -> 1e-3 variance): 1 s at 16 kHz of a 3-harmonic
+    15 Hz component under a two-bump envelope, inducing points at the
+    extrema (dec 1), a Matern32 activation and a 3-partial
+    MercerMatern12sm, f32.  Returns (model, x, y, the true source)."""
+    from gpitch_tpu_torch.kernels import Matern32, MercerMatern12sm
+    from gpitch_tpu_torch.models import ModGP
+    from gpitch_tpu_torch.pipelines import init_liv
+    fs = 16000
+    x = np.linspace(0.0, (n - 1.0) / fs, n).reshape(-1, 1)
+    comp = sum(np.sin(2 * np.pi * x * (k + 1) * 15.0) for k in range(3))
+    comp /= np.max(np.abs(comp))
+    env = np.exp(-25 * (x - 0.33) ** 2) + np.exp(-75 * (x - 0.66) ** 2)
+    env /= np.max(np.abs(env))
+    y = comp * env + np.sqrt(noise) * np.random.default_rng(0).standard_normal((n, 1))
+    z, _ = init_liv(x=x, y=y, win_size=31, thres=0.05, dec=1)
+    if num_inducing is not None:
+        zi = z[0][0]
+        zi = zi[np.linspace(0, zi.shape[0] - 1, num_inducing).astype(int)]
+        z = [[zi], [zi]]
+    model = ModGP.create(z=z, kern=[[Matern32.create(1.0, 1.0)],
+                                    [MercerMatern12sm.create(energy=[1.0, 1.0, 1.0],
+                                                             frequency=[15.0, 30.0, 45.0])]],
+                         device=dev)
+    return model, x, y, comp * env
+
+
+def phase_modgp(dev) -> tuple[dict, object]:
+    """ModGP on the card: (a) the golden fixture in f64 against
+    tests/golden_values.json (rtol 1e-9, atol 1e-12) and in f32 (the ELBO
+    at rtol 2e-4); (b) the demo: 1000 minibatch-100 Adam steps at lr 0.005
+    by fit_adam_timed, the source recovered on x[::4] (RMSE < 0.05);
+    (c) the bench workload (M 128, noise variance 1e-3), 2000 steps.  The
+    Cholesky kernel's launches are read over (b) and (c).  Returns (the
+    record, the trained demo model with its data)."""
+    from gpitch_tpu_torch.linalg.chol import cholesky_batched as chol
+    from gpitch_tpu_torch.models import fit_adam_timed, minibatch_fn
+    with open(os.path.join(ROOT, "tests", "golden_values.json")) as fh:
+        golden = json.load(fh)
+    model, x, y = golden_modgp(torch.float64, dev)
+    got = golden_modgp_values(model, x, y)
+    # each key's largest |got - want| / (atol + rtol |want|): <= 1 passes
+    ratio = {k: float(np.max(np.abs(np.asarray(v) - np.asarray(golden[k]))
+                             / (1e-12 + 1e-9 * np.abs(np.asarray(golden[k])))))
+             for k, v in got.items()}
+    ok64 = max(ratio.values()) <= 1.0
+    model32, x32, y32 = golden_modgp(torch.float32, dev)
+    with torch.no_grad():
+        elbo32 = float(model32.elbo(x32, y32))
+    rel32 = abs(elbo32 / golden["modgp_elbo_whitened"] - 1)
+    out = {"phase": "modgp", "golden_f64_err_over_tol": ratio, "golden_f64_ok": ok64,
+           "golden_f32_elbo": elbo32, "golden_f32_rel": rel32}
+
+    chol.launches = 0
+    runs = {}
+    for name, steps, kw in (("demo", 1000, {}), ("bench", 2000, {"num_inducing": 128,
+                                                                  "noise": 1e-3})):
+        model, x, y, truth = make_modgp_demo(dev, **kw)
+        xt = torch.as_tensor(x, dtype=torch.float32, device=dev)
+        yt = torch.as_tensor(y, dtype=torch.float32, device=dev)
+        n = xt.shape[0]
+        model, losses, first_s, run_s = fit_adam_timed(
+            model, lambda m, xb, yb: m.loss(xb, yb, num_data=n), steps, 0.005,
+            minibatch_fn(xt, yt, 100, torch.Generator(device=dev).manual_seed(0)))
+        src = model.predict_source(xt[::4]).cpu().numpy()
+        runs[name] = {"steps": steps, "M": int(model.za.raw.shape[1]),
+                      "steps_per_s": steps / run_s, "ms_per_step": run_s / steps * 1e3,
+                      "first_run_excess_s": first_s, "elbo": -float(losses[-1]),
+                      "elbo_first": -float(losses[0]),
+                      "rmse_source": float(np.sqrt(np.mean((src[:, :1] - truth[::4]) ** 2))),
+                      "losses_finite": bool(np.isfinite(losses).all())}
+        if name == "demo":
+            demo = (model, xt, yt)
+    out.update(runs)
+    out["launches"] = {"cholesky_batched": chol.launches}
+    emit(out)
+    assert ok64, f"ModGP f64 off the goldens: {ratio}"
+    assert rel32 <= 2e-4, f"ModGP f32 ELBO off the golden: {rel32}"
+    assert all(r["losses_finite"] for r in runs.values())
+    assert runs["demo"]["rmse_source"] < 0.05, "source recovery failed"
+    return out, demo
+
+
 # --------------------------------------------- fused whiten (kernels 3-5)
 def _whiten_inputs(nw, n, m, freq, fs, seed=0):
     """The prototypes' recipe (scripts/proto_fused_whiten.py:321-342 and
@@ -834,13 +1112,12 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def phase_profile(model) -> None:
-    """Where a bank step and predict_s spend device time (222 windows):
-    torch.profiler over 5 Adam steps and over one predict_s; top ops by
-    self device time and the device's busy share of the host wall time."""
+def phase_profile(windows) -> None:
+    """Where each (label, run) of ``windows`` spends device time:
+    torch.profiler over the run; top ops by self device time and the
+    device's busy share of the host wall time."""
     from torch.profiler import ProfilerActivity, profile
-    for what, run in (("5 bank steps", lambda: model.optimize(maxiter=5)),
-                      ("predict_s", lambda: model.predict_s())):
+    for what, run in windows:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -873,6 +1150,20 @@ def phase_profile(model) -> None:
                                for k, (ms, n) in port.items()}})
 
 
+def _new_path_windows(dev, amt_model, svgp, x, y):
+    """The profile's windows on the AMT and ModGP paths: 5 bank steps of
+    the 439-window 8 x 10 bank (windows of 64) and 50 minibatch Adam steps
+    of the ModGP demo."""
+    from gpitch_tpu_torch.models import fit_adam, minibatch_fn
+    n = x.shape[0]
+    batch = minibatch_fn(x, y, 100, torch.Generator(device=dev).manual_seed(1))
+    return [("5 amt_full bank steps (8 x 10, 439 windows)",
+             lambda: amt_model.optimize(maxiter=5, window_chunk=64)),
+            ("50 ModGP steps (demo)",
+             lambda: fit_adam(svgp, lambda m, xb, yb: m.loss(xb, yb, num_data=n), 50,
+                              0.005, batch))]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -889,8 +1180,16 @@ def main() -> int:
     phase_small(dev)
     phase_first_use()
     full_model = phase_full(dev)
-    phase_profile(full_model)
     whiten = phase_fused_whiten(dev, sosp_model, full_model)
+    del sosp_model
+    torch.cuda.empty_cache()
+    amt = phase_amt(dev)
+    _, amt_model = phase_amt_full(dev)
+    _, (svgp, x, y) = phase_modgp(dev)
+    # last: the profiler's tracing may stay attached to the process
+    phase_profile([("5 bank steps", lambda: full_model.optimize(maxiter=5)),
+                   ("predict_s", lambda: full_model.predict_s())]
+                  + _new_path_windows(dev, amt_model, svgp, x, y))
 
     main_chol = next(r for r in chol["cases"] if r["kind"] == "spd"
                      and r["shape"] == [sosp["windows"], 112, 112]
@@ -903,6 +1202,7 @@ def main() -> int:
          "source": "gpitch_tpu_torch/csrc/chol.cu",
          "replaces": "gpitch_tpu/linalg/pallas/chol.py:131",
          "launches": sosp["launches"]["cholesky_batched"],
+         "launches_amt": amt["launches"]["cholesky_batched"],
          "shape": main_chol["shape"],
          "max_abs_err": main_chol["max_abs_err_plain"], "ms": main_chol["kernel_ms"],
          "plain_ms": main_chol["plain_ms"], "bound_ms": main_chol["bound_ms"],

@@ -148,7 +148,7 @@ def load_raw(model, leaves: dict) -> int:
                 obj = obj[int(idx)]
         if not isinstance(obj, Param):
             raise KeyError(f"{key!r} does not name a Param of the model")
-        src = torch.as_tensor(np.asarray(arr), dtype=obj.raw.dtype)
+        src = torch.as_tensor(np.array(arr), dtype=obj.raw.dtype)
         if tuple(src.shape) != tuple(obj.raw.shape):
             raise ValueError(f"{key!r}: shape {tuple(src.shape)} != "
                              f"{tuple(obj.raw.shape)}")

@@ -12,7 +12,7 @@ import dataclasses
 import numpy as np
 import torch
 
-__all__ = ["Transform", "Identity", "Positive", "Logistic"]
+__all__ = ["Transform", "Identity", "Positive", "Logistic", "FillTriangular"]
 
 _SOFTPLUS_CLIP = 30.0
 
@@ -77,3 +77,28 @@ class Logistic(Transform):
         t = (y - self.a) / (self.b - self.a)
         t = np.clip(t, 1e-12, 1.0 - 1e-12)
         return np.log(t) - np.log1p(-t)
+
+
+@dataclasses.dataclass(frozen=True)
+class FillTriangular(Transform):
+    """A packed vector of n (n + 1) / 2 entries (..., n(n+1)/2) <-> a lower
+    triangular matrix (..., n, n), in the JAX package's layout.  forward is
+    the fill_triangular construction: concat([x[n:], flip(x)]) reshaped to
+    (n, n) holds every packed entry exactly once in its lower triangle, so
+    it is a concatenation, a flip, a reshape and a mask, with no scatter.
+    inverse reads the lower triangle back through the same static index
+    map."""
+
+    n: int = 1
+
+    def forward(self, x):
+        xc = torch.cat([x[..., self.n:], torch.flip(x, dims=(-1,))], dim=-1)
+        return torch.tril(xc.reshape(x.shape[:-1] + (self.n, self.n)))
+
+    def inverse(self, y):
+        n = self.n
+        k = np.arange(n * (n + 1) // 2)
+        slots = np.concatenate([k[n:], k[::-1]]).reshape(n, n)
+        ii, jj = np.tril_indices(n)
+        order = np.argsort(slots[ii, jj])
+        return np.asarray(y)[..., ii[order], jj[order]]

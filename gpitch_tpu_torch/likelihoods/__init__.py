@@ -1,0 +1,2 @@
+from .modulated import (LooLik, ModLik, ModulatedLikelihood, MpdLik, SsLik,  # noqa: F401
+                        exp_value_closed_form, gaussian_logdensity, log_lik_exp)

@@ -1,5 +1,5 @@
 """Dense GP linear algebra: jitter, the (L, L^-1) factorization and its
-matmul-only backward.
+matmul-only backward, and the sparse-GP conditionals and KL divergence.
 
 Counterpart of gpitch_tpu/linalg/ops.py.  Every function takes leading batch
 axes (windows, sources) as they come, so each kernel sees the whole batch in
@@ -13,7 +13,9 @@ import torch
 from ..config import default_jitter, default_jitter_rel
 from .chol import MAX_M, cholesky_batched
 
-__all__ = ["add_jitter", "tri_inv_blocked", "chol_inv", "safe_chol_inv"]
+__all__ = ["add_jitter", "tri_inv_blocked", "chol_inv", "safe_chol_inv",
+           "safe_cholesky", "solve_lower", "solve_upper", "base_conditional",
+           "base_conditional_inv", "conditional", "gauss_kl"]
 
 
 def add_jitter(K: torch.Tensor, jitter: float | None = None,
@@ -95,16 +97,22 @@ def _tri_inv(L: torch.Tensor) -> torch.Tensor:
     return torch.linalg.solve_triangular(L, eye, upper=False)
 
 
+def _library_cholesky(K: torch.Tensor) -> torch.Tensor:
+    """torch.linalg's Cholesky (differentiable); a matrix that is not
+    positive definite factors to NaN, as jnp.linalg.cholesky does, instead
+    of raising."""
+    L, info = torch.linalg.cholesky_ex(K)
+    return torch.where((info == 0)[..., None, None], L, float("nan"))
+
+
 def _cholesky(K: torch.Tensor) -> torch.Tensor:
     """Batched Cholesky: CUDA tensors with M <= 256 go to the hand kernel;
     larger matrices (the N x N prediction Gram) and CPU tensors to
-    torch.linalg.  A matrix that is not positive definite factors to NaN,
-    as jnp.linalg.cholesky does, instead of raising."""
+    torch.linalg."""
     m = K.shape[-1]
     if K.is_cuda and m <= MAX_M:
         return cholesky_batched(K.reshape(-1, m, m)).reshape(K.shape)
-    L, info = torch.linalg.cholesky_ex(K)
-    return torch.where((info == 0)[..., None, None], L, float("nan"))
+    return _library_cholesky(K)
 
 
 class _CholInv(torch.autograd.Function):
@@ -139,3 +147,77 @@ def safe_chol_inv(K: torch.Tensor, jitter: float | None = None,
                   jitter_rel: float | None = None):
     """chol_inv of K + (jitter + jitter_rel * mean diag) * I (see add_jitter)."""
     return chol_inv(add_jitter(K, jitter, jitter_rel))
+
+
+def safe_cholesky(K: torch.Tensor, jitter: float | None = None,
+                  jitter_rel: float | None = None) -> torch.Tensor:
+    """Cholesky of K + (jitter + jitter_rel * mean diag) * I (see
+    add_jitter) by torch.linalg, where the JAX package takes
+    jnp.linalg.cholesky; differentiable by autograd."""
+    return _library_cholesky(add_jitter(K, jitter, jitter_rel))
+
+
+def solve_lower(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """L^-1 B for lower-triangular L."""
+    return torch.linalg.solve_triangular(L, B, upper=False)
+
+
+def solve_upper(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """L^-T B for lower-triangular L."""
+    return torch.linalg.solve_triangular(L.mT, B, upper=True)
+
+
+def _conditional(A, Knn_diag, q_mu, q_sqrt, unwhiten):
+    """q(f) from A = Lm^-1 Kmn; ``unwhiten(A)`` gives Kmm^-1 Kmn."""
+    fvar = Knn_diag - A.square().sum(-2)                 # (..., N)
+    if unwhiten is not None:
+        A = unwhiten(A)
+    fmean = A.mT @ q_mu                                  # (..., N, Q)
+    if q_sqrt is not None:
+        fvar = fvar + (torch.tril(q_sqrt).mT @ A).square().sum(-2)
+    return fmean, fvar[..., None] * torch.ones_like(fmean)
+
+
+def base_conditional(Kmn, Lm, Knn_diag, q_mu, q_sqrt=None, whiten=True):
+    """Marginals of q(f(Xnew)) given q(u) = N(q_mu, S), S = tril(q_sqrt)
+    tril(q_sqrt)^T, and Lm = chol(Kmm + jitter).  Kmn (..., M, N), Lm (...,
+    M, M), Knn_diag (..., N), q_mu (..., M, Q), q_sqrt (..., M, M) or None.
+    Returns mean, var each (..., N, Q); by triangular solves."""
+    unwhiten = None if whiten else (lambda A: solve_upper(Lm, A))
+    return _conditional(solve_lower(Lm, Kmn), Knn_diag, q_mu, q_sqrt, unwhiten)
+
+
+def base_conditional_inv(Kmn, Lm_inv, Knn_diag, q_mu, q_sqrt=None, whiten=True):
+    """base_conditional with Lm^-1 from ``chol_inv``: every solve is a
+    matmul."""
+    unwhiten = None if whiten else (lambda A: Lm_inv.mT @ A)
+    return _conditional(Lm_inv @ Kmn, Knn_diag, q_mu, q_sqrt, unwhiten)
+
+
+def conditional(Xnew, Z, kernel, q_mu, q_sqrt=None, whiten=True,
+                jitter: float | None = None):
+    """q(f(Xnew)) of a sparse GP with inducing inputs Z; Kmm is factored by
+    ``safe_chol_inv`` (the Cholesky kernel on the card up to M 256)."""
+    _, Lm_inv = safe_chol_inv(kernel.K(Z), jitter)
+    return base_conditional_inv(kernel.K(Z, Xnew), Lm_inv, kernel.Kdiag(Xnew),
+                                q_mu, q_sqrt, whiten)
+
+
+def gauss_kl(q_mu, q_sqrt, K=None, jitter: float | None = None):
+    """KL[N(q_mu, S) || N(0, K)] with S = tril(q_sqrt) tril(q_sqrt)^T, one
+    per leading index: q_mu (..., M, Q), q_sqrt (..., M, M).  K=None is the
+    whitened prior N(0, I); otherwise K + jitter is factored by
+    ``safe_chol_inv``."""
+    m, q = q_mu.shape[-2:]
+    Lq = torch.tril(q_sqrt)
+    logdet_q = 2.0 * torch.log(torch.diagonal(Lq, dim1=-2, dim2=-1).abs() + 1e-38).sum(-1)
+    if K is None:
+        mahal = q_mu.square().sum((-2, -1))
+        trace = Lq.square().sum((-2, -1)) * q
+        logdet_p = 0.0
+    else:
+        Lp, Lp_inv = safe_chol_inv(K, jitter)
+        mahal = (Lp_inv @ q_mu).square().sum((-2, -1))
+        trace = (Lp_inv @ Lq).square().sum((-2, -1)) * q
+        logdet_p = 2.0 * q * torch.log(torch.diagonal(Lp, dim1=-2, dim2=-1).abs()).sum(-1)
+    return 0.5 * (mahal + trace - m * q - q * logdet_q + logdet_p)

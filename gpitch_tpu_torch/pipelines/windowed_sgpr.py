@@ -18,7 +18,7 @@ import torch
 from ..config import DEFAULT_DEVICE, resolve_device
 from ..core.params import Param, cat_windows, map_params, take_windows, to_device
 from ..kernels.base import StackedSum, Sum
-from ..models.fit import fit_adam_segmented
+from ..models.fit import adam_segments, first_segment_excess
 from ..models.sgpr import SGPRSS, check_on_grid
 
 __all__ = ["sum_kernel", "pad_inducing", "build_window_bank", "bank_loss",
@@ -154,27 +154,43 @@ def bank_loss(bank) -> torch.Tensor:
 
 
 def optimize_bank(bank, num_steps: int = 500, learning_rate: float = 0.01,
-                  method: str = "adam", window_chunk: int | None = None):
+                  method: str = "adam", timed: bool = False,
+                  segment: int | None = 250, window_chunk: int | None = None,
+                  mesh=None):
     """Adam on every window at once; returns (bank, losses) with losses the
-    per-step total over windows (numpy), fenced every 250 steps.
+    per-step total over windows (numpy), and with ``timed=True`` (bank,
+    losses, (first_s, run_s)).
 
-    ``window_chunk``: optimize the window axis in chunks of this size, one
-    after another (exact: every leaf and Adam moment is per window).
+    ``segment``: a host fence (the losses' copy) every ``segment`` steps
+    (``None``: one at the end).  ``window_chunk``: optimize the window axis
+    in chunks of this size, one after another (exact: every leaf and Adam
+    moment is per window).  ``timed``: eager torch has no compile step, so
+    first_s is the first segment's excess over the median of all later
+    segments (of every chunk), and run_s the rest of the wall time, the
+    split the JAX package makes for its chunked runs.
     """
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh=: window-parallel distribution is ROADMAP item 14, a later "
+            "slice of the PyTorch port; run on one device")
     if method != "adam":
         raise NotImplementedError(
             f"method={method!r}: per-window L-BFGS is ported in a later slice "
             "of the PyTorch port; use method='adam'")
     nw = bank.X.raw.shape[0]
     chunk = nw if window_chunk is None else max(1, window_chunk)
-    banks, losses = [], np.zeros(num_steps)
+    banks, losses, seconds = [], np.zeros(num_steps), []
     for c0 in range(0, nw, chunk):
         part = bank if chunk >= nw else take_windows(bank, slice(c0, c0 + chunk))
-        part, ls = fit_adam_segmented(part, bank_loss, num_steps, learning_rate,
-                                      segment=250)
+        part, ls, secs = adam_segments(part, bank_loss, num_steps, learning_rate,
+                                       segment=segment or num_steps)
         banks.append(part)
         losses += ls
-    return (banks[0] if len(banks) == 1 else cat_windows(banks)), losses
+        seconds += secs
+    bank = banks[0] if len(banks) == 1 else cat_windows(banks)
+    if timed:
+        return bank, losses, first_segment_excess(seconds)
+    return bank, losses
 
 
 def _centered_windows(bank, x_windows) -> np.ndarray:
@@ -197,28 +213,34 @@ def _chunks(bank, x_windows, batch_size: int):
 
 
 @torch.no_grad()
-def predict_bank_sources(bank, x_windows, batch_size: int = 8):
+def predict_bank_sources(bank, x_windows, batch_size: int = 8,
+                         y_scale: float = 1.0):
     """Per-window per-source posteriors (smean, svar), each (S, nw, ws),
     windows in chunks of ``batch_size``.  When the prediction points are the
     windows' own samples (checked exactly), each chunk builds its
-    per-source Grams once and reuses their sum as the full Gram."""
+    per-source Grams once and reuses their sum as the full Gram.
+    ``y_scale`` undoes the bank's target scaling (mean / y_scale, variance
+    / y_scale^2)."""
     means, variances = [], []
     for part, x, at_x in _chunks(bank, x_windows, batch_size):
         m, v = part.predict_s(x, pre_centered=True, xnew_is_x=at_x)
         means.append(torch.stack([mm[..., 0] for mm in m], dim=0))
         variances.append(torch.stack([vv[..., 0] for vv in v], dim=0))
-    return torch.cat(means, dim=1), torch.cat(variances, dim=1)
+    return (torch.cat(means, dim=1) / y_scale,
+            torch.cat(variances, dim=1) / (y_scale ** 2))
 
 
 @torch.no_grad()
-def predict_bank_mixture(bank, x_windows, batch_size: int = 8):
-    """Per-window mixture posterior: mean, var each (nw, ws)."""
+def predict_bank_mixture(bank, x_windows, batch_size: int = 8,
+                         y_scale: float = 1.0):
+    """Per-window mixture posterior: mean, var each (nw, ws), with the
+    target scaling undone as in ``predict_bank_sources``."""
     means, variances = [], []
     for part, x, _ in _chunks(bank, x_windows, batch_size):
         m, v = part.predict_f(x, pre_centered=True)
         means.append(m[..., 0])
         variances.append(v[..., 0])
-    return torch.cat(means), torch.cat(variances)
+    return torch.cat(means) / y_scale, torch.cat(variances) / (y_scale ** 2)
 
 
 def pitch_variances(bank) -> torch.Tensor:

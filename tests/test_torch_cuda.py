@@ -73,6 +73,53 @@ def test_cuda_cholesky_not_positive_definite_gives_nan(cuda, panel, m):
     assert bool(torch.isfinite(L[1, :, :k]).all())
 
 
+def test_cuda_chol_inv_on_the_low_rank_amt_gram(cuda):
+    """The late-training AMT Gram of tests_tpu/test_shipped_defaults.py:61-78
+    (8 pitches whose lengthscale outgrew the window: exactly rank 2P before
+    the jitter) at (64, 160, 160) f32, through safe_chol_inv and so the
+    kernel: L and L^-1 finite, L within 1e-3 of max|L| of the plain
+    version on the same jittered Gram (the M-aware relative floor of
+    add_jitter keeps the pivots above f32 rounding)."""
+    from gpitch_tpu_torch.core.params import to_device
+    from gpitch_tpu_torch.kernels import MercerMatern12sm, StackedSum
+    m, fs = 160, 44100.0
+    z = torch.as_tensor((np.arange(m) * 12.0 / fs).reshape(-1, 1), dtype=torch.float32,
+                        device=cuda)
+    kerns = []
+    for i in range(8):
+        f0 = 261.6 * 2 ** (i / 12.0)
+        energy = np.full(10, 1e-4)
+        energy[0] = 4.0
+        kerns.append(MercerMatern12sm.create(0.8 if i == 4 else 0.014, 3.4, energy,
+                                             np.minimum(f0 * np.arange(1, 11), 0.45 * fs)))
+    with torch.no_grad():
+        kuu = to_device(StackedSum.create(kerns), cuda).K(z).expand(64, m, m).contiguous()
+        before = cholesky_batched.launches
+        L, Linv = ops.safe_chol_inv(kuu)
+        assert cholesky_batched.launches == before + 1
+        want = cholesky_plain(ops.add_jitter(kuu))
+    assert bool(torch.isfinite(L).all()) and bool(torch.isfinite(Linv).all())
+    assert float((L - want).abs().max()) <= 1e-3 * float(want.abs().max())
+
+
+def test_cuda_modgp_golden_fixture_f64(cuda):
+    """The ModGP golden fixture in f64 on the card against
+    tests/golden_values.json: rtol 1e-9, atol 1e-12."""
+    import json
+    import os
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, root)
+    import chip_smoke
+    with open(os.path.join(root, "tests", "golden_values.json")) as fh:
+        golden = json.load(fh)
+    model, x, y = chip_smoke.golden_modgp(torch.float64, cuda)
+    assert model.za.raw.is_cuda
+    for key, value in chip_smoke.golden_modgp_values(model, x, y).items():
+        np.testing.assert_allclose(np.asarray(value), np.asarray(golden[key]),
+                                   rtol=1e-9, atol=1e-12, err_msg=key)
+
+
 def test_cuda_chol_inv_matches_cpu(cuda):
     """The bound's factorization through the kernel, forward and backward,
     against the CPU path; f64, 1e-9 relative."""
