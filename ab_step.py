@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
-"""Time the SoSp bank step of one or more checkouts on one CUDA card.
+"""Time bank steps (and kernel B) of one or more checkouts on one CUDA card.
 
     python3 ab_step.py TREE [TREE ...]
+    python3 ab_step.py --amt TREE [TREE ...]
+    python3 ab_step.py --full TREE [TREE ...]
+    python3 ab_step.py --whiten TREE [TREE ...]
 
 Each TREE is the root of a checkout holding ``chip_smoke.py`` and
 ``gpitch_tpu_torch``; give them in the order to run, e.g. ``A B B A B A A
@@ -15,7 +18,18 @@ memory the caching allocator holds is read at each point.  Last, a probe of
 that model's step: the host time spent inside the Cholesky wrapper, and
 torch.profiler's device time and CUDA runtime calls per step.  Prints one JSON
 line per run, then one with the median ms per step of each tree at each
-point.  Needs a CUDA card.
+point.  With ``--amt`` each run is instead the tree's own ``chip_smoke``
+phase ``amt_full`` in a fresh process (the 439-window 8 x 10 bank of 10 s
+in windows of 64 and the 88-pitch Sum bank of 2 s, 2 warm-up and 10 timed
+bank steps each, then 2 steps of the 10 s bank under torch.profiler), and
+the summary is the median ms per bank step of each case.  With ``--full``
+each run is the tree's own phase ``full`` (the 14 s SoSp mix, 222
+windows: 2 warm-up and 20 timed bank steps, then predict_s).  With
+``--whiten`` each run times the tree's own fused pair
+(``chip_smoke._whiten_case``) at the SoSp width (222 windows, M 112, 3 x
+5) and the AMT width (43 windows, M 160, 8 x 10), then kernel B's device
+time by CUDA kernel (torch.profiler), and the summary is the median ms of
+kernel B at each.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -94,22 +108,100 @@ out["probe"] = probe
 print(json.dumps(out))
 """
 
+_AMT_CHILD = r"""
+import contextlib, io, json, sys
+import torch
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as cs
+with contextlib.redirect_stdout(io.StringIO()):
+    out, model = cs.phase_amt_full(torch.device("cuda"))
+res = {k: {"ms_per_step": [v["ms_per_bank_step"]], "peak_gib": v["peak_gib"],
+           "loss_last": v["loss_last"]} for k, v in out.items()}
+# then 2 bank steps of the 10 s bank under torch.profiler: device time and
+# launches a step against the wall time of the same steps
+import time
+from torch.profiler import ProfilerActivity, profile
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    model.optimize(maxiter=2, learning_rate=0.01, window_chunk=64)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / 2 * 1e3
+rows = prof.key_averages()
+cuda = torch.autograd.DeviceType.CUDA
+res["sounding"]["probe"] = {
+    "wall_ms_per_step_profiled": wall,
+    "device_ms_per_step": sum(cs._device_us(e) for e in rows if e.device_type == cuda) / 2e3,
+    "launches_per_step": sum(e.count for e in rows if e.key == "cudaLaunchKernel") / 2}
+print(json.dumps(res))
+"""
+
+_FULL_CHILD = r"""
+import contextlib, io, json, sys
+import torch
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as cs
+with contextlib.redirect_stdout(io.StringIO()) as buf:
+    cs.phase_full(torch.device("cuda"))
+out = json.loads(buf.getvalue().strip().splitlines()[-1])
+print(json.dumps({"full": {"ms_per_step": [out["ms_per_bank_step"]],
+                           "predict_s_s": out["predict_s_s"]}}))
+"""
+
+_WHITEN_CHILD = r"""
+import contextlib, io, json, sys
+import numpy as np, torch
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as cs
+dev = torch.device("cuda")
+amt_f0 = 261.6 * 2 ** (np.arange(8) / 12)
+sosp_f0 = 261.6 * 2 ** (np.array([0, 4, 7]) / 12)
+cases = {"a_sosp": cs._whiten_inputs(222, 2001, 112, cs._harmonics(sosp_f0, 5, 16000.0),
+                                     16000.0),
+         "b_amt": cs._whiten_inputs(43, 2001, 160, cs._harmonics(amt_f0, 10, 44100.0),
+                                    44100.0)}
+with contextlib.redirect_stdout(io.StringIO()):
+    out = {k: cs._whiten_case(k, d, dev, timing=True)["times"] for k, d in cases.items()}
+# then kernel B's device time by CUDA kernel (torch.profiler, 5 calls)
+import importlib
+from torch.profiler import ProfilerActivity, profile
+fw = importlib.import_module("gpitch_tpu_torch.linalg.fused_whiten")
+names = ("zc", "xc", "err", "linv", "du", "dv", "energy", "freq", "var", "inv_l")
+for k, d in cases.items():
+    args = [torch.as_tensor(np.array(d[n]), dtype=torch.float32, device=dev) for n in names]
+    fw.fused_whiten_bwd(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            fw.fused_whiten_bwd(*args)
+        torch.cuda.synchronize()
+    out[k]["kernel_B_parts_ms"] = {e.key[:60]: cs._device_us(e) / 5e3 for e in prof.key_averages()
+                                   if cs._device_us(e) > 0}
+print(json.dumps({k: {"ms_per_step": [v["kernel_B_ms"]], **v} for k, v in out.items()}))
+"""
+
 POINTS = ("fresh", "after_predict", "after_kernel_phases", "built_after_kernel_phases")
 
 
 def main() -> int:
-    trees = [os.path.abspath(t) for t in sys.argv[1:]]
+    args = sys.argv[1:]
+    modes = {"--amt": (_AMT_CHILD, ("sounding", "piano88")),
+             "--full": (_FULL_CHILD, ("full",)),
+             "--whiten": (_WHITEN_CHILD, ("a_sosp", "b_amt"))}
+    child, points = modes.get(args[0], (_CHILD, POINTS)) if args else (_CHILD, POINTS)
+    names = args[1:] if args and args[0] in modes else args
+    trees = [os.path.abspath(t) for t in names]
     if not trees:
         print(__doc__, file=sys.stderr)
         return 2
     runs = []
     for i, tree in enumerate(trees):
-        res = subprocess.run([sys.executable, "-c", _CHILD, tree], capture_output=True,
+        res = subprocess.run([sys.executable, "-c", child, tree], capture_output=True,
                              text=True, timeout=600, cwd=tree)
         if res.returncode != 0:
             print(res.stderr[-4000:], file=sys.stderr)
             return 1
-        run = {"run": i, "tree": sys.argv[1 + i],
+        run = {"run": i, "tree": names[i],
                **json.loads(res.stdout.strip().splitlines()[-1])}
         print(json.dumps(run), flush=True)
         runs.append(run)
@@ -117,7 +209,7 @@ def main() -> int:
     for name in dict.fromkeys(r["tree"] for r in runs):
         summary[name] = {p: statistics.median(ms for r in runs if r["tree"] == name
                                               for ms in r[p]["ms_per_step"])
-                         for p in POINTS}
+                         for p in points}
     print(json.dumps({"median_ms_per_step": summary}), flush=True)
     return 0
 

@@ -19,13 +19,16 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               3 pitches x 5 partials): 100 Adam steps in f32 held against
               the CPU-f64 golden trajectory (tests_tpu/goldens.npz), then
               predict_f, predict_s, the overlap-add merge and the RMSE;
-              the kernels' launch counts are read over this phase only;
+              the kernels' launch counts (Cholesky, specmix and the fused
+              pair, which the bound of a stacked bank goes through) are
+              read over this phase only;
   6. small    a 0.5 s separation in f64 on the card and on the CPU, which
               must agree;
   7. first_use  a fresh process through the main path: import, build, each
               of three steps' parts, the first predictions, and what
               torch.optim.Adam would add;
-  8. full     the 14 s mix (222 windows): 20 Adam steps and predict_s;
+  8. full     the 14 s mix (222 windows): 20 Adam steps (the fused pair's
+              launches counted) and predict_s;
   9. fused_whiten  the fused build -> whiten -> accumulate pair (kernel A
               through fused_whiten and fused_whiten_flat, kernel B) against
               its plain version: (a) the prototypes' inputs at the SoSp width,
@@ -38,10 +41,12 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               at 44.1 kHz, 43 windows, M 160, 8 pitches x 10 partials,
               y x 20): 100 Adam steps in windows of 16 held against the
               CPU-f64 golden trajectory, matrix_var, the MAD pianoroll's
-              F-measure; the Cholesky kernel's launches over this phase;
+              F-measure; the Cholesky kernel's and the fused pair's
+              launches over this phase;
  11. amt_full the AMT bank at full width: 10 s (439 windows, 8 x 10,
               windows of 64) and the 88-pitch dictionary on 2 s (windows
-              of 16): ms per bank step and peak memory;
+              of 16): ms per bank step, peak memory and the fused pair's
+              launches (none for the 88-pitch Sum of kernels);
  12. modgp    the ModGP SVGP model: the golden fixture in f64 and f32, the
               demo (N 16000, 1000 minibatch Adam steps, source RMSE) and
               the bench workload (M 128, 2000 steps, steps/s);
@@ -470,6 +475,7 @@ def phase_sosp(dev):
     from gpitch_tpu_torch.linalg.specmix import specmix_matrix as spec
     golden = np.load(os.path.join(ROOT, "tests_tpu", "goldens.npz"))["sosp_losses"]
     chol.launches = spec.launches = 0
+    _zero_fused()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     model, sources = make_sosp(4.0, dev, torch.float32)
@@ -488,7 +494,8 @@ def phase_sosp(dev):
     est = model.predict_s()
     predict_s_s = time.perf_counter() - t0
     rmse = model.compute_rmse(sources)
-    launches = {"cholesky_batched": chol.launches, "specmix_matrix": spec.launches}
+    launches = {"cholesky_batched": chol.launches, "specmix_matrix": spec.launches,
+                **_fused_launches()}
     # steady state, after the main path: 20 more steps of the trained bank
     t0 = time.perf_counter()
     model.optimize(maxiter=20, learning_rate=0.01)
@@ -520,6 +527,19 @@ def phase_sosp(dev):
         "separation failed"
     assert all(v > 0 for v in launches.values()), f"a kernel never ran: {launches}"
     return out, model
+
+
+def _zero_fused() -> None:
+    from gpitch_tpu_torch.linalg.fused_whiten import fused_whiten, fused_whiten_bwd
+    fused_whiten.launches = fused_whiten_bwd.launches = 0
+
+
+def _fused_launches() -> dict:
+    """The fused pair's launches since ``_zero_fused``: the bound of a
+    StackedSum bank without a mask at M <= 160 goes through it."""
+    from gpitch_tpu_torch.linalg.fused_whiten import fused_whiten, fused_whiten_bwd
+    return {"fused_whiten": fused_whiten.launches,
+            "fused_whiten_bwd": fused_whiten_bwd.launches}
 
 
 def _native_path() -> str:
@@ -623,10 +643,12 @@ def phase_full(dev) -> dict:
     model.optimize(maxiter=2, learning_rate=0.01)        # warm-up
     torch.cuda.synchronize()
     warmup_s = time.perf_counter() - t0
+    _zero_fused()
     t0 = time.perf_counter()
     losses = model.optimize(maxiter=20, learning_rate=0.01)
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / 20 * 1e3
+    launches = _fused_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model.predict_s()
@@ -637,9 +659,10 @@ def phase_full(dev) -> dict:
            "predict_s_s": predict_s,
            "predict_peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
            "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
-           "rmse_after_22_steps": rmse}
+           "rmse_after_22_steps": rmse, "launches_in_20_steps": launches}
     emit(out)
     assert np.isfinite(losses).all() and np.isfinite(rmse)
+    assert all(n > 0 for n in launches.values()), f"the fused pair never ran: {launches}"
     return model
 
 
@@ -655,6 +678,7 @@ def phase_amt(dev) -> dict:
     from gpitch_tpu_torch.linalg.specmix import specmix_matrix as spec
     golden = np.load(os.path.join(ROOT, "tests_tpu", "goldens.npz"))["amt_losses"]
     chol.launches = spec.launches = 0
+    _zero_fused()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     model, events = make_amt(1.0, dev, torch.float32)
@@ -665,7 +689,8 @@ def phase_amt(dev) -> dict:
                                               timed=True, window_chunk=16)
     torch.cuda.synchronize()
     opt_s = time.perf_counter() - t0
-    launches = {"cholesky_batched": chol.launches, "specmix_matrix": spec.launches}
+    launches = {"cholesky_batched": chol.launches, "specmix_matrix": spec.launches,
+                **_fused_launches()}
     model.piano_roll = Pianoroll(fs=20, duration=1.0, notes=events)
     p, r, f = model.evaluate(mode="mad")
     mv = model.matrix_var
@@ -686,7 +711,8 @@ def phase_amt(dev) -> dict:
     assert out["rel99"] <= 0.1, f"loss[99] off the golden: {out['rel99']}"
     assert losses[-1] < losses[0], "loss did not decrease"
     assert out["matrix_var_shape"] == [8, 43] and out["matrix_var_finite"]
-    assert launches["cholesky_batched"] > 0, f"the Cholesky kernel never ran: {launches}"
+    assert all(launches[k] > 0 for k in ("cholesky_batched", "fused_whiten",
+                                         "fused_whiten_bwd")), f"a kernel never ran: {launches}"
     return out
 
 
@@ -698,11 +724,13 @@ def _amt_bank_steps(name, model, window_chunk) -> dict:
     torch.cuda.synchronize()
     warmup_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
+    _zero_fused()
     t0 = time.perf_counter()
     losses, (first_s, run_s) = model.optimize(maxiter=10, learning_rate=0.01, timed=True,
                                               window_chunk=window_chunk)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    launches = _fused_launches()
     out = {"phase": "amt_full", "case": name, "windows": model.nwin,
            "pitches": len(model.pitches), "stacked": hasattr(model.bank.kern, "stacked"),
            "window_chunk": window_chunk, "warmup_2_steps_s": warmup_s,
@@ -710,9 +738,13 @@ def _amt_bank_steps(name, model, window_chunk) -> dict:
            "timed_run_s": run_s, "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
            "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
            "losses_finite": bool(np.isfinite(losses).all()),
-           "matrix_var_finite": bool(np.isfinite(model.matrix_var).all())}
+           "matrix_var_finite": bool(np.isfinite(model.matrix_var).all()),
+           "fused": model.bank.fused_eligible(), "launches_in_10_steps": launches}
     emit(out)
     assert out["losses_finite"] and out["matrix_var_finite"], f"{name}: not finite"
+    # a stacked bank takes the fused pair; a Sum of kernels does not
+    assert out["fused"] == out["stacked"], out
+    assert all((n > 0) == out["fused"] for n in launches.values()), out
     return out
 
 
@@ -852,17 +884,25 @@ def _whiten_bound(nw, m, n, s, p, backward):
     lower triangular in every input here (np.tril, chol_inv), so A = Linv
     Kuf is M (M + 1) N flops, and U = A A^T, symmetric, M (M + 1) N; v is
     2 M N and the build (4P + 4) S M N (a multiply-add pair per partial,
-    the envelope, the variance and the sum).  Kernel B: A and the build
-    again, dA = (dU + dU^T) A and the dense dLinv (every entry is an output)
-    2 M^2 N each, dv err^T 2 M N, dK = Linv^T dA M (M + 1) N, and the
-    per-source sums 8 P S M N.  Bytes: each input read once (Linv's lower
-    triangle), each output written once."""
+    the envelope, the variance and the sum).  Kernel B, the fewer of two
+    associations, plus the build and the per-source sums 8 P S M N: A
+    again, dA = (dU + dU^T) A and the dense dLinv (every entry is an
+    output) 2 M^2 N each, dv err^T 2 M N and dK = Linv^T dA M (M + 1) N;
+    or, as the kernel takes it, G = dU + dU^T M^2, W = G Linv and C =
+    Linv^T W M^2 (M + 1) each, h = Linv^T dv M (M + 1), per sample dK = C
+    Kuf + h err^T 2 M^2 + 2 M, Q = Kuf Kuf^T (symmetric) M (M + 1) and r =
+    Kuf err 2 M, then Y = Linv Q M^2 (M + 1) and dLinv = G Y + dv r^T
+    2 M^3 + M^2.  Bytes: each input read once (Linv's lower triangle),
+    each output written once."""
     build = (4 * p + 4) * s * m * n
     tri = m * (m + 1) * n
     params = 2 * s * p + 2 * s
     linv = m * (m + 1) // 2
     if backward:
-        flops = nw * (2 * tri + 4 * m * m * n + 2 * m * n + build + 8 * p * s * m * n)
+        unfused_order = 2 * tri + 4 * m * m * n + 2 * m * n
+        kernel_order = (m * m + 3 * m * m * (m + 1) + m * (m + 1) + 2 * m * m * n
+                        + 4 * m * n + tri + 2 * m ** 3 + m * m)
+        flops = nw * (min(unfused_order, kernel_order) + build + 8 * p * s * m * n)
         floats = nw * (linv + 2 * m * m + 2 * m + 2 * n + params) + params
     else:
         flops = nw * (2 * tri + 2 * m * n + build)
@@ -1015,18 +1055,19 @@ def _whiten_splits(name, d, dev) -> dict:
 
 
 def _whiten_bank(name, model, dev) -> dict:
-    """The pair on a trained bank's own bound: U / sigma^2 against _common's
-    AAT and v against its Aerr (1e-4 of max|ref|); fused_whiten_flat with
-    the per-window flat parameters gives the same; then, for a seeded
-    (dU, dv), the gradient of <U, dU> + <v, dv> in every trainable raw leaf
-    through fused_whiten (Linv from chol_inv under grad) and through
-    _common's A (1e-3 of max|ref|)."""
+    """The pair on a trained bank's own bound: U / sigma^2 against the
+    unfused composition's AAT (``_common_unfused``) and v against its Aerr
+    (1e-4 of max|ref|); fused_whiten_flat with the per-window flat
+    parameters gives the same; then, for a seeded (dU, dv), the gradient of
+    <U, dU> + <v, dv> in every trainable raw leaf through fused_whiten (Linv
+    from chol_inv under grad) and through the unfused A (1e-3 of
+    max|ref|)."""
     from gpitch_tpu_torch.core.params import named_params
     from gpitch_tpu_torch.linalg.fused_whiten import fused_whiten, fused_whiten_flat
     bank = model.bank
     assert bank.mask is None
     with torch.no_grad():
-        err, _, _, A, AAT, _, _, sigma2 = bank._common()
+        err, _, _, A, AAT, _, _, sigma2 = bank._common_unfused()
         aerr = A @ err
         chain = bank.fused_whiten_args()
         u, v = fused_whiten(*chain)
@@ -1050,7 +1091,7 @@ def _whiten_bank(name, model, dev) -> dict:
         if route == "fused":
             u, v = fused_whiten(*bank.fused_whiten_args())
         else:
-            err, _, _, A, *_ = bank._common()
+            err, _, _, A, *_ = bank._common_unfused()
             u, v = A @ A.mT, A @ err
         ((u * du).sum() + (v * dv).sum()).backward()
         grads[route] = {k: prm.raw.grad.clone() for k, prm in named_params(bank)
@@ -1221,22 +1262,28 @@ def main() -> int:
     # kernel B.  Times at the prototypes' SoSp-width inputs (case a); the
     # library time is the unfused torch composition (cuBLAS SGEMM and
     # elementwise ops): its forward for A, its backward alone (autograd on a
-    # built graph) for B.
+    # built graph) for B.  Launches: the sosp phase's (``launches``, also
+    # ``launches_sosp``) and the amt phase's; kernel A's flat entry point is
+    # called by no path, so row 4 counts kernel A's launches there and its
+    # own entry's in run (d) of the fused_whiten phase.
     case_a = whiten["cases"]["a_sosp"]
     tm = case_a["times"]
-    for name, replaces, ms, err, plain, lib, bound, by in (
+    for name, replaces, ms, err, plain, lib, bound, by, counter in (
             ("fused_whiten", "scripts/proto_fused_whiten.py:151", tm["kernel_A_ms"],
              case_a["forward"]["fused_whiten.U"]["max_abs_err"], tm["plain_fwd_ms"],
-             tm["plain_fwd_ms"], tm["bound_A_ms"], tm["bound_A_by"]),
+             tm["plain_fwd_ms"], tm["bound_A_ms"], tm["bound_A_by"], "fused_whiten"),
             ("fused_whiten_flat", "scripts/proto_fused_whiten.py:208", tm["kernel_A_flat_ms"],
              case_a["forward"]["fused_whiten_flat.U"]["max_abs_err"], tm["plain_fwd_ms"],
-             tm["plain_fwd_ms"], tm["bound_A_ms"], tm["bound_A_by"]),
+             tm["plain_fwd_ms"], tm["bound_A_ms"], tm["bound_A_by"], "fused_whiten"),
             ("fused_whiten_bwd", "scripts/proto_fused_whiten_bwd.py:157", tm["kernel_B_ms"],
              max(r["max_abs_err"] for r in case_a["backward"].values()), tm["plain_bwd_ms"],
-             tm["unfused_bwd_ms"], tm["bound_B_ms"], tm["bound_B_by"])):
+             tm["unfused_bwd_ms"], tm["bound_B_ms"], tm["bound_B_by"], "fused_whiten_bwd")):
         kernels.append({"name": name, "route": "cuda",
                         "source": "gpitch_tpu_torch/csrc/fused_whiten.cu",
-                        "replaces": replaces, "launches": whiten["launches"][name],
+                        "replaces": replaces, "launches": sosp["launches"][counter],
+                        "launches_sosp": sosp["launches"][counter],
+                        "launches_amt": amt["launches"][counter],
+                        "entry_launches_in_d": whiten["launches"][name],
                         "shape": case_a["shape"], "max_abs_err": err, "ms": ms,
                         "plain_ms": plain, "bound_ms": bound, "bound_by": by,
                         "library_ms": lib, "timed_by": "python_calls"})

@@ -7,7 +7,7 @@
 // kernel B.  Per window, z (M), x and err (N), Linv (M, M):
 //   Kuf[m,t] = sum_s var_s exp(-|z_m - x_t| il_s) sum_p e_sp cos(2 pi f_sp (z_m - x_t))
 //   A = Linv Kuf,  U = A A^T,  v = A err                          (kernel A)
-//   given (dU, dv): dA = (dU + dU^T) A + dv err^T, dLinv = dA Kuf^T,
+//   given (dU, dv), with G = dU + dU^T: dA = G A + dv err^T, dLinv = dA Kuf^T,
 //   dK = Linv^T dA, and per source, with E = exp(-|z - x| il),
 //   C_p, S_p = cos, sin(2 pi f_p (z - x)), mix = sum_p e_p C_p, dM = var E dK:
 //   dvar = <dK, E mix>, dinvl = -var <dK, E mix |z - x|>,
@@ -17,42 +17,68 @@
 // 2P = 10 contraction is far below what the tensor cores take, and the bound
 // may not use TF32, so one kernel serves both.
 //
-// What bounds it on the H100: operations.  Linv is lower triangular in
-// every caller (the bank's chol_inv, the prototypes' recipe) and U is
-// symmetric, so per window the function needs M (M + 1) N flops for
-// A = Linv Kuf, M (M + 1) N for U, 2 M N for v and (4P + 4) S M N for the
-// build; kernel B needs A again, 2 M^2 N each for dA and the dense dLinv
-// (the contract returns every entry, as make_fused_bwd does), M (M + 1) N
-// for dK = Linv^T dA and 8P S M N for the per-source sums.  The kernels
-// take Linv dense, as the prototypes do, and form A, dK and U as full
-// products: up to twice those counts.  The bytes are x, err, Linv (and dU,
-// dv) in and U, v (or the gradients) out.  The design keeps Kuf, A, dA and
-// dK out of device memory:
-//   * grid (splits, windows): a block walks tiles of 32 samples of one
-//     window; when the windows alone do not fill the card's resident
-//     blocks, a window's tiles are split over several blocks (`plan`), each
-//     writing a partial record that a second kernel adds in a fixed order
-//     (no atomics: a run is bit-for-bit reproducible);
-//   * 256 threads as 16 x 16; M is padded to MP = 16 RU (RU in 1, 2, 4, 7,
-//     10: M <= 160) with zeros.  A thread owns an RU x 2 piece of every
-//     (MP, 32) tile (rows ty + 16 r, columns 2 tx + c) and an RU x RU piece
-//     of U or dLinv (rows ty + 16 r, columns tx + 16 c), kept in registers
-//     across the tiles;
-//   * shared memory holds Linv (MP x (MP + 1)), the Kuf and A tiles (and dA
-//     in kernel B), z, and the cos/sin features of z and of the tile's x for
-//     a chunk of at most 16 (source, partial) pairs; when every pair fits one
-//     chunk the z features are computed once per block.  Kernel B reads
-//     dU + dU^T from device memory (L2) 16 columns at a time;
-//   * per-source sums of kernel B: each thread sums its elements, a warp
-//     adds its lanes with a butterfly, and one thread per output adds the 8
-//     warps in order into the block's record in device memory;
-//   * every product is an f32 FMA on the CUDA cores, never TF32; cos, sin
-//     and exp are the full-precision sincosf/expf (arguments reach ~6e3 rad),
-//     and an angle is formed as (2 pi z) f like the plain version;
-//   * ragged N: samples past the end get Kuf = 0 and err = 0, so they add
-//     nothing; no padding of the inputs.
-// Later work: tensor-core 3xTF32 or wgmma products, a symmetric U, a
-// triangular Linv.
+// What bounds them on the H100: operations (f32 on the CUDA cores, 67
+// TFLOP/s); the bytes are x, err, Linv (and dU, dv) in and U, v (or the
+// gradients) out.  Both kernels keep Kuf, A, dA and dK out of device memory.
+//
+// Kernel A: grid (splits, windows), a block walks tiles of 32 samples of
+// one window; when the windows alone do not fill the card's resident blocks,
+// a window's tiles are split over several blocks (`plan_splits`), each
+// writing a partial record that a second kernel adds in a fixed order (no
+// atomics: a run is bit-for-bit reproducible).  256 threads as 16 x 16; M is
+// padded to MP = 16 RU (RU in 1, 2, 4, 7, 10: M <= 160) with zeros.  A thread
+// owns an RU x 2 piece of every (MP, 32) tile and an RU x RU piece of U,
+// kept in registers across the tiles.  Shared memory holds Linv (MP x (MP +
+// 1)), the Kuf and A tiles, z, and the cos/sin features of z and of the
+// tile's x for a chunk of at most 16 (source, partial) pairs.  Later work:
+// a triangular Linv, a symmetric U, wider register tiles.
+//
+// Kernel B (redesigned for Hopper).  Its first form ran at 14-16% of its
+// bound: one 8-warp block per SM (a dense Linv, three (MP, 33) tiles and a
+// staging buffer in shared memory), four dense M x M x 32 products per tile
+// (A = Linv Kuf, dA = G A, dLinv += dA Kuf^T, dK = Linv^T dA) in RU x 2
+// register tiles that issued a shared load per FMA, G restaged from device
+// memory at every tile (2 M^2 loads per 32 samples, half strided by M), and
+// the envelope, the mixture and the z and x features computed again in the
+// per-source pass.  The new design, by the same items:
+//   * reassociation: C = Linv^T G Linv and h = Linv^T dv once per window,
+//     then per tile dK = C Kuf + h err^T, Q += Kuf Kuf^T (symmetric, lower
+//     blocks only) and r += Kuf err; dLinv = G (Linv Q) + dv r^T once per
+//     window after the splits' sum (linear in Q and r, so the partial
+//     records still add up).  Two products per tile instead of four, one of
+//     them half; A is never formed, and G is read once per window;
+//   * the per-window products (W = G Linv, [C | h] = Linv^T [W | dv], Y =
+//     Linv Q, dLinv = [G | dv] [Y ; r^T]) are one small tiled kernel
+//     (`bwd_gemm_kernel`, 64 x 64 tiles, 4 x 4 per thread), before and
+//     after the main kernel;
+//   * shared memory holds C (MP x (MP + 4), MP = 16 RU as in kernel A),
+//     the Kuf tile, and the features of a chunk of sources: 89 KB at the
+//     SoSp width (M 112, 3 x 5), so two blocks share an SM; at M 160 one
+//     block (C alone is 105 KB), with as many sources per chunk as fit (6 of
+//     8 at the AMT width);
+//   * register tiles: thread (tid / 16, tid % 16) owns RU x 2 elements (rows
+//     16 r + tid / 16, columns 2 (tid % 16) + c) of the build, of dK and of
+//     the per-source sums, so dK never leaves registers; the C Kuf product
+//     reads 16-byte rows of C and 8-byte pairs of Kuf (RU + 4 loads per 8 RU
+//     FMAs), the Q product 8-byte pairs (2 RU loads per RU (RU + 1) FMAs);
+//   * features once: the z features of every pair are formed once per
+//     window (`bwd_zfeat_kernel`) and copied, not recomputed, per block (or
+//     per chunk); the tile's x features once per tile and chunk; the
+//     per-source pass runs its chunks in reverse so the last chunk's
+//     features are reused; it needs E once per element and source, and
+//     takes the mixture's sums per partial (Sa = <dK E, C_p>) instead of
+//     forming the mixture again: dvar = sum_p e_p Sa_p;
+//   * per-source sums: each thread sums its elements, a warp adds its lanes
+//     with a butterfly, lane 0 adds into its warp's slots in shared memory,
+//     and one thread per output adds the 8 warps in order into the block's
+//     record once per block (or per chunk and tile when the sources take
+//     several chunks).
+// Both kernels: every product is an f32 FMA on the CUDA cores, never TF32;
+// cos, sin and exp are the full-precision sincosf/expf (arguments reach ~6e3
+// rad), an angle is formed as (2 pi z) f like the plain version; ragged N:
+// samples past the end get Kuf = 0 and err = 0, so they add nothing.
+// Later work for B: Linv's triangle in the per-window products, 3xTF32
+// tensor-core products for C Kuf, Q and the per-source sums.
 
 #include <cuda_runtime.h>
 
@@ -66,7 +92,6 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kLd = kTile + 1;     // pitch of the (MP, kTile) tiles
 constexpr int kPairCap = 16;       // (source, partial) pairs per feature chunk
-constexpr int kStage = 16;         // columns of dU + dU^T staged per step
 constexpr int kMaxDevices = 64;
 constexpr double kSetupTiles = 0.5;  // a block's set-up, in tiles (splits plan)
 constexpr float kTwoPi = 6.283185307179586f;
@@ -80,8 +105,6 @@ struct Args {
   const float* freq;
   const float* var;     // (S,) or (nw, S)
   const float* inv_l;
-  const float* du;      // (nw, M, M), kernel B
-  const float* dv;      // (nw, M), kernel B
   float* part;          // (nw, splits, rec)
   int e_stride, v_stride, M, N, S, P, splits, rec, chunk_sources;
 };
@@ -89,18 +112,16 @@ struct Args {
 // Offsets (floats) of the shared-memory arrays; the host sizes the launch
 // with the same function.
 struct Layout {
-  int linv, k, a, da, stage, z, x, err, fzc, fzs, fxc, fxs, pe, pf, pv, pil, red, total;
+  int linv, k, a, z, x, err, fzc, fzs, fxc, fxs, pe, pf, pv, pil, total;
 };
 
-__host__ __device__ inline Layout make_layout(int mp, bool bwd, int sc, int P) {
+__host__ __device__ inline Layout make_layout(int mp, int sc, int P) {
   const int pairs = sc * P;
   Layout l;
   int o = 0;
   l.linv = o; o += mp * (mp + 1);
   l.k = o;    o += mp * kLd;
   l.a = o;    o += mp * kLd;
-  l.da = o;   o += bwd ? mp * kLd : 0;
-  l.stage = o; o += bwd ? mp * (kStage + 1) : 0;
   l.z = o;    o += mp;
   l.x = o;    o += kTile;
   l.err = o;  o += kTile;
@@ -112,7 +133,6 @@ __host__ __device__ inline Layout make_layout(int mp, bool bwd, int sc, int P) {
   l.pf = o;   o += pairs;
   l.pv = o;   o += sc;
   l.pil = o;  o += sc;
-  l.red = o;  o += bwd ? kWarps * sc * (2 * P + 2) : 0;
   l.total = o;
   return l;
 }
@@ -172,6 +192,19 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
+}
+
+// Sums of v0 .. v3 over the warp's lanes with 6 shuffles in place of 20 (a
+// transposing butterfly): a lane gets the sum of v[2 b4 + b3], b4 and b3
+// being bits 4 and 3 of its lane index (lanes 0, 8, 16, 24: v0 .. v3).
+__device__ __forceinline__ float warp_sum4(float v0, float v1, float v2, float v3, int lane) {
+  const bool b4 = lane & 16, b3 = lane & 8;
+  const float k0 = (b4 ? v2 : v0) + __shfl_xor_sync(0xffffffffu, b4 ? v0 : v2, 16);
+  const float k1 = (b4 ? v3 : v1) + __shfl_xor_sync(0xffffffffu, b4 ? v1 : v3, 16);
+  float m = (b3 ? k1 : k0) + __shfl_xor_sync(0xffffffffu, b3 ? k0 : k1, 8);
+#pragma unroll
+  for (int off = 4; off > 0; off >>= 1) m += __shfl_xor_sync(0xffffffffu, m, off);
+  return m;
 }
 
 // Block set-up: z and Linv (zero-padded to MP) into shared memory.
@@ -299,9 +332,10 @@ __device__ void store_square(const float (&acc)[RU][RU], int M, float* rec) {
     }
 }
 
-__device__ __forceinline__ void tile_range(const Args& a, int* begin, int* end) {
-  const int tiles = (a.N + kTile - 1) / kTile;
-  const int per = (tiles + a.splits - 1) / a.splits;
+// The tiles [begin, end) of this block's share of a window's N samples.
+__device__ __forceinline__ void tile_range(int N, int splits, int* begin, int* end) {
+  const int tiles = (N + kTile - 1) / kTile;
+  const int per = (tiles + splits - 1) / splits;
   *begin = blockIdx.x * per;
   *end = min(tiles, *begin + per);
 }
@@ -311,7 +345,7 @@ template <int RU>
 __global__ void __launch_bounds__(kThreads, 1) fused_whiten_fwd_kernel(Args a) {
   constexpr int MP = 16 * RU;
   extern __shared__ float sm[];
-  const Layout l = make_layout(MP, false, a.chunk_sources, a.P);
+  const Layout l = make_layout(MP, a.chunk_sources, a.P);
   const int w = blockIdx.y, tid = threadIdx.x;
   const int nchunks = (a.S + a.chunk_sources - 1) / a.chunk_sources;
   load_window<RU>(a, sm, l, w);
@@ -328,7 +362,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_whiten_fwd_kernel(Args a) {
     for (int c = 0; c < RU; ++c) u[r][c] = 0.f;
   float vacc = 0.f;
   int begin, end;
-  tile_range(a, &begin, &end);
+  tile_range(a.N, a.splits, &begin, &end);
   for (int tile = begin; tile < end; ++tile) {
     build_tile<RU>(a, sm, l, w, tile * kTile, nchunks);
     __syncthreads();
@@ -345,163 +379,460 @@ __global__ void __launch_bounds__(kThreads, 1) fused_whiten_fwd_kernel(Args a) {
 }
 
 // ------------------------------------------------------------- kernel B
-template <int RU>
-__global__ void __launch_bounds__(kThreads, 1) fused_whiten_bwd_kernel(Args a) {
-  constexpr int MP = 16 * RU;
-  extern __shared__ float sm[];
-  const int P = a.P, S = a.S, M = a.M;
-  const Layout l = make_layout(MP, true, a.chunk_sources, P);
-  const int w = blockIdx.y, tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int lane = tid % 32, warp = tid / 32;
-  const int nchunks = (S + a.chunk_sources - 1) / a.chunk_sources;
-  const int per_source = 2 * P + 2;   // dvar, dinvl, de_1..P, df_1..P
-  float* rec = a.part + (static_cast<int64_t>(w) * a.splits + blockIdx.x) * a.rec;
-  float* rvar = rec + M * M;
-  float* rinvl = rvar + S;
-  float* rde = rinvl + S;
-  float* rdf = rde + S * P;
-  for (int q = tid; q < 2 * S + 2 * S * P; q += kThreads) rvar[q] = 0.f;
-  load_window<RU>(a, sm, l, w);
-  if (nchunks == 1) {
-    chunk_params(a, sm, l, w, 0, S);
+constexpr int kKP = kTile + 4;        // pitch of kernel B's Kuf tile (16-byte rows)
+constexpr int kGemmTile = 64;         // output tile of the per-window products
+constexpr int kGemmK = 16;            // their depth step
+constexpr int kSmemLimit = 232448;    // dynamic shared memory of one block
+constexpr int kHalfSm = 113 * 1024;   // two blocks on one SM (228 KB, 1 KB each reserved)
+
+struct BwdArgs {
+  const float* zc;      // as in Args
+  const float* xc;
+  const float* err;
+  const float* linv;
+  const float* energy;
+  const float* freq;
+  const float* var;
+  const float* inv_l;
+  const float* du;      // (nw, M, M)
+  const float* dv;      // (nw, M)
+  float* ws;            // (nw, wsz): [W, later Y (M M) | C, h (M, M + 1) | z features]
+  float* part;          // (nw, splits, rec): [Q (M M), r (M), dvar (S), dinvl (S), de, df]
+  float* sums;          // (nw, rec): the splits' sum (part itself when splits == 1)
+  float* dl;            // (nw, M, M): dLinv
+  int e_stride, v_stride, M, N, S, P, splits, rec, wsz, mp, chunk_sources;
+};
+
+__host__ __device__ inline int round4(int v) { return (v + 3) & ~3; }
+
+// Kernel B's padded M: 16 RU with RU in 1, 2, 4, 7, 10 (M <= 160).
+__host__ __device__ inline int bwd_mp(int M) {
+  const int ru = (M + 15) / 16;
+  return 16 * (ru <= 1 ? 1 : ru <= 2 ? 2 : ru <= 4 ? 4 : ru <= 7 ? 7 : 10);
+}
+
+// Floats per window of kernel B's workspace: W then Y (M M), [C | h]
+// (M (M + 1)), and the z features cos, sin (S P, 2, MP).
+__host__ __device__ inline int bwd_workspace(int M, int S, int P) {
+  return 2 * M * M + M + S * P * 2 * bwd_mp(M);
+}
+
+struct BwdLayout {
+  int cm, kt, xf, zf, z, h, x, err, pe, pf, pv, pil, red, total;
+};
+
+// Shared memory of the main kernel (floats; every array starts 16-byte
+// aligned): C (MP rows, pitch MP + 4), the Kuf tile (MP, kKP), the x and z
+// features of a chunk of sc sources ([cos | sin] rows per pair), z, h, the
+// tile's x and err, the chunk's parameters, and each warp's partial sums
+// (3 per pair).
+__host__ __device__ inline BwdLayout make_bwd_layout(int mp, int sc, int P) {
+  const int pairs = sc * P;
+  BwdLayout l;
+  int o = 0;
+  l.cm = o;  o += mp * (mp + 4);
+  l.kt = o;  o += mp * kKP;
+  l.xf = o;  o += pairs * 2 * kTile;
+  l.zf = o;  o += pairs * 2 * mp;
+  l.z = o;   o += mp;
+  l.h = o;   o += mp;
+  l.x = o;   o += kTile;
+  l.err = o; o += kTile;
+  l.pe = o;  o += round4(pairs);
+  l.pf = o;  o += round4(pairs);
+  l.pv = o;  o += round4(sc);
+  l.pil = o; o += round4(sc);
+  l.red = o; o += kWarps * pairs * 3;
+  l.total = o;
+  return l;
+}
+
+// Sources per feature chunk: every source when the block still fits two to
+// an SM, else as many as one block may hold (0: not even one).
+int bwd_chunk_sources(int mp, int S, int P) {
+  auto bytes = [&](int sc) { return 4 * make_bwd_layout(mp, sc, P).total; };
+  if (bytes(S) <= kHalfSm) return S;
+  for (int sc = S; sc >= 1; --sc)
+    if (bytes(sc) <= kSmemLimit) return sc;
+  return 0;
+}
+
+// The z features cos, sin(2 pi f_q z_i) of every pair q of window w, once
+// per window, into the workspace (rows past M are 0).
+__global__ void bwd_zfeat_kernel(BwdArgs a) {
+  const int w = blockIdx.y, mp = a.mp, n = a.S * a.P * mp;
+  const float* z = a.zc + static_cast<int64_t>(w) * a.M;
+  const float* f = a.freq + static_cast<int64_t>(w) * a.e_stride;
+  float* zf = a.ws + static_cast<int64_t>(w) * a.wsz + 2 * a.M * a.M + a.M;
+  const int first = static_cast<int>(blockIdx.x) * 1024, stop = min(n, first + 1024);
+  for (int idx = first + static_cast<int>(threadIdx.x); idx < stop; idx += kThreads) {
+    const int q = idx / mp, i = idx - q * mp;
+    float sn = 0.f, cs = 0.f;
+    if (i < a.M) sincosf((kTwoPi * z[i]) * f[q], &sn, &cs);
+    zf[2 * q * mp + i] = cs;
+    zf[(2 * q + 1) * mp + i] = sn;
+  }
+}
+
+// The per-window products, out = A B over depth K, one 64 x 64 tile per
+// block, 4 x 4 outputs per thread:
+//   kOpW   W = G Linv                        (G = dU + dU^T)
+//   kOpCh  [C | h] = Linv^T [W | dv]          (before the main kernel)
+//   kOpY   Y = Linv Q                         (Q from the splits' sum)
+//   kOpDl  dLinv = [G | dv] [Y ; r^T]         (K = M + 1)
+enum { kOpW, kOpCh, kOpY, kOpDl };
+
+template <int OP>
+__device__ __forceinline__ float gemm_a(const BwdArgs& a, int w, int i, int k) {
+  const int M = a.M;
+  const int64_t mm = static_cast<int64_t>(w) * M * M;
+  if (OP == kOpW || OP == kOpDl) {
+    if (k == M) return a.dv[static_cast<int64_t>(w) * M + i];
+    return a.du[mm + i * M + k] + a.du[mm + k * M + i];
+  }
+  if (OP == kOpCh) return a.linv[mm + k * M + i];
+  return a.linv[mm + i * M + k];
+}
+
+template <int OP>
+__device__ __forceinline__ float gemm_b(const BwdArgs& a, int w, int k, int j) {
+  const int M = a.M;
+  const float* ws = a.ws + static_cast<int64_t>(w) * a.wsz;
+  if (OP == kOpW) return a.linv[static_cast<int64_t>(w) * M * M + k * M + j];
+  if (OP == kOpCh) return j == M ? a.dv[static_cast<int64_t>(w) * M + k] : ws[k * M + j];
+  const float* sums = a.sums + static_cast<int64_t>(w) * a.rec;
+  if (OP == kOpY) return sums[k * M + j];
+  return k == M ? sums[M * M + j] : ws[k * M + j];
+}
+
+template <int OP>
+__global__ void __launch_bounds__(kThreads) bwd_gemm_kernel(BwdArgs a) {
+  __shared__ float as[kGemmK][kGemmTile + 1];
+  __shared__ float bs[kGemmK][kGemmTile];
+  const int M = a.M, K = OP == kOpDl ? M + 1 : M, ncol = OP == kOpCh ? M + 1 : M;
+  const int w = blockIdx.z, i0 = blockIdx.y * kGemmTile, j0 = blockIdx.x * kGemmTile;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  float acc[4][4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+  for (int k0 = 0; k0 < K; k0 += kGemmK) {
+    for (int e = tid; e < kGemmK * kGemmTile; e += kThreads) {
+      // A is read along its rows (k fastest) except Linv^T (i fastest)
+      const int kk = OP == kOpCh ? e / kGemmTile : e % kGemmK;
+      const int ii = OP == kOpCh ? e % kGemmTile : e / kGemmK;
+      as[kk][ii] = (i0 + ii < M && k0 + kk < K) ? gemm_a<OP>(a, w, i0 + ii, k0 + kk) : 0.f;
+      const int kb = e / kGemmTile, jj = e % kGemmTile;
+      bs[kb][jj] = (j0 + jj < ncol && k0 + kb < K) ? gemm_b<OP>(a, w, k0 + kb, j0 + jj) : 0.f;
+    }
     __syncthreads();
-    features(sm + l.z, sm + l.pf, sm + l.fzc, sm + l.fzs, MP, S * P);
+#pragma unroll
+    for (int kk = 0; kk < kGemmK; ++kk) {
+      float av[4], bv[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) av[r] = as[kk][ty + 16 * r];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) bv[c] = bs[kk][tx + 16 * c];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[r][c] += av[r] * bv[c];
+    }
+    __syncthreads();
+  }
+  float* out;
+  if (OP == kOpW || OP == kOpY) out = a.ws + static_cast<int64_t>(w) * a.wsz;
+  else if (OP == kOpCh) out = a.ws + static_cast<int64_t>(w) * a.wsz + M * M;
+  else out = a.dl + static_cast<int64_t>(w) * M * M;
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int i = i0 + ty + 16 * r, j = j0 + tx + 16 * c;
+      if (i < M && j < ncol) out[i * ncol + j] = acc[r][c];
+    }
+}
+
+// Sources s0 .. s0 + ns - 1 of window w: parameters, and their z features
+// copied from the workspace.
+__device__ void bwd_chunk(const BwdArgs& a, float* sm, const BwdLayout& l, int w, int s0,
+                          int ns) {
+  const int P = a.P, np = ns * P, mp = a.mp;
+  const float* e = a.energy + static_cast<int64_t>(w) * a.e_stride + s0 * P;
+  const float* f = a.freq + static_cast<int64_t>(w) * a.e_stride + s0 * P;
+  for (int q = threadIdx.x; q < np; q += kThreads) {
+    sm[l.pe + q] = e[q];
+    sm[l.pf + q] = f[q];
+  }
+  const int64_t vb = static_cast<int64_t>(w) * a.v_stride + s0;
+  for (int q = threadIdx.x; q < ns; q += kThreads) {
+    sm[l.pv + q] = a.var[vb + q];
+    sm[l.pil + q] = a.inv_l[vb + q];
+  }
+  const float* src = a.ws + static_cast<int64_t>(w) * a.wsz + 2 * a.M * a.M + a.M +
+                     static_cast<int64_t>(s0) * P * 2 * mp;
+  for (int q = threadIdx.x; q < np * 2 * mp; q += kThreads) sm[l.zf + q] = src[q];
+}
+
+// The tile's x features cos, sin(2 pi f_q x_t) of the chunk's np pairs.
+__device__ void bwd_xfeat(float* sm, const BwdLayout& l, int np) {
+  for (int idx = threadIdx.x; idx < np * kTile; idx += kThreads) {
+    const int q = idx / kTile, t = idx - q * kTile;
+    float sn, cs;
+    sincosf((kTwoPi * sm[l.x + t]) * sm[l.pf + q], &sn, &cs);
+    sm[l.xf + 2 * q * kTile + t] = cs;
+    sm[l.xf + (2 * q + 1) * kTile + t] = sn;
+  }
+}
+
+// Adds the warps' partial sums of sources s0 .. s0 + ns - 1 into the
+// block's record, in a fixed order, and zeroes them:
+//   dvar = sum_p e_p Sa_p,  dinvl = -var sum_p e_p Sd_p,
+//   de_p = var Sa_p,        df_p = -2 pi e_p var Sf_p,
+// with Sa = <dK E, C_p>, Sd = <dK E |z - x|, C_p>, Sf = <dK E (z - x), S_p>.
+__device__ void bwd_flush(const BwdArgs& a, float* sm, const BwdLayout& l, float* rsrc,
+                          int s0, int ns, int cpairs) {
+  const int P = a.P, S = a.S;
+  const float* red = sm + l.red;
+  __syncthreads();
+  for (int sl = threadIdx.x; sl < ns; sl += kThreads) {
+    float sv = 0.f, si = 0.f;
+    for (int p = 0; p < P; ++p) {
+      const int q = sl * P + p;
+      float sa = 0.f, sd = 0.f;
+      for (int v = 0; v < kWarps; ++v) {
+        sa += red[(v * cpairs + q) * 3];
+        sd += red[(v * cpairs + q) * 3 + 1];
+      }
+      sv += sm[l.pe + q] * sa;
+      si += sm[l.pe + q] * sd;
+    }
+    rsrc[s0 + sl] += sv;
+    rsrc[S + s0 + sl] += -sm[l.pv + sl] * si;
   }
   __syncthreads();
-  const float* du = a.du + static_cast<int64_t>(w) * M * M;
-  const float* dv = a.dv + static_cast<int64_t>(w) * M;
-  float g[RU][RU];
+  float* rde = rsrc + 2 * S;
+  float* rdf = rde + S * P;
+  for (int q = threadIdx.x; q < ns * P; q += kThreads) {
+    float sa = 0.f, sf = 0.f;
+    for (int v = 0; v < kWarps; ++v) {
+      float* r = sm + l.red + (v * cpairs + q) * 3;
+      sa += r[0];
+      sf += r[2];
+      r[0] = r[1] = r[2] = 0.f;
+    }
+    const int sl = q / P, p = q - sl * P;
+    rde[(s0 + sl) * P + p] += sm[l.pv + sl] * sa;
+    rdf[(s0 + sl) * P + p] += -kTwoPi * sm[l.pe + q] * sm[l.pv + sl] * sf;
+  }
+  __syncthreads();
+}
+
+// The main kernel: per tile of 32 samples, Kuf's tile into shared memory,
+// dK = C Kuf + h err^T in registers, Q += Kuf Kuf^T and r += Kuf err, then
+// the per-source sums of dK E against the features.  Thread (ty, tx) =
+// (tid / 16, tid % 16) owns the elements (ty + 16 r, 2 tx + c) of the
+// build, of dK and of the sums, and Q's entries (16 a + ty, 16 b + tx),
+// b <= a, in registers across the tiles.  M is padded to MP = 16 RU.
+template <int RU>
+__global__ void __launch_bounds__(kThreads, RU >= 10 ? 1 : 2) fused_whiten_bwd_kernel(BwdArgs a) {
+  constexpr int MP = 16 * RU, CP = MP + 4, NQ = RU * (RU + 1) / 2;
+  extern __shared__ __align__(16) float sm[];
+  const int M = a.M, P = a.P, S = a.S, sc = a.chunk_sources, cpairs = sc * P;
+  const BwdLayout l = make_bwd_layout(MP, sc, P);
+  const int w = blockIdx.y, tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int ty = tid / 16, tx = tid % 16;
+  const int nchunks = (S + sc - 1) / sc;
+  const float* ch = a.ws + static_cast<int64_t>(w) * a.wsz + M * M;
+  float* rec = a.part + (static_cast<int64_t>(w) * a.splits + blockIdx.x) * a.rec;
+  float* rsrc = rec + M * M + M;
+  for (int q = tid; q < 2 * S + 2 * S * P; q += kThreads) rsrc[q] = 0.f;
+  const int m4 = round4(M);
+  for (int idx = tid; idx < MP * m4; idx += kThreads) {
+    const int i = idx / m4, k = idx - i * m4;
+    sm[l.cm + i * CP + k] = (i < M && k < M) ? ch[i * (M + 1) + k] : 0.f;
+  }
+  for (int i = tid; i < MP; i += kThreads) {
+    sm[l.h + i] = i < M ? ch[i * (M + 1) + M] : 0.f;
+    sm[l.z + i] = i < M ? a.zc[static_cast<int64_t>(w) * M + i] : 0.f;
+  }
+  for (int q = tid; q < kWarps * cpairs * 3; q += kThreads) sm[l.red + q] = 0.f;
+  if (nchunks == 1) bwd_chunk(a, sm, l, w, 0, S);
+  __syncthreads();
+  float zr[RU];
 #pragma unroll
-  for (int r = 0; r < RU; ++r)
+  for (int r = 0; r < RU; ++r) zr[r] = sm[l.z + ty + 16 * r];
+  float qacc[NQ];
 #pragma unroll
-    for (int c = 0; c < RU; ++c) g[r][c] = 0.f;
+  for (int q = 0; q < NQ; ++q) qacc[q] = 0.f;
+  float racc = 0.f;
   int begin, end;
-  tile_range(a, &begin, &end);
+  tile_range(a.N, a.splits, &begin, &end);
   for (int tile = begin; tile < end; ++tile) {
     const int t0 = tile * kTile;
-    build_tile<RU>(a, sm, l, w, t0, nchunks);
-    __syncthreads();
-    linv_times<RU, false>(sm, l, M, sm + l.k, sm + l.a);
-    __syncthreads();
-    // dA = (dU + dU^T) A + dv err^T, (dU + dU^T) staged kStage columns at a time
-    float da[RU][2];
-#pragma unroll
-    for (int r = 0; r < RU; ++r) da[r][0] = da[r][1] = 0.f;
-    for (int k0 = 0; k0 < M; k0 += kStage) {
-      for (int idx = tid; idx < MP * kStage; idx += kThreads) {
-        const int kk = idx / MP, i = idx - kk * MP, k = k0 + kk;
-        sm[l.stage + i * (kStage + 1) + kk] =
-            (i < M && k < M) ? du[i * M + k] + du[k * M + i] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int kk = 0; kk < kStage; ++kk) {
-        const float a0 = sm[l.a + (k0 + kk) * kLd + 2 * tx];
-        const float a1 = sm[l.a + (k0 + kk) * kLd + 2 * tx + 1];
-#pragma unroll
-        for (int r = 0; r < RU; ++r) {
-          const float sv = sm[l.stage + (ty + 16 * r) * (kStage + 1) + kk];
-          da[r][0] += sv * a0;
-          da[r][1] += sv * a1;
-        }
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int r = 0; r < RU; ++r) {
-      const int i = ty + 16 * r;
-      const float dvi = i < M ? dv[i] : 0.f;
-      sm[l.da + i * kLd + 2 * tx] = da[r][0] + dvi * sm[l.err + 2 * tx];
-      sm[l.da + i * kLd + 2 * tx + 1] = da[r][1] + dvi * sm[l.err + 2 * tx + 1];
+    __syncthreads();    // the last tile's readers of x, err, Kuf and features are done
+    if (tid < kTile) {
+      const int t = t0 + tid;
+      const int64_t g = static_cast<int64_t>(w) * a.N + t;
+      sm[l.x + tid] = t < a.N ? a.xc[g] : 0.f;
+      sm[l.err + tid] = t < a.N ? a.err[g] : 0.f;
     }
     __syncthreads();
-    // dLinv += dA Kuf^T; dK = Linv^T dA over A's tile
-    gram_tile<RU>(sm + l.da, sm + l.k, g);
-    linv_times<RU, true>(sm, l, M, sm + l.da, sm + l.a);
-    __syncthreads();
-    // per-source sums over the tile
-    float zr[RU], xt[2];
+    const float xt[2] = {sm[l.x + 2 * tx], sm[l.x + 2 * tx + 1]};
+    // ---- the build: Kuf = sum_s var_s E_s mix_s
+    float kacc[RU][2];
 #pragma unroll
-    for (int r = 0; r < RU; ++r) zr[r] = sm[l.z + ty + 16 * r];
-    xt[0] = sm[l.x + 2 * tx];
-    xt[1] = sm[l.x + 2 * tx + 1];
-    for (int c = 0; c < nchunks; ++c) {
-      const int s0 = c * a.chunk_sources;
-      const int ns = min(a.chunk_sources, S - s0);
-      const int slots = ns * per_source;
+    for (int r = 0; r < RU; ++r) kacc[r][0] = kacc[r][1] = 0.f;
+    for (int ck = 0; ck < nchunks; ++ck) {
+      const int s0 = ck * sc, ns = min(sc, S - s0);
       if (nchunks > 1) {
-        chunk_params(a, sm, l, w, s0, ns);
-        __syncthreads();
-        features(sm + l.z, sm + l.pf, sm + l.fzc, sm + l.fzs, MP, ns * P);
-        features(sm + l.x, sm + l.pf, sm + l.fxc, sm + l.fxs, kTile, ns * P);
+        if (ck > 0) __syncthreads();
+        bwd_chunk(a, sm, l, w, s0, ns);
         __syncthreads();
       }
-      float* red = sm + l.red + warp * slots;
+      bwd_xfeat(sm, l, ns * P);
+      __syncthreads();
       for (int sl = 0; sl < ns; ++sl) {
-        float mix[RU][2], dm[RU][2];
-        mixture<RU>(sm, l, sl, P, ty, tx, mix);
+        float mix[RU][2];
+#pragma unroll
+        for (int r = 0; r < RU; ++r) mix[r][0] = mix[r][1] = 0.f;
+        for (int p = 0; p < P; ++p) {
+          const int q = sl * P + p;
+          const float e = sm[l.pe + q];
+          const float2 cx = *reinterpret_cast<const float2*>(sm + l.xf + 2 * q * kTile + 2 * tx);
+          const float2 sx =
+              *reinterpret_cast<const float2*>(sm + l.xf + (2 * q + 1) * kTile + 2 * tx);
+#pragma unroll
+          for (int r = 0; r < RU; ++r) {
+            const float ecz = e * sm[l.zf + 2 * q * MP + ty + 16 * r];
+            const float esz = e * sm[l.zf + (2 * q + 1) * MP + ty + 16 * r];
+            mix[r][0] += ecz * cx.x + esz * sx.x;
+            mix[r][1] += ecz * cx.y + esz * sx.y;
+          }
+        }
         const float vs = sm[l.pv + sl], il = sm[l.pil + sl];
-        float pvar = 0.f, pinvl = 0.f;
 #pragma unroll
         for (int r = 0; r < RU; ++r)
 #pragma unroll
-          for (int cc = 0; cc < 2; ++cc) {
-            const float ad = fabsf(zr[r] - xt[cc]);
-            const float env = expf(-ad * il);
-            const float dk = sm[l.a + (ty + 16 * r) * kLd + 2 * tx + cc];
-            const float pm = dk * env * mix[r][cc];
-            pvar += pm;
-            pinvl += pm * ad;
-            dm[r][cc] = vs * env * dk;
-          }
-        pvar = warp_sum(pvar);
-        pinvl = warp_sum(pinvl);
-        if (lane == 0) {
-          red[sl * per_source] = pvar;
-          red[sl * per_source + 1] = pinvl;
+          for (int c = 0; c < 2; ++c)
+            kacc[r][c] += vs * expf(-fabsf(zr[r] - xt[c]) * il) * mix[r][c];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < RU; ++r) {
+      const int i = ty + 16 * r, t = t0 + 2 * tx;
+      float2 v;
+      v.x = (i < M && t < a.N) ? kacc[r][0] : 0.f;
+      v.y = (i < M && t + 1 < a.N) ? kacc[r][1] : 0.f;
+      *reinterpret_cast<float2*>(sm + l.kt + i * kKP + 2 * tx) = v;
+    }
+    __syncthreads();
+    // ---- dK = C Kuf + h err^T (registers)
+    float dk[RU][2];
+    {
+      const float e0 = sm[l.err + 2 * tx], e1 = sm[l.err + 2 * tx + 1];
+#pragma unroll
+      for (int r = 0; r < RU; ++r) {
+        const float hv = sm[l.h + ty + 16 * r];
+        dk[r][0] = hv * e0;
+        dk[r][1] = hv * e1;
+      }
+    }
+    for (int k = 0; k < m4; k += 4) {
+      float4 cv[RU];
+      float2 kv[4];
+#pragma unroll
+      for (int r = 0; r < RU; ++r)
+        cv[r] = *reinterpret_cast<const float4*>(sm + l.cm + (ty + 16 * r) * CP + k);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        kv[kk] = *reinterpret_cast<const float2*>(sm + l.kt + (k + kk) * kKP + 2 * tx);
+#pragma unroll
+      for (int r = 0; r < RU; ++r) {
+        const float cr[4] = {cv[r].x, cv[r].y, cv[r].z, cv[r].w};
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          dk[r][0] += cr[kk] * kv[kk].x;
+          dk[r][1] += cr[kk] * kv[kk].y;
         }
+      }
+    }
+    // ---- Q += Kuf Kuf^T (lower blocks), r += Kuf err
+#pragma unroll 2
+    for (int t = 0; t < kTile; t += 2) {
+      float2 rv[RU], cv[RU];
+#pragma unroll
+      for (int u = 0; u < RU; ++u) {
+        rv[u] = *reinterpret_cast<const float2*>(sm + l.kt + (16 * u + ty) * kKP + t);
+        cv[u] = *reinterpret_cast<const float2*>(sm + l.kt + (16 * u + tx) * kKP + t);
+      }
+      int q = 0;
+#pragma unroll
+      for (int u = 0; u < RU; ++u)
+#pragma unroll
+        for (int b = 0; b <= u; ++b, ++q) qacc[q] += rv[u].x * cv[b].x + rv[u].y * cv[b].y;
+    }
+    if (tid < M)
+      for (int t = 0; t < kTile; ++t) racc += sm[l.kt + tid * kKP + t] * sm[l.err + t];
+    // ---- per-source sums; the last chunk's features are still loaded
+    for (int ck = nchunks - 1; ck >= 0; --ck) {
+      const int s0 = ck * sc, ns = min(sc, S - s0);
+      if (ck != nchunks - 1) {
+        __syncthreads();
+        bwd_chunk(a, sm, l, w, s0, ns);
+        __syncthreads();
+        bwd_xfeat(sm, l, ns * P);
+        __syncthreads();
+      }
+      for (int sl = 0; sl < ns; ++sl) {
+        const float il = sm[l.pil + sl];
+        // dK E, dK E |z - x| and dK E (z - x) of the thread's elements
+        float av[RU][2], aad[RU][2], ad[RU][2];
+#pragma unroll
+        for (int r = 0; r < RU; ++r)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const float d = zr[r] - xt[c];
+            av[r][c] = dk[r][c] * expf(-fabsf(d) * il);
+            aad[r][c] = av[r][c] * fabsf(d);
+            ad[r][c] = av[r][c] * d;
+          }
         for (int p = 0; p < P; ++p) {
           const int q = sl * P + p;
-          const float xc0 = sm[l.fxc + q * kTile + 2 * tx], xc1 = sm[l.fxc + q * kTile + 2 * tx + 1];
-          const float xs0 = sm[l.fxs + q * kTile + 2 * tx], xs1 = sm[l.fxs + q * kTile + 2 * tx + 1];
-          float pde = 0.f, pdf = 0.f;
+          const float2 cx = *reinterpret_cast<const float2*>(sm + l.xf + 2 * q * kTile + 2 * tx);
+          const float2 sx =
+              *reinterpret_cast<const float2*>(sm + l.xf + (2 * q + 1) * kTile + 2 * tx);
+          float sa = 0.f, sd = 0.f, sf = 0.f;
 #pragma unroll
           for (int r = 0; r < RU; ++r) {
-            const float zc = sm[l.fzc + q * MP + ty + 16 * r];
-            const float zs = sm[l.fzs + q * MP + ty + 16 * r];
-            pde += dm[r][0] * (zc * xc0 + zs * xs0) + dm[r][1] * (zc * xc1 + zs * xs1);
-            pdf += dm[r][0] * (zr[r] - xt[0]) * (zs * xc0 - zc * xs0)
-                 + dm[r][1] * (zr[r] - xt[1]) * (zs * xc1 - zc * xs1);
+            const float cz = sm[l.zf + 2 * q * MP + ty + 16 * r];
+            const float sz = sm[l.zf + (2 * q + 1) * MP + ty + 16 * r];
+            const float c0 = cz * cx.x + sz * sx.x, c1 = cz * cx.y + sz * sx.y;
+            sa += av[r][0] * c0 + av[r][1] * c1;
+            sd += aad[r][0] * c0 + aad[r][1] * c1;
+            sf += ad[r][0] * (sz * cx.x - cz * sx.x) + ad[r][1] * (sz * cx.y - cz * sx.y);
           }
-          pde = warp_sum(pde);
-          pdf = warp_sum(pdf);
-          if (lane == 0) {
-            red[sl * per_source + 2 + p] = pde;
-            red[sl * per_source + 2 + P + p] = pdf;
-          }
+          const float sum = warp_sum4(sa, sd, sf, 0.f, lane);
+          if (lane % 8 == 0 && lane < 24) sm[l.red + (warp * cpairs + q) * 3 + lane / 8] += sum;
         }
       }
-      __syncthreads();
-      // one thread per output adds the warps in order into the record
-      for (int j = tid; j < slots; j += kThreads) {
-        float s = 0.f;
-        for (int v = 0; v < kWarps; ++v) s += sm[l.red + v * slots + j];
-        const int sl = j / per_source, kind = j - sl * per_source, src = s0 + sl;
-        if (kind == 0) {
-          rvar[src] += s;
-        } else if (kind == 1) {
-          rinvl[src] += -sm[l.pv + sl] * s;
-        } else if (kind < 2 + P) {
-          rde[src * P + kind - 2] += s;
-        } else {
-          const int p = kind - 2 - P;
-          rdf[src * P + p] += -kTwoPi * sm[l.pe + sl * P + p] * s;
-        }
-      }
-      __syncthreads();
+      if (nchunks > 1) bwd_flush(a, sm, l, rsrc, s0, ns, cpairs);
     }
   }
-  store_square<RU>(g, M, rec);
+  if (nchunks == 1) bwd_flush(a, sm, l, rsrc, 0, S, cpairs);
+  int q = 0;
+#pragma unroll
+  for (int u = 0; u < RU; ++u)
+#pragma unroll
+    for (int b = 0; b <= u; ++b, ++q) {
+      const int i = 16 * u + ty, j = 16 * b + tx;
+      if (i < M && j < M) {
+        rec[i * M + j] = qacc[q];
+        if (b != u) rec[j * M + i] = qacc[q];
+      }
+    }
+  if (tid < M) rec[M * M + tid] = racc;
 }
 
 // out[w][e] = sum over splits of part[w][split][e], splits in order.
@@ -516,27 +847,24 @@ __global__ void reduce_splits_kernel(const float* __restrict__ part, float* __re
   out[idx] = s;
 }
 
-template <int RU, bool BWD>
-auto kernel_of() {
-  return BWD ? &fused_whiten_bwd_kernel<RU> : &fused_whiten_fwd_kernel<RU>;
+cudaError_t reduce_splits(const float* part, float* out, int nw, int rec, int splits,
+                          cudaStream_t stream) {
+  const int64_t total = static_cast<int64_t>(nw) * rec;
+  reduce_splits_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0, stream>>>(
+      part, out, total, rec, splits);
+  return cudaGetLastError();
 }
 
-// The launch's dynamic shared memory; raises the kernel's limit to it once
-// per device.
-template <int RU, bool BWD>
-cudaError_t shared_bytes(const Args& a, int* smem) {
-  static std::atomic<int> allowed[kMaxDevices];
-  const Layout l = make_layout(16 * RU, BWD, a.chunk_sources, a.P);
-  *smem = static_cast<int>(sizeof(float) * l.total);
+// Raises `fn`'s dynamic shared-memory limit to `smem` bytes, once per device.
+cudaError_t allow_shared(const void* fn, int smem, std::atomic<int>* allowed) {
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
   if (device >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (*smem > allowed[device].load(std::memory_order_relaxed)) {
-    err = cudaFuncSetAttribute(kernel_of<RU, BWD>(),
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
+  if (smem > allowed[device].load(std::memory_order_relaxed)) {
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    allowed[device].store(*smem, std::memory_order_relaxed);
+    allowed[device].store(smem, std::memory_order_relaxed);
   }
   return cudaSuccess;
 }
@@ -544,21 +872,18 @@ cudaError_t shared_bytes(const Args& a, int* smem) {
 // Blocks per window.  Blocks of equal work run in waves of (SMs x resident
 // blocks per SM); a window's tiles are split over the number of blocks that
 // minimises waves x (tiles per block + kSetupTiles), where the set-up is a
-// block's loads of Linv and z features and its record's write.  Splits that
-// would leave a block without a tile are skipped.
-template <int RU, bool BWD>
-cudaError_t plan(const Args& a, int nw, int* splits) {
-  int smem = 0, device = 0, sms = 0, resident = 0;
-  cudaError_t err = shared_bytes<RU, BWD>(a, &smem);
-  if (err == cudaSuccess) err = cudaGetDevice(&device);
+// block's loads (Linv or C, the z features) and its record's write.  Splits
+// that would leave a block without a tile are skipped.
+cudaError_t plan_splits(const void* fn, int smem, int N, int nw, int* splits) {
+  int device = 0, sms = 0, resident = 0;
+  cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel_of<RU, BWD>(),
-                                                        kThreads, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, fn, kThreads, smem);
   if (err != cudaSuccess) return err;
   const int64_t slots = static_cast<int64_t>(sms) * (resident > 0 ? resident : 1);
-  const int tiles = (a.N + kTile - 1) / kTile;
+  const int tiles = (N + kTile - 1) / kTile;
   double best_cost = 0.0;
   *splits = 1;
   for (int s = 1; s <= tiles; ++s) {
@@ -574,51 +899,123 @@ cudaError_t plan(const Args& a, int nw, int* splits) {
   return cudaSuccess;
 }
 
-template <int RU, bool BWD>
-cudaError_t launch(Args a, int nw, float* out, cudaStream_t stream) {
-  int smem = 0;
-  cudaError_t err = shared_bytes<RU, BWD>(a, &smem);
+// Kernel A: launches it (and the splits' sum), or, with `splits_out`, only
+// writes the split that `plan_splits` picks.
+template <int RU>
+cudaError_t fwd_run(Args a, int nw, float* out, cudaStream_t stream, int* splits_out) {
+  static std::atomic<int> allowed[kMaxDevices];
+  const void* fn = reinterpret_cast<const void*>(&fused_whiten_fwd_kernel<RU>);
+  const int smem = static_cast<int>(sizeof(float) * make_layout(16 * RU, a.chunk_sources, a.P).total);
+  cudaError_t err = allow_shared(fn, smem, allowed);
   if (err != cudaSuccess) return err;
-  kernel_of<RU, BWD>()<<<dim3(a.splits, nw), kThreads, smem, stream>>>(a);
+  if (splits_out) return plan_splits(fn, smem, a.N, nw, splits_out);
+  fused_whiten_fwd_kernel<RU><<<dim3(a.splits, nw), kThreads, smem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess || a.splits == 1) return err;
-  const int64_t total = static_cast<int64_t>(nw) * a.rec;
-  reduce_splits_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0, stream>>>(
-      a.part, out, total, a.rec, a.splits);
-  return cudaGetLastError();
+  return reduce_splits(a.part, out, nw, a.rec, a.splits, stream);
 }
 
-// Launches the kernel, or, with `splits_out`, only writes the split that
-// `plan` picks.
-template <int RU, bool BWD>
-cudaError_t run(const Args& a, int nw, float* out, cudaStream_t stream, int* splits_out) {
-  return splits_out ? plan<RU, BWD>(a, nw, splits_out) : launch<RU, BWD>(a, nw, out, stream);
-}
-
-template <bool BWD>
-int dispatch(Args a, int nw, void* out, void* stream, int* splits_out = nullptr) {
+int fwd_dispatch(Args a, int nw, void* out, void* stream, int* splits_out = nullptr) {
   if (splits_out) *splits_out = 1;
   if (nw == 0 || a.M == 0) return 0;
   a.chunk_sources = a.P >= kPairCap ? 1 : kPairCap / a.P;
   if (a.chunk_sources > a.S) a.chunk_sources = a.S;
-  a.rec = BWD ? a.M * a.M + 2 * a.S + 2 * a.S * a.P : a.M * a.M + a.M;
+  a.rec = a.M * a.M + a.M;
   auto* o = static_cast<float*>(out);
   auto* s = static_cast<cudaStream_t>(stream);
   const int ru = (a.M + 15) / 16;
   cudaError_t err = cudaErrorInvalidValue;
-  if (ru <= 1) err = run<1, BWD>(a, nw, o, s, splits_out);
-  else if (ru <= 2) err = run<2, BWD>(a, nw, o, s, splits_out);
-  else if (ru <= 4) err = run<4, BWD>(a, nw, o, s, splits_out);
-  else if (ru <= 7) err = run<7, BWD>(a, nw, o, s, splits_out);
-  else if (ru <= 10) err = run<10, BWD>(a, nw, o, s, splits_out);
+  if (ru <= 1) err = fwd_run<1>(a, nw, o, s, splits_out);
+  else if (ru <= 2) err = fwd_run<2>(a, nw, o, s, splits_out);
+  else if (ru <= 4) err = fwd_run<4>(a, nw, o, s, splits_out);
+  else if (ru <= 7) err = fwd_run<7>(a, nw, o, s, splits_out);
+  else if (ru <= 10) err = fwd_run<10>(a, nw, o, s, splits_out);
+  return static_cast<int>(err);
+}
+
+template <int OP>
+cudaError_t gemm(const BwdArgs& a, int nw, cudaStream_t stream) {
+  const int ncol = OP == kOpCh ? a.M + 1 : a.M;
+  const dim3 grid((ncol + kGemmTile - 1) / kGemmTile, (a.M + kGemmTile - 1) / kGemmTile, nw);
+  bwd_gemm_kernel<OP><<<grid, kThreads, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// Kernel B: the z features and [C | h] per window, the main kernel, the
+// splits' sum, then Y and dLinv per window; or, with `splits_out`, only
+// the split that `plan_splits` picks for the main kernel.
+template <int RU>
+cudaError_t bwd_run(BwdArgs a, int nw, cudaStream_t stream, int* splits_out) {
+  static std::atomic<int> allowed[kMaxDevices];
+  const void* fn = reinterpret_cast<const void*>(&fused_whiten_bwd_kernel<RU>);
+  const int smem = static_cast<int>(sizeof(float) * make_bwd_layout(16 * RU, a.chunk_sources, a.P).total);
+  cudaError_t err = allow_shared(fn, smem, allowed);
+  if (err != cudaSuccess) return err;
+  if (splits_out) return plan_splits(fn, smem, a.N, nw, splits_out);
+  const int zblocks = (a.S * a.P * a.mp + 1023) / 1024;
+  bwd_zfeat_kernel<<<dim3(zblocks, nw), kThreads, 0, stream>>>(a);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) err = gemm<kOpW>(a, nw, stream);
+  if (err == cudaSuccess) err = gemm<kOpCh>(a, nw, stream);
+  if (err != cudaSuccess) return err;
+  fused_whiten_bwd_kernel<RU><<<dim3(a.splits, nw), kThreads, smem, stream>>>(a);
+  err = cudaGetLastError();
+  if (err == cudaSuccess && a.splits > 1)
+    err = reduce_splits(a.part, a.sums, nw, a.rec, a.splits, stream);
+  if (err == cudaSuccess) err = gemm<kOpY>(a, nw, stream);
+  if (err == cudaSuccess) err = gemm<kOpDl>(a, nw, stream);
+  return err;
+}
+
+int bwd_dispatch(BwdArgs a, int nw, void* stream, int* splits_out = nullptr) {
+  if (splits_out) *splits_out = 1;
+  if (nw == 0 || a.M == 0) return 0;
+  a.mp = bwd_mp(a.M);
+  a.chunk_sources = bwd_chunk_sources(a.mp, a.S, a.P);
+  if (a.chunk_sources == 0) return static_cast<int>(cudaErrorInvalidValue);
+  a.rec = a.M * a.M + a.M + 2 * a.S + 2 * a.S * a.P;
+  a.wsz = bwd_workspace(a.M, a.S, a.P);
+  if (a.splits == 1) a.sums = a.part;
+  auto* s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (a.mp == 16) err = bwd_run<1>(a, nw, s, splits_out);
+  else if (a.mp == 32) err = bwd_run<2>(a, nw, s, splits_out);
+  else if (a.mp == 64) err = bwd_run<4>(a, nw, s, splits_out);
+  else if (a.mp == 112) err = bwd_run<7>(a, nw, s, splits_out);
+  else if (a.mp == 160) err = bwd_run<10>(a, nw, s, splits_out);
   return static_cast<int>(err);
 }
 
 Args make_args(const void* zc, const void* xc, const void* err, const void* linv,
                const void* energy, const void* freq, const void* var, const void* inv_l,
-               const void* du, const void* dv, void* part, int e_stride, int v_stride, int M,
-               int N, int S, int P, int splits) {
+               void* part, int e_stride, int v_stride, int M, int N, int S, int P,
+               int splits) {
   Args a{};
+  a.zc = static_cast<const float*>(zc);
+  a.xc = static_cast<const float*>(xc);
+  a.err = static_cast<const float*>(err);
+  a.linv = static_cast<const float*>(linv);
+  a.energy = static_cast<const float*>(energy);
+  a.freq = static_cast<const float*>(freq);
+  a.var = static_cast<const float*>(var);
+  a.inv_l = static_cast<const float*>(inv_l);
+  a.part = static_cast<float*>(part);
+  a.e_stride = e_stride;
+  a.v_stride = v_stride;
+  a.M = M;
+  a.N = N;
+  a.S = S;
+  a.P = P;
+  a.splits = splits;
+  return a;
+}
+
+BwdArgs make_bwd_args(const void* zc, const void* xc, const void* err, const void* linv,
+                      const void* energy, const void* freq, const void* var,
+                      const void* inv_l, const void* du, const void* dv, void* part,
+                      void* sums, void* ws, void* dl, int e_stride, int v_stride, int M,
+                      int N, int S, int P, int splits) {
+  BwdArgs a{};
   a.zc = static_cast<const float*>(zc);
   a.xc = static_cast<const float*>(xc);
   a.err = static_cast<const float*>(err);
@@ -630,6 +1027,9 @@ Args make_args(const void* zc, const void* xc, const void* err, const void* linv
   a.du = static_cast<const float*>(du);
   a.dv = static_cast<const float*>(dv);
   a.part = static_cast<float*>(part);
+  a.sums = static_cast<float*>(sums);
+  a.ws = static_cast<float*>(ws);
+  a.dl = static_cast<float*>(dl);
   a.e_stride = e_stride;
   a.v_stride = v_stride;
   a.M = M;
@@ -655,30 +1055,41 @@ int gpitch_fused_whiten_fwd(const void* zc, const void* xc, const void* err, con
                             const void* inv_l, void* part, void* out, int e_stride,
                             int v_stride, int nw, int M, int N, int S, int P, int splits,
                             void* stream) {
-  return dispatch<false>(make_args(zc, xc, err, linv, energy, freq, var, inv_l, nullptr,
-                                   nullptr, part, e_stride, v_stride, M, N, S, P, splits),
-                         nw, out, stream);
+  return fwd_dispatch(make_args(zc, xc, err, linv, energy, freq, var, inv_l, part, e_stride,
+                                v_stride, M, N, S, P, splits),
+                      nw, out, stream);
 }
 
-// Kernel B.  As kernel A, plus du (nw, M, M) and dv (nw, M, 1); the record
-// is [dLinv (M M), dvar (S), dinvl (S), de (S P), df (S P)].
+// Kernel B.  As kernel A, plus du (nw, M, M) and dv (nw, M, 1).  part
+// (nw, splits, rec) receives each block's [Q (M M), r (M), dvar (S),
+// dinvl (S), de (S P), df (S P)] and sums (nw, rec) their sum (unused when
+// splits == 1); ws (nw, gpitch_fused_whiten_bwd_workspace(M, S, P)) is
+// scratch; dl (nw, M, M) receives dLinv.  The gradients in the parameters
+// are the last 2 S + 2 S P entries of the summed record.
 int gpitch_fused_whiten_bwd(const void* zc, const void* xc, const void* err, const void* linv,
                             const void* energy, const void* freq, const void* var,
                             const void* inv_l, const void* du, const void* dv, void* part,
-                            void* out, int e_stride, int v_stride, int nw, int M, int N,
-                            int S, int P, int splits, void* stream) {
-  return dispatch<true>(make_args(zc, xc, err, linv, energy, freq, var, inv_l, du, dv, part,
-                                  e_stride, v_stride, M, N, S, P, splits),
-                        nw, out, stream);
+                            void* sums, void* ws, void* dl, int e_stride, int v_stride, int nw,
+                            int M, int N, int S, int P, int splits, void* stream) {
+  return bwd_dispatch(make_bwd_args(zc, xc, err, linv, energy, freq, var, inv_l, du, dv, part,
+                                    sums, ws, dl, e_stride, v_stride, M, N, S, P, splits),
+                      nw, stream);
 }
+
+// Floats per window of kernel B's scratch `ws`.
+int gpitch_fused_whiten_bwd_workspace(int M, int S, int P) { return bwd_workspace(M, S, P); }
 
 // The split `splits` that the launches of kernel A (bwd 0) or B (bwd 1) take
 // at these sizes by default, on the current device.
 int gpitch_fused_whiten_splits(int bwd, int nw, int M, int N, int S, int P, int* splits) {
-  const Args a = make_args(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                           nullptr, nullptr, nullptr, nullptr, 0, 0, M, N, S, P, 1);
-  return bwd ? dispatch<true>(a, nw, nullptr, nullptr, splits)
-             : dispatch<false>(a, nw, nullptr, nullptr, splits);
+  if (bwd)
+    return bwd_dispatch(make_bwd_args(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                                      nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                                      nullptr, nullptr, 0, 0, M, N, S, P, 1),
+                        nw, nullptr, splits);
+  return fwd_dispatch(make_args(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                                nullptr, nullptr, 0, 0, M, N, S, P, 1),
+                      nw, nullptr, nullptr, splits);
 }
 
 }  // extern "C"

@@ -80,22 +80,20 @@ def _per_window(energy, freq, var, inv_l):
 
 # ---------------------------------------------------------- plain versions
 def fused_whiten_plain(zc, xc, err, linv, energy, freq, var, inv_l):
-    """(U (nw, M, M), v (nw, M, 1)) by the unfused composition, source by
-    source as scripts/proto_fused_whiten.py::xla_reference builds it: the
-    cosine mixture as the product of cosine features.  Differentiable by
-    autograd in every input."""
+    """(U (nw, M, M), v (nw, M, 1)) by the unfused composition that
+    scripts/proto_fused_whiten.py::xla_reference builds: the cosine mixture
+    as the product of cosine features, every source at once (a source axis
+    after the window axis, as the unfused bound's StackedSum holds it).
+    Differentiable by autograd in every input."""
     # kernels.spectral imports this package: import it at the call
     from ..kernels.spectral import cosine_features
     _check(zc, xc, err, linv, energy, freq, var, inv_l)
     e, f, v, il = _per_window(energy, freq, var, inv_l)
-    x = xc.mT                                              # (nw, N, 1)
-    d = (zc - xc).abs()                                    # (nw, M, N)
-    kuf = 0.0
-    for s in range(e.shape[1]):
-        phi_z = cosine_features(zc, e[:, s], f[:, s])      # (nw, M, 2P)
-        phi_x = cosine_features(x, e[:, s], f[:, s])       # (nw, N, 2P)
-        mix = phi_z @ phi_x.mT
-        kuf = kuf + v[:, s, None, None] * torch.exp(-d * il[:, s, None, None]) * mix
+    d = (zc - xc).abs()[:, None]                           # (nw, 1, M, N)
+    phi_z = cosine_features(zc[:, None], e, f)             # (nw, S, M, 2P)
+    phi_x = cosine_features(xc.mT[:, None], e, f)          # (nw, S, N, 2P)
+    kuf = (v[..., None, None] * torch.exp(-d * il[..., None, None])
+           * (phi_z @ phi_x.mT)).sum(1)
     a = linv @ kuf
     return a @ a.mT, a @ err.mT
 
@@ -103,9 +101,12 @@ def fused_whiten_plain(zc, xc, err, linv, energy, freq, var, inv_l):
 def fused_whiten_bwd_plain(zc, xc, err, linv, du, dv, energy, freq, var, inv_l):
     """Given the cotangents (du, dv) of (U, v): (dlinv (nw, M, M),
     dvar (nw, 1, S), dinvl (nw, 1, S), de (nw, S, P), df (nw, S, P)) per
-    window, by the backward kernel's own formulas (not autograd):
+    window, by the backward kernel's own formulas (not autograd).  With
+    G = dU + dU^T, dA = G A + dv err^T, dLinv = dA Kuf^T and dK = Linv^T dA,
+    taken in the kernel's association:
 
-        dA = (dU + dU^T) A + dv err^T,   dLinv = dA Kuf^T,   dK = Linv^T dA
+        C = Linv^T G Linv,  h = Linv^T dv,   dK = C Kuf + h err^T
+        Q = Kuf Kuf^T,      r = Kuf err^T,   dLinv = G (Linv Q) + dv r^T
         per source s, with E = exp(-|z - x| inv_l), C_p = cos(w_p (z - x)),
         S_p = sin(w_p (z - x)), mix = sum_p e_p C_p, dM = var E . dK:
         dvar = <dK, E mix>,  dinvl = -var <dK, E mix |z - x|>,
@@ -113,38 +114,26 @@ def fused_whiten_bwd_plain(zc, xc, err, linv, du, dv, energy, freq, var, inv_l):
     """
     _check(zc, xc, err, linv, energy, freq, var, inv_l, du, dv)
     e, f, v, il = _per_window(energy, freq, var, inv_l)
-    x = xc.mT
-    dsig = zc - xc                                         # (nw, M, N)
+    dsig = (zc - xc)[:, None]                              # (nw, 1, M, N)
     d = dsig.abs()
-    envs, mixes, feats = [], [], []
-    kuf = 0.0
-    for s in range(e.shape[1]):
-        ang_z = _TWO_PI * zc * f[:, s, None, :]            # (nw, M, P)
-        ang_x = _TWO_PI * x * f[:, s, None, :]             # (nw, N, P)
-        cz, sz, cx, sx = ang_z.cos(), ang_z.sin(), ang_x.cos(), ang_x.sin()
-        mix = (cz * e[:, s, None, :]) @ cx.mT + (sz * e[:, s, None, :]) @ sx.mT
-        env = torch.exp(-d * il[:, s, None, None])
-        kuf = kuf + v[:, s, None, None] * env * mix
-        envs.append(env)
-        mixes.append(mix)
-        feats.append((cz, sz, cx, sx))
-    a = linv @ kuf
-    da = (du + du.mT) @ a + dv @ err
-    dlinv = da @ kuf.mT
-    dk = linv.mT @ da
-    dvar, dinvl, de, df = [], [], [], []
-    for s, (env, mix, (cz, sz, cx, sx)) in enumerate(zip(envs, mixes, feats)):
-        pm = dk * env * mix
-        dvar.append(pm.sum((-2, -1)))
-        dinvl.append(-v[:, s] * (pm * d).sum((-2, -1)))
-        dm = v[:, s, None, None] * env * dk
-        de.append(((dm @ cx) * cz).sum(-2) + ((dm @ sx) * sz).sum(-2))
-        dmd = dm * dsig
-        sn = ((dmd @ cx) * sz).sum(-2) - ((dmd @ sx) * cz).sum(-2)
-        df.append(-_TWO_PI * e[:, s] * sn)
-    return (dlinv, torch.stack(dvar, -1)[:, None, :],
-            torch.stack(dinvl, -1)[:, None, :], torch.stack(de, 1),
-            torch.stack(df, 1))
+    ang_z = _TWO_PI * zc[:, None] * f[..., None, :]        # (nw, S, M, P)
+    ang_x = _TWO_PI * xc.mT[:, None] * f[..., None, :]     # (nw, S, N, P)
+    cz, sz, cx, sx = ang_z.cos(), ang_z.sin(), ang_x.cos(), ang_x.sin()
+    ez = e[..., None, :]
+    mix = (cz * ez) @ cx.mT + (sz * ez) @ sx.mT            # (nw, S, M, N)
+    env = torch.exp(-d * il[..., None, None])
+    kuf = (v[..., None, None] * env * mix).sum(1)
+    g = du + du.mT
+    dk = (linv.mT @ g @ linv) @ kuf + (linv.mT @ dv) @ err
+    dlinv = g @ (linv @ (kuf @ kuf.mT)) + dv @ (kuf @ err.mT).mT
+    pm = dk[:, None] * env * mix
+    dvar = pm.sum((-2, -1))                                # (nw, S)
+    dinvl = -v * (pm * d).sum((-2, -1))
+    dm = v[..., None, None] * env * dk[:, None]
+    de = ((dm @ cx) * cz).sum(-2) + ((dm @ sx) * sz).sum(-2)
+    dmd = dm * dsig
+    df = -_TWO_PI * e * (((dmd @ cx) * sz).sum(-2) - ((dmd @ sx) * cz).sum(-2))
+    return dlinv, dvar[:, None, :], dinvl[:, None, :], de, df
 
 
 # ---------------------------------------------------------- CUDA launches
@@ -183,42 +172,56 @@ def _prepare(zc, xc, err, linv, energy, freq, var, inv_l, du=None, dv=None):
     return sizes, tensors, strides
 
 
-def _launch(bwd, sizes, tensors, strides, record, splits=None):
-    nw = sizes[0]
-    dev = tensors[0].device
-    if splits is None:
-        splits = _splits(bwd, sizes, dev.index)
-    part = torch.empty((nw, splits, record), dtype=torch.float32, device=dev)
-    out = part if splits == 1 else torch.empty((nw, 1, record),
-                                               dtype=torch.float32, device=dev)
-    lib = _cuda.load("fused_whiten")
-    fn = lib.gpitch_fused_whiten_bwd if bwd else lib.gpitch_fused_whiten_fwd
-    with torch.cuda.device(dev):
-        rc = fn(*(t.data_ptr() for t in tensors), part.data_ptr(),
-                out.data_ptr(), *strides, *sizes, splits,
-                torch.cuda.current_stream(dev).cuda_stream)
-    _cuda.check(rc, "fused_whiten_bwd" if bwd else "fused_whiten")
-    return out.view(nw, record)
+def _records(nw, splits, rec, dev):
+    """Each block's partial record (nw, splits, rec) and their sum (nw, 1,
+    rec), the same tensor when a window takes one block."""
+    part = torch.empty((nw, splits, rec), dtype=torch.float32, device=dev)
+    if splits == 1:
+        return part, part
+    return part, torch.empty((nw, 1, rec), dtype=torch.float32, device=dev)
 
 
 def _forward_kernel(zc, xc, err, linv, energy, freq, var, inv_l, splits=None):
     """Kernel A on CUDA tensors: (U, v); ``splits`` overrides the plan."""
     sizes, tensors, strides = _prepare(zc, xc, err, linv, energy, freq, var, inv_l)
     nw, m = sizes[:2]
-    buf = _launch(False, sizes, tensors, strides, m * m + m, splits)
+    dev = zc.device
+    splits = splits or _splits(False, sizes, dev.index)
+    part, out = _records(nw, splits, m * m + m, dev)
+    with torch.cuda.device(dev):
+        rc = _cuda.load("fused_whiten").gpitch_fused_whiten_fwd(
+            *(t.data_ptr() for t in tensors), part.data_ptr(), out.data_ptr(), *strides,
+            *sizes, splits, torch.cuda.current_stream(dev).cuda_stream)
+    _cuda.check(rc, "fused_whiten")
+    buf = out.view(nw, m * m + m)
     return buf[:, :m * m].view(nw, m, m), buf[:, m * m:].view(nw, m, 1)
 
 
 def _backward_kernel(zc, xc, err, linv, du, dv, energy, freq, var, inv_l,
                      splits=None):
-    """Kernel B on CUDA tensors; ``splits`` overrides the plan."""
+    """Kernel B on CUDA tensors; ``splits`` overrides the plan of its main
+    kernel.  The record of a block is [Q (M M), r (M), dvar (S), dinvl (S),
+    de (S P), df (S P)]; dLinv comes in its own tensor."""
     sizes, tensors, strides = _prepare(zc, xc, err, linv, energy, freq, var,
                                        inv_l, du, dv)
     nw, m, _, s, p = sizes
-    buf = _launch(True, sizes, tensors, strides, m * m + 2 * s + 2 * s * p, splits)
-    o = m * m
-    return (buf[:, :o].view(nw, m, m), buf[:, o:o + s].view(nw, 1, s),
-            buf[:, o + s:o + 2 * s].view(nw, 1, s),
+    dev = zc.device
+    lib = _cuda.load("fused_whiten")
+    splits = splits or _splits(True, sizes, dev.index)
+    rec = m * m + m + 2 * s + 2 * s * p
+    part, sums = _records(nw, splits, rec, dev)
+    ws = torch.empty((nw, lib.gpitch_fused_whiten_bwd_workspace(m, s, p)),
+                     dtype=torch.float32, device=dev)
+    dl = torch.empty((nw, m, m), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.gpitch_fused_whiten_bwd(
+            *(t.data_ptr() for t in tensors), part.data_ptr(), sums.data_ptr(),
+            ws.data_ptr(), dl.data_ptr(), *strides, *sizes, splits,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _cuda.check(rc, "fused_whiten_bwd")
+    buf = sums.view(nw, rec)
+    o = m * m + m
+    return (dl, buf[:, o:o + s].view(nw, 1, s), buf[:, o + s:o + 2 * s].view(nw, 1, s),
             buf[:, o + 2 * s:o + 2 * s + s * p].view(nw, s, p),
             buf[:, o + 2 * s + s * p:].view(nw, s, p))
 

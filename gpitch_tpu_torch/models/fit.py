@@ -86,10 +86,14 @@ def minibatch_fn(x: torch.Tensor, y: torch.Tensor, size: int,
 def adam_segments(model, loss_fn: Callable, num_steps: int,
                   learning_rate: float = 0.005, batch_fn: Callable | None = None,
                   segment: int = 100):
-    """``num_steps`` Adam steps in place, as ceil(num_steps / segment)
-    segments with one host fence (the losses' copy) at the end of each;
-    between fences the losses stay on the device.  Returns (model, losses
-    (num_steps,) numpy, the wall seconds of each segment)."""
+    """``num_steps`` Adam steps on a copy of the model, as ceil(num_steps /
+    segment) segments with one host fence (the losses' copy) at the end of
+    each; between fences the losses stay on the device.  The caller's model
+    is left unchanged, as the JAX package's fits leave theirs.  Returns
+    (the trained copy, losses (num_steps,) numpy, the wall seconds of each
+    segment)."""
+    model = map_params(model, lambda p: Param(p.raw.detach().clone(), p.transform,
+                                              p.trainable))
     params = trainable_tensors(model)
     optimizer = Adam(params, lr=learning_rate)
     out = torch.empty(num_steps, dtype=params[0].dtype, device=params[0].device)
@@ -124,8 +128,8 @@ def first_segment_excess(seconds) -> tuple[float, float]:
 
 def fit_adam(model, loss_fn: Callable, num_steps: int,
              learning_rate: float = 0.005, batch_fn: Callable | None = None):
-    """``num_steps`` Adam steps on the model's trainable Params, in place.
-    Returns (model, losses (num_steps,) numpy)."""
+    """``num_steps`` Adam steps on the model's trainable Params.  Returns
+    (the trained copy, losses (num_steps,) numpy); the input is unchanged."""
     model, losses, _ = adam_segments(model, loss_fn, num_steps, learning_rate,
                                      batch_fn, segment=num_steps)
     return model, losses
@@ -145,16 +149,14 @@ def fit_adam_segmented(model, loss_fn: Callable, num_steps: int,
 
 def fit_adam_timed(model, loss_fn: Callable, num_steps: int,
                    learning_rate: float = 0.005, batch_fn: Callable | None = None):
-    """fit_adam run twice from the same state (a copy of the model first,
-    then the model, with the minibatch generator's state restored in
+    """fit_adam run twice from the same state (each run trains its own copy
+    of the model, with the minibatch generator's state restored in
     between), each ending in one host fence.  Returns (model, losses,
     first_s, run_s): run_s is the second run's wall time, first_s the first
     run's excess over it."""
     generator = getattr(batch_fn, "generator", None)
     state = None if generator is None else generator.get_state()
-    copy = map_params(model, lambda p: Param(p.raw.detach().clone(), p.transform,
-                                             p.trainable))
-    _, _, first = adam_segments(copy, loss_fn, num_steps, learning_rate, batch_fn,
+    _, _, first = adam_segments(model, loss_fn, num_steps, learning_rate, batch_fn,
                                 segment=num_steps)
     if generator is not None:
         generator.set_state(state)

@@ -21,6 +21,7 @@ from ..core.params import Param, static_field
 from ..core.transforms import Positive
 from ..kernels.base import StackedSum
 from ..kernels.spectral import Matern12sm
+from ..linalg.fused_whiten import MAX_M, fused_whiten
 from ..linalg.ops import safe_chol_inv
 
 __all__ = ["SGPR", "SGPRSS", "check_on_grid"]
@@ -117,35 +118,89 @@ class SGPR:
         """Linv of Kuu as the bound factors it."""
         return safe_chol_inv(kuu, self.numerics.jitter_value(kuu.dtype))[1]
 
+    def _stacked_matern12sm(self) -> bool:
+        """A StackedSum of Matern12sm and no mask: the chain the pair takes."""
+        return (self.mask is None and isinstance(self.kern, StackedSum)
+                and isinstance(self.kern.stacked, Matern12sm))
+
+    def fused_eligible(self) -> bool:
+        """Whether the bound takes the fused route (see ``_common``): a
+        StackedSum of Matern12sm, no mask, M <= MAX_M, and float32 on the
+        card (the kernels' type) or any type on the CPU (the plain
+        versions).  Decided from the model's structure and dtype alone."""
+        if not self._stacked_matern12sm():
+            return False
+        z = self.Z.raw
+        if z.shape[-2] > MAX_M:
+            return False
+        return z.device.type == "cpu" or (z.is_cuda and z.dtype == torch.float32)
+
     def fused_whiten_args(self):
         """(zc, xc, err, Linv, energy, freq, var, inv_l): the arguments of
         ``linalg.fused_whiten`` for this bound's Kuf -> A -> (A A^T, A err)
         chain, so that its U / sigma^2 and v are ``_common``'s AAT and Aerr.
-        Differentiable in the kernel's parameters; needs a stacked
-        Matern12sm kernel and no mask."""
-        if (self.mask is not None or not isinstance(self.kern, StackedSum)
-                or not isinstance(self.kern.stacked, Matern12sm)):
+        The leading axes are flattened into the window axis (a model without
+        one gets a window axis of 1).  Differentiable in the kernel's
+        parameters; needs a stacked Matern12sm kernel and no mask."""
+        if not self._stacked_matern12sm():
             raise ValueError("fused_whiten_args: needs a StackedSum of "
                              "Matern12sm and no mask")
         st = self.kern.stacked
-        z = self.Z.value
-        return (z, self.X.value.mT, self.Y.value.mT, self._linv(self.kern.K(z)),
-                st.energy.value, st.frequency.value, st.variance.value,
-                1.0 / st.lengthscales.value)
+        z, x, y = self.Z.value, self.X.value, self.Y.value
+        m, n = z.shape[-2], x.shape[-2]
+        params = (st.energy.value, st.frequency.value, st.variance.value,
+                  1.0 / st.lengthscales.value)
+        if params[0].dim() > 2:            # per-window parameters
+            s, p = params[0].shape[-2:]
+            params = (params[0].reshape(-1, s, p), params[1].reshape(-1, s, p),
+                      params[2].reshape(-1, s), params[3].reshape(-1, s))
+        return (z.reshape(-1, m, 1), x.reshape(-1, 1, n), y.reshape(-1, 1, n),
+                self._linv(self.kern.K(z)).reshape(-1, m, m)) + params
 
     def _common(self):
+        """(err, kdiag, L_inv, A, AAT, (LB, LB_inv), c, sigma2) of the bound.
+
+        Routing, by the model's structure and dtype before any launch
+        (``fused_eligible``): a StackedSum of Matern12sm with no mask, M <=
+        MAX_M (160), in float32 on the card or any type on the CPU, takes
+        the fused pair: ``fused_whiten`` (kernel A forward, kernel B
+        backward; their plain versions on the CPU) gives AAT * sigma2 and
+        Aerr without writing Kuf or A, and A is returned as None.  Every
+        other model (a Sum, a mask, M > 160, float64 on the card) takes
+        ``_common_unfused``.  A kernel that fails to build or launch
+        raises: no route gives way to the other."""
+        if not self.fused_eligible():
+            return self._common_unfused()
+        err = self.Y.value
+        kdiag = self.kern.Kdiag(self.X.value)
+        sigma2 = self.variance.value[..., None, None]
+        args = self.fused_whiten_args()
+        lead, m = err.shape[:-2], args[3].shape[-1]
+        L_inv = args[3].reshape(lead + (m, m))
+        U, v = fused_whiten(*args)
+        AAT = U.reshape(lead + (m, m)) / sigma2
+        Aerr = v.reshape(lead + (m, 1))
+        return (err, kdiag, L_inv, None) + self._finish(AAT, Aerr, sigma2)
+
+    def _common_unfused(self):
+        """``_common`` by the plain composition: Kuf and A = L_inv Kuf built
+        as tensors (A is returned)."""
         err, kdiag, kuf, kuu = self._covs()
         sigma2 = self.variance.value[..., None, None]
         L_inv = self._linv(kuu)
         # 1/sigma2 scales the (M, M) and (M, 1) products, not the (M, N) A
         A = L_inv @ kuf
         AAT = (A @ A.mT) / sigma2
-        B = AAT + _eye(A.shape[-2], A)
+        return (err, kdiag, L_inv, A) + self._finish(AAT, A @ err, sigma2)
+
+    @staticmethod
+    def _finish(AAT, Aerr, sigma2):
+        """(AAT, (LB, LB_inv), c, sigma2) from AAT and Aerr."""
+        B = AAT + _eye(AAT.shape[-1], AAT)
         # B = I + AAT has eigenvalues >= 1: no jitter of either kind
         LB, LB_inv = safe_chol_inv(B, 0.0, jitter_rel=0.0)
-        Aerr = A @ err
         c = (LB_inv @ Aerr) / sigma2
-        return err, kdiag, L_inv, A, AAT, (LB, LB_inv), c, sigma2
+        return AAT, (LB, LB_inv), c, sigma2
 
     def elbo(self):
         """The collapsed bound, (...) per model."""

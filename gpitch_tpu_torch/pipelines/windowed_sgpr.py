@@ -157,9 +157,9 @@ def optimize_bank(bank, num_steps: int = 500, learning_rate: float = 0.01,
                   method: str = "adam", timed: bool = False,
                   segment: int | None = 250, window_chunk: int | None = None,
                   mesh=None):
-    """Adam on every window at once; returns (bank, losses) with losses the
-    per-step total over windows (numpy), and with ``timed=True`` (bank,
-    losses, (first_s, run_s)).
+    """Adam on every window at once; returns (the trained bank, losses) with
+    losses the per-step total over windows (numpy), and with ``timed=True``
+    (bank, losses, (first_s, run_s)).  The input bank is left unchanged.
 
     ``segment``: a host fence (the losses' copy) every ``segment`` steps
     (``None``: one at the end).  ``window_chunk``: optimize the window axis

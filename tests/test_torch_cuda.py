@@ -261,3 +261,45 @@ def test_cuda_fused_whiten_refuses_what_the_kernels_do_not_take(cuda):
     big = _whiten_args(cuda, 1, 161, 64, 1, 2)
     with pytest.raises(ValueError, match="M=161"):
         fused_whiten(*big)
+
+
+def test_cuda_bank_bound_goes_through_the_fused_pair_in_f32_only(cuda, monkeypatch):
+    """A stacked f32 bank on the card takes the fused pair (one kernel A
+    and one kernel B launch per bound and gradient) and agrees with its
+    unfused composition (the bound to 1e-5 relative, every raw gradient to
+    1e-3 of max|ref|, the limit of chip_smoke's bank case); the same bank
+    in f64 takes the unfused composition and launches neither."""
+    from gpitch_tpu_torch.core.params import named_params
+    from gpitch_tpu_torch.kernels import MercerMatern12sm
+    from gpitch_tpu_torch.linalg.fused_whiten import fused_whiten, fused_whiten_bwd
+    from gpitch_tpu_torch.models.sgpr import SGPRSS
+    from gpitch_tpu_torch.pipelines import windowed_sgpr as tws
+    rng = np.random.default_rng(3)
+    nw, ws, fs = 4, 401, 16000.0
+    x = np.arange(nw * ws).reshape(nw, ws) / fs
+    y = np.sin(2 * np.pi * 330 * x) + 0.1 * rng.standard_normal(x.shape)
+
+    def run(dtype):
+        bank = tws.build_window_bank(x, y, x[:, ::10, None], lambda: tws.sum_kernel([
+            MercerMatern12sm.create(0.7, 0.05, [0.7, 0.3], [f, 2 * f], dtype=dtype)
+            for f in (220.0, 330.0)]), dtype=dtype, device=cuda)
+        before = (fused_whiten.launches, fused_whiten_bwd.launches)
+        bound = tws.bank_loss(bank)
+        bound.backward()
+        torch.cuda.synchronize()
+        after = (fused_whiten.launches, fused_whiten_bwd.launches)
+        grads = {k: p.raw.grad for k, p in named_params(bank) if p.trainable}
+        return bank.fused_eligible(), (after[0] - before[0], after[1] - before[1]), \
+            bound.detach(), grads
+
+    eligible, launched, bound, grads = run(torch.float32)
+    assert eligible and launched == (1, 1)
+    eligible64, launched64, _, _ = run(torch.float64)
+    assert not eligible64 and launched64 == (0, 0)
+    monkeypatch.setattr(SGPRSS, "fused_eligible", lambda self: False)
+    _, launched, ref, ref_grads = run(torch.float32)
+    assert launched == (0, 0)
+    assert _rel(bound, ref.double()) <= 1e-5
+    assert sorted(grads) == sorted(ref_grads)
+    for k, g in ref_grads.items():
+        assert _rel(grads[k], g.double()) <= 1e-3, k

@@ -216,12 +216,12 @@ def _bank():
 
 
 def test_fused_whiten_on_a_bank_matches_its_bound():
-    """On a port bank: U / sigma^2 is _common's AAT and v its Aerr (1e-12),
-    and for a seeded (dU, dv) the scalar <U, dU> + <v, dv> through
-    fused_whiten and through _common's A gives the same gradient in every
-    trainable raw leaf (1e-10)."""
+    """On a port bank: U / sigma^2 is _common_unfused's AAT and v its Aerr
+    (1e-12), and for a seeded (dU, dv) the scalar <U, dU> + <v, dv> through
+    fused_whiten and through _common_unfused's A gives the same gradient in
+    every trainable raw leaf (1e-10)."""
     bank = _bank()
-    err, _, _, A, AAT, _, _, sigma2 = bank._common()
+    err, _, _, A, AAT, _, _, sigma2 = bank._common_unfused()
     u, v = fw.fused_whiten(*bank.fused_whiten_args())
     close(u / sigma2, AAT.detach().numpy(), 1e-12)
     close(v, (A @ err).detach().numpy(), 1e-12)
@@ -234,7 +234,7 @@ def test_fused_whiten_on_a_bank_matches_its_bound():
         if route == "fused":
             u, v = fw.fused_whiten(*bank.fused_whiten_args())
         else:
-            err, _, _, A, *_ = bank._common()
+            err, _, _, A, *_ = bank._common_unfused()
             u, v = A @ A.mT, A @ err
         ((u * du).sum() + (v * dv).sum()).backward()
         grads.append({name: p.raw.grad for name, p in named_params(bank)

@@ -59,11 +59,11 @@ def _data(rng, n=150, m=20, t0=13.0, fs=16000.0):
     return x.reshape(-1, 1), y.reshape(-1, 1), z.reshape(-1, 1)
 
 
-def _pair(rng, mask=None, reg=False, seed=0, stacked=True):
+def _pair(rng, mask=None, reg=False, seed=0, stacked=True, n=150, m=20):
     """The same SGPRSS in both packages, kernel hypers perturbed by seeded
     noise in JAX and copied across.  ``stacked=False``: a Sum of two
     kernels with different partial counts instead of a StackedSum."""
-    x, y, z = _data(rng)
+    x, y, z = _data(rng, n=n, m=m)
     if stacked:
         jk = JStacked.create(_kerns(JMercer))
         tk = TStacked.create(_kerns(TMercer, dtype=F64))
@@ -228,3 +228,72 @@ def test_optimize_bank_window_chunks_are_exact(rng):
                                    rtol=1e-12, atol=1e-14)
     with pytest.raises(NotImplementedError, match="later slice"):
         tws.optimize_bank(tb, num_steps=1, method="lbfgs")
+
+
+def _bound_and_grads(model):
+    """The bound (per window) and the gradient of its sum in every
+    trainable raw leaf."""
+    for _, p in named_params(model):
+        p.raw.grad = None
+    bound = model.elbo()
+    bound.sum().backward()
+    return bound.detach(), {name: p.raw.grad.clone() for name, p in named_params(model)
+                            if p.trainable}
+
+
+def _jax_bound_and_grads(jm, batched):
+    def f(m):
+        return m.elbo()
+    if batched:
+        return (jax.jit(jax.vmap(f))(jm),
+                jax_leaves(jax.jit(jax.grad(lambda m: jax.vmap(f)(m).sum()))(jm)))
+    return jax.jit(f)(jm), jax_leaves(jax.jit(jax.grad(f))(jm))
+
+
+def _match_jax(bound, grads, jm, batched):
+    """At the tolerances of test_sgpr_bound_and_raw_gradients_match."""
+    jbound, jg = _jax_bound_and_grads(jm, batched)
+    close(bound, jbound, 1e-9)
+    for name, g in grads.items():
+        close(g, jg[name + "[<flat index 0>]"], 1e-7)
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["single", "bank"])
+def test_fused_bound_matches_unfused_and_jax(batched, rng, monkeypatch):
+    """An eligible f64 model on the CPU takes the fused route (the plain
+    versions of kernels A and B): AAT and Aerr within 1e-12 of
+    _common_unfused's, the bound and every raw gradient within 1e-10, and
+    both against the JAX package's SGPR.elbo and jax.grad."""
+    jm, tm = (_banks(rng)[:2] if batched else _pair(rng)[:2])
+    assert tm.fused_eligible()
+    err, _, _, A, AAT, (LB, _), c, sigma2 = tm._common()
+    assert A is None
+    _, _, _, A, AAT_ref, _, _, _ = tm._common_unfused()
+    close(AAT, AAT_ref.detach(), 1e-12)
+    close(sigma2 * (LB @ c), (A @ err).detach(), 1e-12)
+    fused = _bound_and_grads(tm)
+    monkeypatch.setattr(TSGPRSS, "fused_eligible", lambda self: False)
+    unfused = _bound_and_grads(tm)
+    close(fused[0], unfused[0], 1e-10)
+    assert sorted(fused[1]) == sorted(unfused[1]) and len(fused[1]) == 5
+    for name, g in unfused[1].items():
+        close(fused[1][name], g, 1e-10)
+    _match_jax(*fused, jm, batched)
+
+
+@pytest.mark.parametrize("case", ["masked", "sum", "m_over_max"])
+def test_ineligible_bounds_take_the_unfused_route(case, rng):
+    """A mask, a Sum kernel and M > 160 (MAX_M) route to _common_unfused,
+    decided by the model's structure; the bound and its raw gradients still
+    match the JAX package."""
+    if case == "masked":
+        mask = np.ones(150)
+        mask[-30:] = 0.0
+        jm, tm, _ = _pair(rng, mask=mask)
+    elif case == "sum":
+        jm, tm, _ = _pair(rng, stacked=False)
+    else:
+        jm, tm, _ = _pair(rng, n=400, m=170)
+    assert not tm.fused_eligible()
+    assert tm._common()[3] is not None            # A is built
+    _match_jax(*_bound_and_grads(tm), jm, False)
