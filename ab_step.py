@@ -27,9 +27,9 @@ each run is the tree's own phase ``full`` (the 14 s SoSp mix, 222
 windows: 2 warm-up and 20 timed bank steps, then predict_s).  With
 ``--whiten`` each run times the tree's own fused pair
 (``chip_smoke._whiten_case``) at the SoSp width (222 windows, M 112, 3 x
-5) and the AMT width (43 windows, M 160, 8 x 10), then kernel B's device
-time by CUDA kernel (torch.profiler), and the summary is the median ms of
-kernel B at each.  Needs a CUDA card.
+5) and the AMT width (43 windows, M 160, 8 x 10), then each kernel's
+device time by CUDA kernel (torch.profiler), and the summary is the median
+ms of kernels A and B at each.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -162,22 +162,29 @@ cases = {"a_sosp": cs._whiten_inputs(222, 2001, 112, cs._harmonics(sosp_f0, 5, 1
                                     44100.0)}
 with contextlib.redirect_stdout(io.StringIO()):
     out = {k: cs._whiten_case(k, d, dev, timing=True)["times"] for k, d in cases.items()}
-# then kernel B's device time by CUDA kernel (torch.profiler, 5 calls)
+# then each kernel's device time by CUDA kernel (torch.profiler, 5 calls)
 import importlib
 from torch.profiler import ProfilerActivity, profile
 fw = importlib.import_module("gpitch_tpu_torch.linalg.fused_whiten")
 names = ("zc", "xc", "err", "linv", "du", "dv", "energy", "freq", "var", "inv_l")
 for k, d in cases.items():
     args = [torch.as_tensor(np.array(d[n]), dtype=torch.float32, device=dev) for n in names]
-    fw.fused_whiten_bwd(*args)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            fw.fused_whiten_bwd(*args)
+    for part, call in (("A", lambda: fw._forward_kernel(*args[:4], *args[6:])),
+                       ("B", lambda: fw.fused_whiten_bwd(*args))):
+        call()
         torch.cuda.synchronize()
-    out[k]["kernel_B_parts_ms"] = {e.key[:60]: cs._device_us(e) / 5e3 for e in prof.key_averages()
-                                   if cs._device_us(e) > 0}
-print(json.dumps({k: {"ms_per_step": [v["kernel_B_ms"]], **v} for k, v in out.items()}))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                call()
+            torch.cuda.synchronize()
+        out[k][f"kernel_{part}_parts_ms"] = {e.key[:60]: cs._device_us(e) / 5e3
+                                             for e in prof.key_averages() if cs._device_us(e) > 0}
+res = {}
+for k, v in out.items():
+    res[f"{k}_A"] = {"ms_per_step": [v["kernel_A_ms"]]}
+    res[f"{k}_B"] = {"ms_per_step": [v["kernel_B_ms"]]}
+    res[k] = v
+print(json.dumps(res))
 """
 
 POINTS = ("fresh", "after_predict", "after_kernel_phases", "built_after_kernel_phases")
@@ -187,7 +194,7 @@ def main() -> int:
     args = sys.argv[1:]
     modes = {"--amt": (_AMT_CHILD, ("sounding", "piano88")),
              "--full": (_FULL_CHILD, ("full",)),
-             "--whiten": (_WHITEN_CHILD, ("a_sosp", "b_amt"))}
+             "--whiten": (_WHITEN_CHILD, ("a_sosp_A", "b_amt_A", "a_sosp_B", "b_amt_B"))}
     child, points = modes.get(args[0], (_CHILD, POINTS)) if args else (_CHILD, POINTS)
     names = args[1:] if args and args[0] in modes else args
     trees = [os.path.abspath(t) for t in names]

@@ -71,6 +71,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
+TF32X3_FLOP_PER_S = 495e12 / 3   # dense TF32 tensor cores, 3 products per 3xTF32 product
 
 FS = 16000.0
 PITCHES = [60, 64, 67]
@@ -893,7 +894,15 @@ def _whiten_bound(nw, m, n, s, p, backward):
     Kuf + h err^T 2 M^2 + 2 M, Q = Kuf Kuf^T (symmetric) M (M + 1) and r =
     Kuf err 2 M, then Y = Linv Q M^2 (M + 1) and dLinv = G Y + dv r^T
     2 M^3 + M^2.  Bytes: each input read once (Linv's lower triangle),
-    each output written once."""
+    each output written once.
+
+    Two readings of the operations.  ``fp32``: all of them at the CUDA
+    cores' f32 rate.  The least time (the bound): the products (everything
+    but the build's envelope, variance and source sum, 4 S M N; the
+    mixture is a K = 2P contraction, the per-source sums too) at the 3xTF32
+    tensor-core rate, 165 TFLOP/s, beside that rest at the f32 rate; the two
+    units run at once, so the larger time counts.  Returns (bound ms, by,
+    fp32 ms, by)."""
     build = (4 * p + 4) * s * m * n
     tri = m * (m + 1) * n
     params = 2 * s * p + 2 * s
@@ -907,7 +916,11 @@ def _whiten_bound(nw, m, n, s, p, backward):
     else:
         flops = nw * (2 * tri + 2 * m * n + build)
         floats = nw * (linv + m * m + 2 * m + 2 * n) + params
-    return bound_ms(4 * floats, flops)
+    rest = nw * 4 * s * m * n
+    t_bytes = 4 * floats / HBM_BYTES_PER_S * 1e3
+    t_ops = max((flops - rest) / TF32X3_FLOP_PER_S, rest / F32_FLOP_PER_S) * 1e3
+    least = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return least + bound_ms(4 * floats, flops)
 
 
 def _no_grad(fn):
@@ -917,12 +930,33 @@ def _no_grad(fn):
     return run
 
 
+_WHITEN_ARGS = ("zc", "xc", "err", "linv", "energy", "freq", "var", "inv_l")
+
+
+def _forward_rows(got, fwd32, fwd64) -> dict:
+    """Each output of kernel A against the f64 plain forward: within 1e-4
+    of max|ref| (the prototype's own limit, proto_fused_whiten.py:364) and
+    within 4x the f32 plain version's own error, which a kernel that took
+    its products in plain TF32 (~1e-3) would miss."""
+    rows = {}
+    for what, g, g32, ref in zip(("U", "v"), got, fwd32, fwd64):
+        scale = float(ref.abs().max())
+        err = float((g.double() - ref).abs().max())
+        err32 = float((g32.double() - ref).abs().max())
+        row = {"max_abs_err": err, "max_rel_err": err / scale,
+               "plain_f32_rel_err": err32 / scale, "tol": min(1e-4 * scale, 4 * err32),
+               "finite": bool(torch.isfinite(g).all())}
+        row["ok"] = row["finite"] and err <= 1e-4 * scale and err <= 4 * err32
+        rows[what] = row
+    return rows
+
+
 def _whiten_case(name, d, dev, arbiter=True, timing=False) -> dict:
     """Kernel A through both entry points and kernel B against the plain
-    version: the f64 plain forward and autograd through it (``arbiter``),
-    else the f32 ones.  Forward limit 1e-4 of max|ref| (the prototype's own,
-    proto_fused_whiten.py:364); backward, per output, the larger of 1e-3 of
-    max|ref| and 4x the error of autograd through the f32 plain version."""
+    version: kernel A against the f64 plain forward (``_forward_rows``);
+    kernel B against autograd through the f64 plain version (``arbiter``),
+    else the f32 one, per output within the larger of 1e-3 of max|ref| and
+    4x the error of autograd through the f32 plain version."""
     from gpitch_tpu_torch.linalg.fused_whiten import (
         fused_whiten, fused_whiten_bwd, fused_whiten_bwd_plain, fused_whiten_flat,
         fused_whiten_plain)
@@ -953,18 +987,21 @@ def _whiten_case(name, d, dev, arbiter=True, timing=False) -> dict:
     bwd = fused_whiten_bwd(*ins, t32["du"], t32["dv"], *par)
     torch.cuda.synchronize()
     fwd32, bwd32 = plain_autograd(t32)
-    (fwd_ref, bwd_ref) = plain_autograd(tensors(torch.float64)) if arbiter else (fwd32, bwd32)
+    if arbiter:
+        fwd64, bwd_ref = plain_autograd(tensors(torch.float64))
+    else:
+        t64 = tensors(torch.float64)
+        with torch.no_grad():
+            fwd64 = fused_whiten_plain(*(t64[k] for k in _WHITEN_ARGS))
+        del t64
+        bwd_ref = bwd32
     out = {"phase": "fused_whiten", "case": name, "shape": [nw, m, n, s, p],
-           "reference": "f64 plain" if arbiter else "f32 plain", "forward": {}, "backward": {}}
+           "reference": {"forward": "f64 plain",
+                         "backward": "f64 plain" if arbiter else "f32 plain"},
+           "forward": {}, "backward": {}}
     ok = True
     for entry, got in fwd.items():
-        for what, g, g32, ref in zip(("U", "v"), got, fwd32, fwd_ref):
-            scale = float(ref.abs().max())
-            err = float((g.double() - ref).abs().max())
-            row = {"max_abs_err": err, "max_rel_err": err / scale,
-                   "plain_f32_rel_err": float((g32.double() - ref).abs().max()) / scale,
-                   "finite": bool(torch.isfinite(g).all())}
-            row["ok"] = row["finite"] and err <= 1e-4 * scale
+        for what, row in _forward_rows(got, fwd32, fwd64).items():
             out["forward"][f"{entry}.{what}"] = row
             ok &= row["ok"]
     for what, g, g32, ref in zip(("dlinv", "dvar", "dinvl", "de", "df"), bwd, bwd32, bwd_ref):
@@ -1002,8 +1039,9 @@ def _whiten_case(name, d, dev, arbiter=True, timing=False) -> dict:
               "unfused_fwd_bwd_ms": cuda_ms(fwd_bwd(fused_whiten_plain), 3, warmup=1),
               "fused_fwd_bwd_ms": cuda_ms(fwd_bwd(fused_whiten), 10)}
         del graph
-        tm["bound_A_ms"], tm["bound_A_by"] = _whiten_bound(nw, m, n, s, p, False)
-        tm["bound_B_ms"], tm["bound_B_by"] = _whiten_bound(nw, m, n, s, p, True)
+        for k, backward in (("A", False), ("B", True)):
+            (tm[f"bound_{k}_ms"], tm[f"bound_{k}_by"], tm[f"bound_{k}_fp32_ms"],
+             tm[f"bound_{k}_fp32_by"]) = _whiten_bound(nw, m, n, s, p, backward)
         out["times"] = tm
     out["ok"] = ok
     emit(out)
@@ -1018,12 +1056,18 @@ def _whiten_splits(name, d, dev) -> dict:
     """Kernels A and B with a window's tiles split over each count of blocks
     in _SPLITS that leaves no block without a tile, and at the count that
     csrc/fused_whiten.cu's ``plan`` picks; U and dLinv at every split within
-    1e-5 of max|ref| of splits=1's (the partial sums only change order)."""
+    1e-5 of max|ref| of splits=1's (the partial sums only change order), and
+    kernel A's U and v at every split within the limits of
+    ``_forward_rows``."""
     import importlib
     fw = importlib.import_module("gpitch_tpu_torch.linalg.fused_whiten")
     t = {k: torch.as_tensor(np.array(v), dtype=torch.float32, device=dev) for k, v in d.items()}
     ins = [t[k] for k in ("zc", "xc", "err", "linv")]
     par = [t[k] for k in ("energy", "freq", "var", "inv_l")]
+    with torch.no_grad():
+        fwd32 = fw.fused_whiten_plain(*ins, *par)
+        fwd64 = fw.fused_whiten_plain(*(torch.as_tensor(np.array(d[k]), dtype=torch.float64,
+                                                        device=dev) for k in _WHITEN_ARGS))
     nw, m, _ = ins[0].shape
     n = ins[1].shape[-1]
     sizes = (nw, m, n) + tuple(par[0].shape)
@@ -1032,23 +1076,32 @@ def _whiten_splits(name, d, dev) -> dict:
 
     def kernels(k):
         with torch.no_grad():
-            return (fw._forward_kernel(*ins, *par, splits=k)[0],
+            return (fw._forward_kernel(*ins, *par, splits=k),
                     fw._backward_kernel(*ins[:4], t["du"], t["dv"], *par, splits=k)[0])
 
     refs = kernels(1)
     out = {"phase": "fused_whiten", "case": f"splits_{name}", "shape": list(sizes),
-           "tiles": tiles, "plan": plan, "A_ms": {}, "B_ms": {}, "max_rel_diff": 0.0}
+           "tiles": tiles, "plan": plan, "A_ms": {}, "B_ms": {}, "max_rel_diff": 0.0,
+           "forward": {}}
+    forward_ok = True
     for k in sorted(set(_SPLITS) | set(plan.values())):
         if k > tiles or -(-tiles // -(-tiles // k)) != k:
             continue
-        for got, ref in zip(kernels(k), refs):
+        fwd, dl = kernels(k)
+        for got, ref in ((fwd[0], refs[0][0]), (dl, refs[1])):
             out["max_rel_diff"] = max(out["max_rel_diff"], float(
                 (got - ref).abs().max() / ref.abs().max()))
+        rows = _forward_rows(fwd, fwd32, fwd64)
+        forward_ok &= all(r["ok"] for r in rows.values())
+        for what, row in rows.items():
+            worst = out["forward"].setdefault(what, row)
+            if row["max_rel_err"] > worst["max_rel_err"] or not row["ok"]:
+                out["forward"][what] = row
         out["A_ms"][k] = cuda_ms(_no_grad(lambda: fw._forward_kernel(*ins, *par, splits=k)),
                                  5, warmup=1)
         out["B_ms"][k] = cuda_ms(lambda: fw._backward_kernel(
             *ins[:4], t["du"], t["dv"], *par, splits=k), 5, warmup=1)
-    out["ok"] = out["max_rel_diff"] <= 1e-5
+    out["ok"] = out["max_rel_diff"] <= 1e-5 and forward_ok
     emit(out)
     assert out["ok"], f"the split changes the kernels' result ({name})"
     return out
@@ -1057,8 +1110,10 @@ def _whiten_splits(name, d, dev) -> dict:
 def _whiten_bank(name, model, dev) -> dict:
     """The pair on a trained bank's own bound: U / sigma^2 against the
     unfused composition's AAT (``_common_unfused``) and v against its Aerr
-    (1e-4 of max|ref|); fused_whiten_flat with the per-window flat
-    parameters gives the same; then, for a seeded (dU, dv), the gradient of
+    (1e-4 of max|ref|); the bank's Linv has an exactly zero strict upper
+    triangle (``triu_max``: kernel A reads the lower one only);
+    fused_whiten_flat with the per-window flat parameters gives the same;
+    then, for a seeded (dU, dv), the gradient of
     <U, dU> + <v, dv> in every trainable raw leaf through fused_whiten (Linv
     from chol_inv under grad) and through the unfused A (1e-3 of
     max|ref|)."""
@@ -1070,6 +1125,7 @@ def _whiten_bank(name, model, dev) -> dict:
         err, _, _, A, AAT, _, _, sigma2 = bank._common_unfused()
         aerr = A @ err
         chain = bank.fused_whiten_args()
+        triu_max = float(torch.triu(chain[3], 1).abs().max())
         u, v = fused_whiten(*chain)
         e, f, var, il = chain[4:]
         nw, s = var.shape
@@ -1080,7 +1136,8 @@ def _whiten_bank(name, model, dev) -> dict:
            "N": int(err.shape[-2]), "S": s, "P": int(e.shape[-1]),
            "AAT_rel_err": float((u / sigma2 - AAT).abs().max() / AAT.abs().max()),
            "Aerr_rel_err": float((v - aerr).abs().max() / aerr.abs().max()),
-           "flat_equal": bool(torch.equal(uf, u) and torch.equal(vf, v))}
+           "flat_equal": bool(torch.equal(uf, u) and torch.equal(vf, v)),
+           "triu_max": triu_max}
     gen = torch.Generator().manual_seed(0)
     du = torch.randn(tuple(u.shape), generator=gen).to(dev)
     dv = torch.randn(tuple(v.shape), generator=gen).to(dev)
@@ -1101,7 +1158,7 @@ def _whiten_bank(name, model, dev) -> dict:
     out["grad_rel_err"] = {k: float((grads["fused"][k] - g).abs().max() / g.abs().max())
                            for k, g in grads["common"].items()}
     out["ok"] = (out["AAT_rel_err"] <= 1e-4 and out["Aerr_rel_err"] <= 1e-4
-                 and out["flat_equal"] and sorted(grads["fused"]) == sorted(grads["common"])
+                 and out["flat_equal"] and triu_max == 0.0 and sorted(grads["fused"]) == sorted(grads["common"])
                  and len(grads["common"]) > 0
                  and all(r <= 1e-3 for r in out["grad_rel_err"].values()))
     emit(out)
@@ -1113,8 +1170,8 @@ def phase_fused_whiten(dev, sosp_model, full_model) -> dict:
     """Kernels A and B: (a) the prototypes' inputs at the SoSp width (222
     windows, N 2001, M 112, S 3, P 5, 16 kHz); (b) the AMT width (43
     windows, 44.1 kHz, M 160, 8 pitches from C4 x 10 harmonics); (c) an
-    88-pitch dictionary (8 windows, M 160, S 88, P 20) against the f32
-    plain version; (d) the trained 62- and 222-window SoSp banks' own bound,
+    88-pitch dictionary (8 windows, M 160, S 88, P 20), kernel B against
+    the f32 plain version; (d) the trained 62- and 222-window SoSp banks' own bound,
     the launches counted over (d) alone; (e) times at (a) and (b), and both
     kernels at each split of a window's tiles over blocks at (a), at 62
     windows of (a)'s width, and at (b)."""
@@ -1268,16 +1325,16 @@ def main() -> int:
     # own entry's in run (d) of the fused_whiten phase.
     case_a = whiten["cases"]["a_sosp"]
     tm = case_a["times"]
-    for name, replaces, ms, err, plain, lib, bound, by, counter in (
+    for name, replaces, ms, err, plain, lib, k, counter in (
             ("fused_whiten", "scripts/proto_fused_whiten.py:151", tm["kernel_A_ms"],
              case_a["forward"]["fused_whiten.U"]["max_abs_err"], tm["plain_fwd_ms"],
-             tm["plain_fwd_ms"], tm["bound_A_ms"], tm["bound_A_by"], "fused_whiten"),
+             tm["plain_fwd_ms"], "A", "fused_whiten"),
             ("fused_whiten_flat", "scripts/proto_fused_whiten.py:208", tm["kernel_A_flat_ms"],
              case_a["forward"]["fused_whiten_flat.U"]["max_abs_err"], tm["plain_fwd_ms"],
-             tm["plain_fwd_ms"], tm["bound_A_ms"], tm["bound_A_by"], "fused_whiten"),
+             tm["plain_fwd_ms"], "A", "fused_whiten"),
             ("fused_whiten_bwd", "scripts/proto_fused_whiten_bwd.py:157", tm["kernel_B_ms"],
              max(r["max_abs_err"] for r in case_a["backward"].values()), tm["plain_bwd_ms"],
-             tm["unfused_bwd_ms"], tm["bound_B_ms"], tm["bound_B_by"], "fused_whiten_bwd")):
+             tm["unfused_bwd_ms"], "B", "fused_whiten_bwd")):
         kernels.append({"name": name, "route": "cuda",
                         "source": "gpitch_tpu_torch/csrc/fused_whiten.cu",
                         "replaces": replaces, "launches": sosp["launches"][counter],
@@ -1285,7 +1342,9 @@ def main() -> int:
                         "launches_amt": amt["launches"][counter],
                         "entry_launches_in_d": whiten["launches"][name],
                         "shape": case_a["shape"], "max_abs_err": err, "ms": ms,
-                        "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+                        "plain_ms": plain, "bound_ms": tm[f"bound_{k}_ms"],
+                        "bound_by": tm[f"bound_{k}_by"],
+                        "bound_fp32_ms": tm[f"bound_{k}_fp32_ms"],
                         "library_ms": lib, "timed_by": "python_calls"})
     emit({"kernels": kernels})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})

@@ -13,25 +13,55 @@
 //   dvar = <dK, E mix>, dinvl = -var <dK, E mix |z - x|>,
 //   de_p = <dM, C_p>, df_p = -2 pi e_p <dM, (z - x) S_p>             (kernel B)
 // The two TPU forward kernels differ only in where the TPU forms the cosine
-// mixture (its vector unit, or a K = 2P contraction on its matrix unit); a
-// 2P = 10 contraction is far below what the tensor cores take, and the bound
-// may not use TF32, so one kernel serves both.
+// mixture (its vector unit, or a K = 2P contraction on its matrix unit), so
+// one kernel serves both.
 //
-// What bounds them on the H100: operations (f32 on the CUDA cores, 67
-// TFLOP/s); the bytes are x, err, Linv (and dU, dv) in and U, v (or the
-// gradients) out.  Both kernels keep Kuf, A, dA and dK out of device memory.
+// What bounds them on the H100: operations.  Read two ways (chip_smoke.py,
+// _whiten_bound): every operation in f32 on the CUDA cores (67 TFLOP/s), or
+// the products (Linv Kuf, A A^T, A err, the mixture's K = 2P contraction) on
+// the tensor cores in 3xTF32 (495 / 3 = 165 TFLOP/s) beside the rest
+// (envelope, variance, source sum) on the CUDA cores.  The bytes are x, err,
+// Linv's lower triangle (and dU, dv) in and U, v (or the gradients) out.
+// Both kernels keep Kuf, A, dA and dK out of device memory.
 //
-// Kernel A: grid (splits, windows), a block walks tiles of 32 samples of
-// one window; when the windows alone do not fill the card's resident blocks,
-// a window's tiles are split over several blocks (`plan_splits`), each
-// writing a partial record that a second kernel adds in a fixed order (no
-// atomics: a run is bit-for-bit reproducible).  256 threads as 16 x 16; M is
-// padded to MP = 16 RU (RU in 1, 2, 4, 7, 10: M <= 160) with zeros.  A thread
-// owns an RU x 2 piece of every (MP, 32) tile and an RU x RU piece of U,
-// kept in registers across the tiles.  Shared memory holds Linv (MP x (MP +
-// 1)), the Kuf and A tiles, z, and the cos/sin features of z and of the
-// tile's x for a chunk of at most 16 (source, partial) pairs.  Later work:
-// a triangular Linv, a symmetric U, wider register tiles.
+// Kernel A (redesigned for Hopper).  Its first form ran at 16-17% of its
+// FP32 bound: dense products where half the work is zero (a dense Linv, all
+// of the symmetric U), about one shared load per FMA (RU x 2 register tiles
+// over a Linv of pitch MP + 1), the z features formed again every tile when
+// the pairs took several chunks (the AMT width: 12,800 sincosf a tile), one
+// 8-warp block per SM (a dense Linv and two tiles in shared memory), and
+// every operation in f32 on the CUDA cores.  The new design, by the same
+// items:
+//   * Linv's triangle.  The kernel reads Linv's lower triangle only, as
+//     torch.linalg.solve_triangular reads one triangle: its strict upper
+//     triangle may hold anything.  Shared memory holds it by 16-row block
+//     rows, block row r with columns [0, 16 (r + 1)) at a 16-byte-aligned
+//     pitch (59 KB instead of 105 at M 160), and A = Linv Kuf visits the
+//     nonzero 16 x 16 blocks only: half the FMAs;
+//   * symmetric U: only U's lower 16 x 16 blocks are accumulated, RU (RU +
+//     1) / 2 registers a thread instead of RU^2, and mirrored on the
+//     record's store; v = A err is summed in registers from the thread's own
+//     A elements and added over the 16 lanes of a row once per block;
+//   * loads per FMA: A = Linv Kuf takes, per 16-block of k, 16 8-byte pairs of
+//     Kuf into registers and 16-byte rows of Linv for every block row below
+//     (16 + 4 n loads for 32 n FMAs over n block rows); U reads 8-byte pairs
+//     of A from a tile of pitch 34, whose column reads are free of bank
+//     conflicts (2 RU loads for RU (RU + 1) FMAs); the mixture reads its
+//     features two partials to a vector, 8-byte pairs of z features and
+//     16-byte quads of x features (2 RU + 2 loads for 8 RU FMAs);
+//   * features once: the z features of every (source, partial) pair, with
+//     var_s e_sp folded in, are formed once per window (`fwd_zfeat_kernel`)
+//     into a workspace and copied, not recomputed, per block (per chunk and
+//     tile when the sources take several chunks); the tile's x features
+//     once per tile and chunk; the partials of a source are padded to an
+//     even count with zero features;
+//   * blocks per SM: the triangle, one (MP, 34) tile that holds Kuf and then
+//     A, and the features: 67 KB at the SoSp width (M 112, 3 x 5), two blocks
+//     per SM; at the AMT width (M 160, 8 x 10) 205 KB with every source's
+//     features, one block of 8 warps (the features of all 80 pairs are what
+//     keeps them from being formed again);
+//   * every product is still an f32 FMA on the CUDA cores.
+// Later work for A: the products on the tensor cores in 3xTF32.
 //
 // Kernel B (redesigned for Hopper).  Its first form ran at 14-16% of its
 // bound: one 8-warp block per SM (a dense Linv, three (MP, 33) tiles and a
@@ -76,7 +106,12 @@
 // Both kernels: every product is an f32 FMA on the CUDA cores, never TF32;
 // cos, sin and exp are the full-precision sincosf/expf (arguments reach ~6e3
 // rad), an angle is formed as (2 pi z) f like the plain version; ragged N:
-// samples past the end get Kuf = 0 and err = 0, so they add nothing.
+// samples past the end get Kuf = 0 and err = 0, so they add nothing.  Both
+// split a window's tiles over several blocks when the windows alone do not
+// fill the card's resident blocks (`plan_splits`), each writing a partial
+// record that a second kernel adds in a fixed order (no atomics: a run is
+// bit-for-bit reproducible); 256 threads as 16 x 16; M is padded to MP = 16
+// RU (RU in 1, 2, 4, 7, 10: M <= 160) with zeros.
 // Later work for B: Linv's triangle in the per-window products, 3xTF32
 // tensor-core products for C Kuf, Q and the per-source sums.
 
@@ -90,108 +125,18 @@ namespace {
 constexpr int kTile = 32;          // samples per tile (linalg/fused_whiten.py TILE_T)
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kLd = kTile + 1;     // pitch of the (MP, kTile) tiles
-constexpr int kPairCap = 16;       // (source, partial) pairs per feature chunk
 constexpr int kMaxDevices = 64;
+constexpr int kSmemLimit = 232448;    // dynamic shared memory of one block
+constexpr int kHalfSm = 113 * 1024;   // two blocks on one SM (228 KB, 1 KB each reserved)
 constexpr double kSetupTiles = 0.5;  // a block's set-up, in tiles (splits plan)
 constexpr float kTwoPi = 6.283185307179586f;
 
-struct Args {
-  const float* zc;      // (nw, M)
-  const float* xc;      // (nw, N)
-  const float* err;     // (nw, N)
-  const float* linv;    // (nw, M, M)
-  const float* energy;  // (S, P) or (nw, S, P)
-  const float* freq;
-  const float* var;     // (S,) or (nw, S)
-  const float* inv_l;
-  float* part;          // (nw, splits, rec)
-  int e_stride, v_stride, M, N, S, P, splits, rec, chunk_sources;
-};
+__host__ __device__ inline int round4(int v) { return (v + 3) & ~3; }
 
-// Offsets (floats) of the shared-memory arrays; the host sizes the launch
-// with the same function.
-struct Layout {
-  int linv, k, a, z, x, err, fzc, fzs, fxc, fxs, pe, pf, pv, pil, total;
-};
-
-__host__ __device__ inline Layout make_layout(int mp, int sc, int P) {
-  const int pairs = sc * P;
-  Layout l;
-  int o = 0;
-  l.linv = o; o += mp * (mp + 1);
-  l.k = o;    o += mp * kLd;
-  l.a = o;    o += mp * kLd;
-  l.z = o;    o += mp;
-  l.x = o;    o += kTile;
-  l.err = o;  o += kTile;
-  l.fzc = o;  o += pairs * mp;
-  l.fzs = o;  o += pairs * mp;
-  l.fxc = o;  o += pairs * kTile;
-  l.fxs = o;  o += pairs * kTile;
-  l.pe = o;   o += pairs;
-  l.pf = o;   o += pairs;
-  l.pv = o;   o += sc;
-  l.pil = o;  o += sc;
-  l.total = o;
-  return l;
-}
-
-// The parameters of sources s0 .. s0 + ns - 1 of window w.
-__device__ void chunk_params(const Args& a, float* sm, const Layout& l, int w, int s0,
-                             int ns) {
-  const float* e = a.energy + static_cast<int64_t>(w) * a.e_stride + s0 * a.P;
-  const float* f = a.freq + static_cast<int64_t>(w) * a.e_stride + s0 * a.P;
-  for (int q = threadIdx.x; q < ns * a.P; q += kThreads) {
-    sm[l.pe + q] = e[q];
-    sm[l.pf + q] = f[q];
-  }
-  const int64_t vb = static_cast<int64_t>(w) * a.v_stride + s0;
-  for (int q = threadIdx.x; q < ns; q += kThreads) {
-    sm[l.pv + q] = a.var[vb + q];
-    sm[l.pil + q] = a.inv_l[vb + q];
-  }
-}
-
-// cos/sin(2 pi f_q u_i) of n points u (z, or the tile's x) for the chunk's
-// pairs q, into c[q n + i], s[q n + i].
-__device__ void features(const float* sm_u, const float* pf, float* c, float* s, int n,
-                         int pairs) {
-  for (int idx = threadIdx.x; idx < pairs * n; idx += kThreads) {
-    const int q = idx / n, i = idx - q * n;
-    float sn, cs;
-    sincosf((kTwoPi * sm_u[i]) * pf[q], &sn, &cs);
-    c[idx] = cs;
-    s[idx] = sn;
-  }
-}
-
-// sum_p e_p (cz cx + sz sx) for the thread's RU x 2 elements, source sl of
-// the chunk.
-template <int RU>
-__device__ __forceinline__ void mixture(const float* sm, const Layout& l, int sl, int P,
-                                        int ty, int tx, float (&mix)[RU][2]) {
-  constexpr int MP = 16 * RU;
-#pragma unroll
-  for (int r = 0; r < RU; ++r) mix[r][0] = mix[r][1] = 0.f;
-  for (int p = 0; p < P; ++p) {
-    const int q = sl * P + p;
-    const float e = sm[l.pe + q];
-    const float xc0 = sm[l.fxc + q * kTile + 2 * tx], xc1 = sm[l.fxc + q * kTile + 2 * tx + 1];
-    const float xs0 = sm[l.fxs + q * kTile + 2 * tx], xs1 = sm[l.fxs + q * kTile + 2 * tx + 1];
-#pragma unroll
-    for (int r = 0; r < RU; ++r) {
-      const float zc = sm[l.fzc + q * MP + ty + 16 * r], zs = sm[l.fzs + q * MP + ty + 16 * r];
-      mix[r][0] += e * (zc * xc0 + zs * xs0);
-      mix[r][1] += e * (zc * xc1 + zs * xs1);
-    }
-  }
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
+// The padded M of both kernels: 16 RU with RU in 1, 2, 4, 7, 10 (M <= 160).
+__host__ __device__ inline int padded_m(int M) {
+  const int ru = (M + 15) / 16;
+  return 16 * (ru <= 1 ? 1 : ru <= 2 ? 2 : ru <= 4 ? 4 : ru <= 7 ? 7 : 10);
 }
 
 // Sums of v0 .. v3 over the warp's lanes with 6 shuffles in place of 20 (a
@@ -207,131 +152,6 @@ __device__ __forceinline__ float warp_sum4(float v0, float v1, float v2, float v
   return m;
 }
 
-// Block set-up: z and Linv (zero-padded to MP) into shared memory.
-template <int RU>
-__device__ void load_window(const Args& a, float* sm, const Layout& l, int w) {
-  constexpr int MP = 16 * RU;
-  const int M = a.M;
-  for (int i = threadIdx.x; i < MP; i += kThreads)
-    sm[l.z + i] = i < M ? a.zc[static_cast<int64_t>(w) * M + i] : 0.f;
-  const float* L = a.linv + static_cast<int64_t>(w) * M * M;
-  for (int idx = threadIdx.x; idx < MP * MP; idx += kThreads) {
-    const int i = idx / MP, k = idx - i * MP;
-    sm[l.linv + i * (MP + 1) + k] = (i < M && k < M) ? L[i * M + k] : 0.f;
-  }
-}
-
-// One tile: x and err, then Kuf's (MP, kTile) tile into sm[l.k], masked to
-// the window's M rows and N samples.  When the sources fit one chunk, its
-// parameters and z features are already in shared memory.
-template <int RU>
-__device__ void build_tile(const Args& a, float* sm, const Layout& l, int w, int t0,
-                           int nchunks) {
-  constexpr int MP = 16 * RU;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  if (tid < kTile) {
-    const int t = t0 + tid;
-    const int64_t g = static_cast<int64_t>(w) * a.N + t;
-    sm[l.x + tid] = t < a.N ? a.xc[g] : 0.f;
-    sm[l.err + tid] = t < a.N ? a.err[g] : 0.f;
-  }
-  __syncthreads();
-  float zr[RU], xt[2];
-#pragma unroll
-  for (int r = 0; r < RU; ++r) zr[r] = sm[l.z + ty + 16 * r];
-  xt[0] = sm[l.x + 2 * tx];
-  xt[1] = sm[l.x + 2 * tx + 1];
-  float kacc[RU][2];
-#pragma unroll
-  for (int r = 0; r < RU; ++r) kacc[r][0] = kacc[r][1] = 0.f;
-  for (int c = 0; c < nchunks; ++c) {
-    const int s0 = c * a.chunk_sources;
-    const int ns = min(a.chunk_sources, a.S - s0);
-    if (nchunks > 1) {
-      chunk_params(a, sm, l, w, s0, ns);
-      __syncthreads();
-      features(sm + l.z, sm + l.pf, sm + l.fzc, sm + l.fzs, MP, ns * a.P);
-    }
-    features(sm + l.x, sm + l.pf, sm + l.fxc, sm + l.fxs, kTile, ns * a.P);
-    __syncthreads();
-    for (int sl = 0; sl < ns; ++sl) {
-      float mix[RU][2];
-      mixture<RU>(sm, l, sl, a.P, ty, tx, mix);
-      const float vs = sm[l.pv + sl], il = sm[l.pil + sl];
-#pragma unroll
-      for (int r = 0; r < RU; ++r)
-#pragma unroll
-        for (int cc = 0; cc < 2; ++cc)
-          kacc[r][cc] += vs * expf(-fabsf(zr[r] - xt[cc]) * il) * mix[r][cc];
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int r = 0; r < RU; ++r)
-#pragma unroll
-    for (int cc = 0; cc < 2; ++cc) {
-      const int i = ty + 16 * r, t = 2 * tx + cc;
-      sm[l.k + i * kLd + t] = (i < a.M && t0 + t < a.N) ? kacc[r][cc] : 0.f;
-    }
-}
-
-// out (MP, kTile) = Linv (or Linv^T) times in (MP, kTile), rows < M summed.
-template <int RU, bool TRANSPOSE>
-__device__ void linv_times(const float* sm, const Layout& l, int M, const float* in,
-                           float* out) {
-  constexpr int MP = 16 * RU;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  float acc[RU][2];
-#pragma unroll
-  for (int r = 0; r < RU; ++r) acc[r][0] = acc[r][1] = 0.f;
-  for (int k = 0; k < M; ++k) {
-    const float b0 = in[k * kLd + 2 * tx], b1 = in[k * kLd + 2 * tx + 1];
-#pragma unroll
-    for (int r = 0; r < RU; ++r) {
-      const int i = ty + 16 * r;
-      const float lv = TRANSPOSE ? sm[l.linv + k * (MP + 1) + i] : sm[l.linv + i * (MP + 1) + k];
-      acc[r][0] += lv * b0;
-      acc[r][1] += lv * b1;
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < RU; ++r) {
-    out[(ty + 16 * r) * kLd + 2 * tx] = acc[r][0];
-    out[(ty + 16 * r) * kLd + 2 * tx + 1] = acc[r][1];
-  }
-}
-
-// acc[r][c] += sum_t p[ty + 16 r][t] q[tx + 16 c][t] over one tile.
-template <int RU>
-__device__ __forceinline__ void gram_tile(const float* p, const float* q,
-                                          float (&acc)[RU][RU]) {
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-#pragma unroll 4
-  for (int t = 0; t < kTile; ++t) {
-    float pr[RU], qc[RU];
-#pragma unroll
-    for (int r = 0; r < RU; ++r) pr[r] = p[(ty + 16 * r) * kLd + t];
-#pragma unroll
-    for (int c = 0; c < RU; ++c) qc[c] = q[(tx + 16 * c) * kLd + t];
-#pragma unroll
-    for (int r = 0; r < RU; ++r)
-#pragma unroll
-      for (int c = 0; c < RU; ++c) acc[r][c] += pr[r] * qc[c];
-  }
-}
-
-template <int RU>
-__device__ void store_square(const float (&acc)[RU][RU], int M, float* rec) {
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-#pragma unroll
-  for (int r = 0; r < RU; ++r)
-#pragma unroll
-    for (int c = 0; c < RU; ++c) {
-      const int i = ty + 16 * r, j = tx + 16 * c;
-      if (i < M && j < M) rec[i * M + j] = acc[r][c];
-    }
-}
-
 // The tiles [begin, end) of this block's share of a window's N samples.
 __device__ __forceinline__ void tile_range(int N, int splits, int* begin, int* end) {
   const int tiles = (N + kTile - 1) / kTile;
@@ -341,49 +161,317 @@ __device__ __forceinline__ void tile_range(int N, int splits, int* begin, int* e
 }
 
 // ------------------------------------------------------------- kernel A
-template <int RU>
-__global__ void __launch_bounds__(kThreads, 1) fused_whiten_fwd_kernel(Args a) {
-  constexpr int MP = 16 * RU;
-  extern __shared__ float sm[];
-  const Layout l = make_layout(MP, a.chunk_sources, a.P);
-  const int w = blockIdx.y, tid = threadIdx.x;
-  const int nchunks = (a.S + a.chunk_sources - 1) / a.chunk_sources;
-  load_window<RU>(a, sm, l, w);
-  if (nchunks == 1) {
-    chunk_params(a, sm, l, w, 0, a.S);
-    __syncthreads();
-    features(sm + l.z, sm + l.pf, sm + l.fzc, sm + l.fzs, MP, a.S * a.P);
+constexpr int kAP = kTile + 2;     // pitch of kernel A's (MP, kTile) tile
+
+struct Args {
+  const float* zc;      // (nw, M)
+  const float* xc;      // (nw, N)
+  const float* err;     // (nw, N)
+  const float* linv;    // (nw, M, M), read below the diagonal and on it only
+  const float* energy;  // (S, P) or (nw, S, P)
+  const float* freq;
+  const float* var;     // (S,) or (nw, S)
+  const float* inv_l;
+  float* ws;            // (nw, wsz): the z features
+  float* part;          // (nw, splits, rec)
+  int e_stride, v_stride, M, N, S, P, splits, rec, wsz, mp, p2, chunk_sources;
+};
+
+// Linv's lower triangle in shared memory: block row r (rows 16 r .. 16 r +
+// 15) holds columns [0, 16 (r + 1)), at a pitch of 16 (r + 1) + 4 floats.
+__host__ __device__ constexpr int tri_pitch(int r) { return 16 * (r + 1) + 4; }
+__host__ __device__ constexpr int tri_offset(int r) { return 128 * r * (r + 1) + 64 * r; }
+
+// Floats per window of kernel A's workspace: the z features of every pair,
+// the P partials of a source padded to P2 (even).  Pair q = s P2 + p of
+// group g = q / 2 has its cosines at [2 g MP, 2 g MP + 2 MP), two
+// partials to a row (2 i + q % 2), and its sines the 2 MP floats after.
+__host__ __device__ inline int fwd_workspace(int M, int S, int P) {
+  return S * ((P + 1) & ~1) * 2 * padded_m(M);
+}
+
+struct FwdLayout {
+  int linv, tile, zf, xf, z, err, pf, pil, total;
+};
+
+// Shared memory of kernel A (floats; every array starts 16-byte aligned):
+// Linv's triangle, the (MP, kAP) tile (Kuf, then A), the z and x features
+// of a chunk of sc sources (x: per pair group, [cos | sin] of 32 samples,
+// two partials to a sample), z, the tile's err, the chunk's frequencies and
+// inverse lengthscales.
+__host__ __device__ inline FwdLayout make_fwd_layout(int ru, int sc, int p2) {
+  const int mp = 16 * ru, pairs = sc * p2;
+  FwdLayout l;
+  int o = 0;
+  l.linv = o; o += tri_offset(ru);
+  l.tile = o; o += mp * kAP;
+  l.zf = o;   o += pairs * 2 * mp;
+  l.xf = o;   o += pairs * 2 * kTile;
+  l.z = o;    o += mp;
+  l.err = o;  o += kTile;
+  l.pf = o;   o += round4(pairs);
+  l.pil = o;  o += round4(sc);
+  l.total = o;
+  return l;
+}
+
+// Sources per feature chunk: every source when the block still fits two to
+// an SM, else as many as one block may hold (0: not even one).
+int fwd_chunk_sources(int ru, int S, int p2) {
+  auto bytes = [&](int sc) { return 4 * make_fwd_layout(ru, sc, p2).total; };
+  if (bytes(S) <= kHalfSm) return S;
+  for (int sc = S; sc >= 1; --sc)
+    if (bytes(sc) <= kSmemLimit) return sc;
+  return 0;
+}
+
+// The z features of every pair of window w, var_s e_sp cos and sin(2 pi
+// f_sp z_i), once per window into the workspace (0 for padded partials and
+// rows past M).
+__global__ void fwd_zfeat_kernel(Args a) {
+  const int w = blockIdx.y, mp = a.mp, p2 = a.p2, n = a.S * p2 * mp;
+  const float* z = a.zc + static_cast<int64_t>(w) * a.M;
+  const float* e = a.energy + static_cast<int64_t>(w) * a.e_stride;
+  const float* f = a.freq + static_cast<int64_t>(w) * a.e_stride;
+  const float* v = a.var + static_cast<int64_t>(w) * a.v_stride;
+  float* zf = a.ws + static_cast<int64_t>(w) * a.wsz;
+  const int first = static_cast<int>(blockIdx.x) * 1024, stop = min(n, first + 1024);
+  for (int idx = first + static_cast<int>(threadIdx.x); idx < stop; idx += kThreads) {
+    const int q = idx / mp, i = idx - q * mp, s = q / p2, p = q - s * p2;
+    float sn = 0.f, cs = 0.f;
+    if (i < a.M && p < a.P) {
+      sincosf((kTwoPi * z[i]) * f[s * a.P + p], &sn, &cs);
+      const float ev = v[s] * e[s * a.P + p];
+      cs *= ev;
+      sn *= ev;
+    }
+    float* o = zf + (q / 2) * 4 * mp + 2 * i + (q & 1);
+    o[0] = cs;
+    o[2 * mp] = sn;
   }
+}
+
+// Sources s0 .. s0 + ns - 1 of window w: frequencies (0 for padded
+// partials), inverse lengthscales, and their z features copied from the
+// workspace.
+__device__ void fwd_chunk(const Args& a, float* sm, const FwdLayout& l, int w, int s0, int ns) {
+  const int P = a.P, p2 = a.p2;
+  const float* f = a.freq + static_cast<int64_t>(w) * a.e_stride;
+  for (int q = threadIdx.x; q < ns * p2; q += kThreads) {
+    const int s = q / p2, p = q - s * p2;
+    sm[l.pf + q] = p < P ? f[(s0 + s) * P + p] : 0.f;
+  }
+  const int64_t vb = static_cast<int64_t>(w) * a.v_stride + s0;
+  for (int q = threadIdx.x; q < ns; q += kThreads) sm[l.pil + q] = a.inv_l[vb + q];
+  const float4* src = reinterpret_cast<const float4*>(
+      a.ws + static_cast<int64_t>(w) * a.wsz + static_cast<int64_t>(s0) * p2 * 2 * a.mp);
+  float4* dst = reinterpret_cast<float4*>(sm + l.zf);
+  for (int q = threadIdx.x; q < ns * p2 * a.mp / 2; q += kThreads) dst[q] = src[q];
+}
+
+// The tile's x features cos, sin(2 pi f_q x_t) of the chunk's np pairs
+// (padded), x read from device memory; 0 past the window's N samples.
+__device__ void fwd_xfeat(const Args& a, float* sm, const FwdLayout& l, int w, int t0, int np) {
+  const float* x = a.xc + static_cast<int64_t>(w) * a.N;
+  for (int idx = threadIdx.x; idx < np * kTile; idx += kThreads) {
+    const int q = idx / kTile, c = idx - q * kTile, t = t0 + c;
+    float sn = 0.f, cs = 0.f;
+    if (t < a.N) sincosf((kTwoPi * x[t]) * sm[l.pf + q], &sn, &cs);
+    float* o = sm + l.xf + (q / 2) * 4 * kTile + 2 * c + (q & 1);
+    o[0] = cs;
+    o[2 * kTile] = sn;
+  }
+}
+
+// Per tile of 32 samples: Kuf's tile (each thread its RU x 2 elements, rows
+// 16 r + ty, columns 2 tx + c) into shared memory, A = tril(Linv) Kuf into
+// registers and v += A err, A over Kuf's tile, then U += A A^T on U's lower
+// 16 x 16 blocks: thread (ty, tx) = (tid / 16, tid % 16) holds U's entries
+// (16 a + ty, 16 b + tx), b <= a, in registers across the tiles.
+template <int RU>
+__global__ void __launch_bounds__(kThreads, RU >= 10 ? 1 : 2) fused_whiten_fwd_kernel(Args a) {
+  constexpr int MP = 16 * RU, NQ = RU * (RU + 1) / 2;
+  extern __shared__ __align__(16) float sm[];
+  const int M = a.M, N = a.N, S = a.S, sc = a.chunk_sources, G = a.p2 / 2;
+  const FwdLayout l = make_fwd_layout(RU, sc, a.p2);
+  const int w = blockIdx.y, tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int nchunks = (S + sc - 1) / sc;
+  const float* L = a.linv + static_cast<int64_t>(w) * M * M;
+#pragma unroll
+  for (int r = 0; r < RU; ++r) {
+    const int cols = 16 * (r + 1);
+    float* dst = sm + l.linv + tri_offset(r);
+    for (int idx = tid; idx < 16 * cols; idx += kThreads) {
+      const int ii = idx / cols, k = idx - ii * cols, i = 16 * r + ii;
+      dst[ii * tri_pitch(r) + k] = (k <= i && i < M) ? L[static_cast<int64_t>(i) * M + k] : 0.f;
+    }
+  }
+  for (int i = tid; i < MP; i += kThreads)
+    sm[l.z + i] = i < M ? a.zc[static_cast<int64_t>(w) * M + i] : 0.f;
+  if (nchunks == 1) fwd_chunk(a, sm, l, w, 0, S);
   __syncthreads();
-  float u[RU][RU];
+  float zr[RU];
 #pragma unroll
-  for (int r = 0; r < RU; ++r)
+  for (int r = 0; r < RU; ++r) zr[r] = sm[l.z + ty + 16 * r];
+  float qacc[NQ], vacc[RU];
 #pragma unroll
-    for (int c = 0; c < RU; ++c) u[r][c] = 0.f;
-  float vacc = 0.f;
+  for (int q = 0; q < NQ; ++q) qacc[q] = 0.f;
+#pragma unroll
+  for (int r = 0; r < RU; ++r) vacc[r] = 0.f;
+  float* tile = sm + l.tile;
   int begin, end;
-  tile_range(a.N, a.splits, &begin, &end);
-  for (int tile = begin; tile < end; ++tile) {
-    build_tile<RU>(a, sm, l, w, tile * kTile, nchunks);
+  tile_range(N, a.splits, &begin, &end);
+  // Every write below comes after a barrier that the last tile's readers of
+  // the same array have passed, so the tile loop needs no barrier at its top.
+  for (int tn = begin; tn < end; ++tn) {
+    const int t0 = tn * kTile;
+    if (tid < kTile) {
+      const int t = t0 + tid;
+      sm[l.err + tid] = t < N ? a.err[static_cast<int64_t>(w) * N + t] : 0.f;
+    }
+    float xt[2];
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int t = t0 + 2 * tx + c;
+      xt[c] = t < N ? a.xc[static_cast<int64_t>(w) * N + t] : 0.f;
+    }
+    // ---- the build: Kuf = sum_s E_s sum_p (var e cos z) cos x + (var e sin z) sin x
+    float kacc[RU][2];
+#pragma unroll
+    for (int r = 0; r < RU; ++r) kacc[r][0] = kacc[r][1] = 0.f;
+    for (int ck = 0; ck < nchunks; ++ck) {
+      const int s0 = ck * sc, ns = min(sc, S - s0);
+      if (nchunks > 1) {
+        if (ck > 0) __syncthreads();
+        fwd_chunk(a, sm, l, w, s0, ns);
+        __syncthreads();
+      }
+      fwd_xfeat(a, sm, l, w, t0, ns * a.p2);
+      __syncthreads();
+      for (int sl = 0; sl < ns; ++sl) {
+        float mix[RU][2];
+#pragma unroll
+        for (int r = 0; r < RU; ++r) mix[r][0] = mix[r][1] = 0.f;
+        for (int g = sl * G; g < (sl + 1) * G; ++g) {
+          const float4 cx = *reinterpret_cast<const float4*>(sm + l.xf + g * 4 * kTile + 4 * tx);
+          const float4 sx =
+              *reinterpret_cast<const float4*>(sm + l.xf + g * 4 * kTile + 2 * kTile + 4 * tx);
+          const float* zg = sm + l.zf + g * 4 * MP;
+#pragma unroll
+          for (int r = 0; r < RU; ++r) {
+            const float2 cz = *reinterpret_cast<const float2*>(zg + 2 * (ty + 16 * r));
+            const float2 sz = *reinterpret_cast<const float2*>(zg + 2 * MP + 2 * (ty + 16 * r));
+            mix[r][0] += cz.x * cx.x;
+            mix[r][0] += cz.y * cx.y;
+            mix[r][0] += sz.x * sx.x;
+            mix[r][0] += sz.y * sx.y;
+            mix[r][1] += cz.x * cx.z;
+            mix[r][1] += cz.y * cx.w;
+            mix[r][1] += sz.x * sx.z;
+            mix[r][1] += sz.y * sx.w;
+          }
+        }
+        const float il = sm[l.pil + sl];
+#pragma unroll
+        for (int r = 0; r < RU; ++r)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) kacc[r][c] += expf(-fabsf(zr[r] - xt[c]) * il) * mix[r][c];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < RU; ++r) {
+      const int i = ty + 16 * r, t = t0 + 2 * tx;
+      float2 v;
+      v.x = (i < M && t < N) ? kacc[r][0] : 0.f;
+      v.y = (i < M && t + 1 < N) ? kacc[r][1] : 0.f;
+      *reinterpret_cast<float2*>(tile + i * kAP + 2 * tx) = v;
+    }
     __syncthreads();
-    linv_times<RU, false>(sm, l, a.M, sm + l.k, sm + l.a);
+    // ---- A = tril(Linv) Kuf: for each 16-block kb of k, the block rows r >= kb
+    float acc[RU][2];
+#pragma unroll
+    for (int r = 0; r < RU; ++r) acc[r][0] = acc[r][1] = 0.f;
+#pragma unroll 1
+    for (int kb = 0; kb < RU; ++kb) {
+      float2 kv[16];
+#pragma unroll
+      for (int kk = 0; kk < 16; ++kk)
+        kv[kk] = *reinterpret_cast<const float2*>(tile + (16 * kb + kk) * kAP + 2 * tx);
+#pragma unroll
+      for (int r = 0; r < RU; ++r) {
+        if (r < kb) continue;
+        const float* row = sm + l.linv + tri_offset(r) + ty * tri_pitch(r) + 16 * kb;
+#pragma unroll
+        for (int k4 = 0; k4 < 16; k4 += 4) {
+          const float4 lv = *reinterpret_cast<const float4*>(row + k4);
+          const float lk[4] = {lv.x, lv.y, lv.z, lv.w};
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            acc[r][0] += lk[kk] * kv[k4 + kk].x;
+            acc[r][1] += lk[kk] * kv[k4 + kk].y;
+          }
+        }
+      }
+    }
+    {
+      const float e0 = sm[l.err + 2 * tx], e1 = sm[l.err + 2 * tx + 1];
+#pragma unroll
+      for (int r = 0; r < RU; ++r) {
+        vacc[r] += acc[r][0] * e0;
+        vacc[r] += acc[r][1] * e1;
+      }
+    }
     __syncthreads();
-    gram_tile<RU>(sm + l.a, sm + l.a, u);
-    if (tid < MP)
-      for (int t = 0; t < kTile; ++t) vacc += sm[l.a + tid * kLd + t] * sm[l.err + t];
+#pragma unroll
+    for (int r = 0; r < RU; ++r)
+      *reinterpret_cast<float2*>(tile + (ty + 16 * r) * kAP + 2 * tx) =
+          make_float2(acc[r][0], acc[r][1]);
     __syncthreads();
+    // ---- U += A A^T, lower blocks
+#pragma unroll 2
+    for (int t = 0; t < kTile; t += 2) {
+      float2 rv[RU], cv[RU];
+#pragma unroll
+      for (int u = 0; u < RU; ++u) {
+        rv[u] = *reinterpret_cast<const float2*>(tile + (16 * u + ty) * kAP + t);
+        cv[u] = *reinterpret_cast<const float2*>(tile + (16 * u + tx) * kAP + t);
+      }
+      int q = 0;
+#pragma unroll
+      for (int u = 0; u < RU; ++u)
+#pragma unroll
+        for (int b = 0; b <= u; ++b, ++q) {
+          qacc[q] += rv[u].x * cv[b].x;
+          qacc[q] += rv[u].y * cv[b].y;
+        }
+    }
   }
   float* rec = a.part + (static_cast<int64_t>(w) * a.splits + blockIdx.x) * a.rec;
-  store_square<RU>(u, a.M, rec);
-  if (tid < a.M) rec[a.M * a.M + tid] = vacc;
+  int q = 0;
+#pragma unroll
+  for (int u = 0; u < RU; ++u)
+#pragma unroll
+    for (int b = 0; b <= u; ++b, ++q) {
+      const int i = 16 * u + ty, j = 16 * b + tx;
+      if (i < M && j < M) {
+        rec[i * M + j] = qacc[q];
+        if (b != u) rec[j * M + i] = qacc[q];
+      }
+    }
+  // v: the 16 lanes of a row (bits 0-3 of the lane index are tx) add theirs
+#pragma unroll
+  for (int r = 0; r < RU; ++r) {
+    float v = vacc[r];
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+    if (tx == 0 && ty + 16 * r < M) rec[M * M + ty + 16 * r] = v;
+  }
 }
 
 // ------------------------------------------------------------- kernel B
 constexpr int kKP = kTile + 4;        // pitch of kernel B's Kuf tile (16-byte rows)
 constexpr int kGemmTile = 64;         // output tile of the per-window products
 constexpr int kGemmK = 16;            // their depth step
-constexpr int kSmemLimit = 232448;    // dynamic shared memory of one block
-constexpr int kHalfSm = 113 * 1024;   // two blocks on one SM (228 KB, 1 KB each reserved)
 
 struct BwdArgs {
   const float* zc;      // as in Args
@@ -403,18 +491,10 @@ struct BwdArgs {
   int e_stride, v_stride, M, N, S, P, splits, rec, wsz, mp, chunk_sources;
 };
 
-__host__ __device__ inline int round4(int v) { return (v + 3) & ~3; }
-
-// Kernel B's padded M: 16 RU with RU in 1, 2, 4, 7, 10 (M <= 160).
-__host__ __device__ inline int bwd_mp(int M) {
-  const int ru = (M + 15) / 16;
-  return 16 * (ru <= 1 ? 1 : ru <= 2 ? 2 : ru <= 4 ? 4 : ru <= 7 ? 7 : 10);
-}
-
 // Floats per window of kernel B's workspace: W then Y (M M), [C | h]
 // (M (M + 1)), and the z features cos, sin (S P, 2, MP).
 __host__ __device__ inline int bwd_workspace(int M, int S, int P) {
-  return 2 * M * M + M + S * P * 2 * bwd_mp(M);
+  return 2 * M * M + M + S * P * 2 * padded_m(M);
 }
 
 struct BwdLayout {
@@ -899,16 +979,20 @@ cudaError_t plan_splits(const void* fn, int smem, int N, int nw, int* splits) {
   return cudaSuccess;
 }
 
-// Kernel A: launches it (and the splits' sum), or, with `splits_out`, only
-// writes the split that `plan_splits` picks.
+// Kernel A: the z features per window, the main kernel and the splits'
+// sum; or, with `splits_out`, only the split that `plan_splits` picks.
 template <int RU>
 cudaError_t fwd_run(Args a, int nw, float* out, cudaStream_t stream, int* splits_out) {
   static std::atomic<int> allowed[kMaxDevices];
   const void* fn = reinterpret_cast<const void*>(&fused_whiten_fwd_kernel<RU>);
-  const int smem = static_cast<int>(sizeof(float) * make_layout(16 * RU, a.chunk_sources, a.P).total);
+  const int smem = static_cast<int>(sizeof(float) * make_fwd_layout(RU, a.chunk_sources, a.p2).total);
   cudaError_t err = allow_shared(fn, smem, allowed);
   if (err != cudaSuccess) return err;
   if (splits_out) return plan_splits(fn, smem, a.N, nw, splits_out);
+  const int zblocks = (a.S * a.p2 * a.mp + 1023) / 1024;
+  fwd_zfeat_kernel<<<dim3(zblocks, nw), kThreads, 0, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
   fused_whiten_fwd_kernel<RU><<<dim3(a.splits, nw), kThreads, smem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess || a.splits == 1) return err;
@@ -918,18 +1002,20 @@ cudaError_t fwd_run(Args a, int nw, float* out, cudaStream_t stream, int* splits
 int fwd_dispatch(Args a, int nw, void* out, void* stream, int* splits_out = nullptr) {
   if (splits_out) *splits_out = 1;
   if (nw == 0 || a.M == 0) return 0;
-  a.chunk_sources = a.P >= kPairCap ? 1 : kPairCap / a.P;
-  if (a.chunk_sources > a.S) a.chunk_sources = a.S;
+  a.mp = padded_m(a.M);
+  a.p2 = (a.P + 1) & ~1;
+  a.chunk_sources = fwd_chunk_sources(a.mp / 16, a.S, a.p2);
+  if (a.chunk_sources == 0) return static_cast<int>(cudaErrorInvalidValue);
   a.rec = a.M * a.M + a.M;
+  a.wsz = fwd_workspace(a.M, a.S, a.P);
   auto* o = static_cast<float*>(out);
   auto* s = static_cast<cudaStream_t>(stream);
-  const int ru = (a.M + 15) / 16;
   cudaError_t err = cudaErrorInvalidValue;
-  if (ru <= 1) err = fwd_run<1>(a, nw, o, s, splits_out);
-  else if (ru <= 2) err = fwd_run<2>(a, nw, o, s, splits_out);
-  else if (ru <= 4) err = fwd_run<4>(a, nw, o, s, splits_out);
-  else if (ru <= 7) err = fwd_run<7>(a, nw, o, s, splits_out);
-  else if (ru <= 10) err = fwd_run<10>(a, nw, o, s, splits_out);
+  if (a.mp == 16) err = fwd_run<1>(a, nw, o, s, splits_out);
+  else if (a.mp == 32) err = fwd_run<2>(a, nw, o, s, splits_out);
+  else if (a.mp == 64) err = fwd_run<4>(a, nw, o, s, splits_out);
+  else if (a.mp == 112) err = fwd_run<7>(a, nw, o, s, splits_out);
+  else if (a.mp == 160) err = fwd_run<10>(a, nw, o, s, splits_out);
   return static_cast<int>(err);
 }
 
@@ -970,7 +1056,7 @@ cudaError_t bwd_run(BwdArgs a, int nw, cudaStream_t stream, int* splits_out) {
 int bwd_dispatch(BwdArgs a, int nw, void* stream, int* splits_out = nullptr) {
   if (splits_out) *splits_out = 1;
   if (nw == 0 || a.M == 0) return 0;
-  a.mp = bwd_mp(a.M);
+  a.mp = padded_m(a.M);
   a.chunk_sources = bwd_chunk_sources(a.mp, a.S, a.P);
   if (a.chunk_sources == 0) return static_cast<int>(cudaErrorInvalidValue);
   a.rec = a.M * a.M + a.M + 2 * a.S + 2 * a.S * a.P;
@@ -988,8 +1074,8 @@ int bwd_dispatch(BwdArgs a, int nw, void* stream, int* splits_out = nullptr) {
 
 Args make_args(const void* zc, const void* xc, const void* err, const void* linv,
                const void* energy, const void* freq, const void* var, const void* inv_l,
-               void* part, int e_stride, int v_stride, int M, int N, int S, int P,
-               int splits) {
+               void* ws, void* part, int e_stride, int v_stride, int M, int N, int S,
+               int P, int splits) {
   Args a{};
   a.zc = static_cast<const float*>(zc);
   a.xc = static_cast<const float*>(xc);
@@ -999,6 +1085,7 @@ Args make_args(const void* zc, const void* xc, const void* err, const void* linv
   a.freq = static_cast<const float*>(freq);
   a.var = static_cast<const float*>(var);
   a.inv_l = static_cast<const float*>(inv_l);
+  a.ws = static_cast<float*>(ws);
   a.part = static_cast<float*>(part);
   a.e_stride = e_stride;
   a.v_stride = v_stride;
@@ -1044,21 +1131,26 @@ BwdArgs make_bwd_args(const void* zc, const void* xc, const void* err, const voi
 
 extern "C" {
 
-// Kernel A.  zc (nw, M, 1), xc, err (nw, 1, N), linv (nw, M, M); energy,
-// freq (S, P) with e_stride 0 or (nw, S, P) with e_stride S P; var, inv_l
-// (S,) or (nw, S) with v_stride 0 or S; all float32 and contiguous.  part
-// (nw, splits, M M + M) receives each block's [U, v]; when splits > 1 the
-// second kernel writes their sum to out (nw, M M + M).  M <= 160.
+// Kernel A.  zc (nw, M, 1), xc, err (nw, 1, N), linv (nw, M, M), of
+// which only the lower triangle is read; energy, freq (S, P) with e_stride
+// 0 or (nw, S, P) with e_stride S P; var, inv_l (S,) or (nw, S) with
+// v_stride 0 or S; all float32 and contiguous.  part (nw, splits, M M + M)
+// receives each block's [U, v]; when splits > 1 the second kernel writes
+// their sum to out (nw, M M + M); ws (nw,
+// gpitch_fused_whiten_fwd_workspace(M, S, P)) is scratch.  M <= 160.
 // Returns cudaError_t.
 int gpitch_fused_whiten_fwd(const void* zc, const void* xc, const void* err, const void* linv,
                             const void* energy, const void* freq, const void* var,
-                            const void* inv_l, void* part, void* out, int e_stride,
+                            const void* inv_l, void* part, void* out, void* ws, int e_stride,
                             int v_stride, int nw, int M, int N, int S, int P, int splits,
                             void* stream) {
-  return fwd_dispatch(make_args(zc, xc, err, linv, energy, freq, var, inv_l, part, e_stride,
+  return fwd_dispatch(make_args(zc, xc, err, linv, energy, freq, var, inv_l, ws, part, e_stride,
                                 v_stride, M, N, S, P, splits),
                       nw, out, stream);
 }
+
+// Floats per window of kernel A's scratch `ws`.
+int gpitch_fused_whiten_fwd_workspace(int M, int S, int P) { return fwd_workspace(M, S, P); }
 
 // Kernel B.  As kernel A, plus du (nw, M, M) and dv (nw, M, 1).  part
 // (nw, splits, rec) receives each block's [Q (M M), r (M), dvar (S),
@@ -1088,7 +1180,7 @@ int gpitch_fused_whiten_splits(int bwd, int nw, int M, int N, int S, int P, int*
                                       nullptr, nullptr, 0, 0, M, N, S, P, 1),
                         nw, nullptr, splits);
   return fwd_dispatch(make_args(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                                nullptr, nullptr, 0, 0, M, N, S, P, 1),
+                                nullptr, nullptr, nullptr, 0, 0, M, N, S, P, 1),
                       nw, nullptr, nullptr, splits);
 }
 

@@ -182,16 +182,23 @@ def _records(nw, splits, rec, dev):
 
 
 def _forward_kernel(zc, xc, err, linv, energy, freq, var, inv_l, splits=None):
-    """Kernel A on CUDA tensors: (U, v); ``splits`` overrides the plan."""
+    """Kernel A on CUDA tensors: (U, v); ``splits`` overrides the plan.
+    The kernel reads Linv's lower triangle only (diagonal included), as
+    torch.linalg.solve_triangular reads one triangle: what its strict upper
+    triangle holds does not matter."""
     sizes, tensors, strides = _prepare(zc, xc, err, linv, energy, freq, var, inv_l)
-    nw, m = sizes[:2]
+    nw, m, _, s, p = sizes
     dev = zc.device
+    lib = _cuda.load("fused_whiten")
     splits = splits or _splits(False, sizes, dev.index)
     part, out = _records(nw, splits, m * m + m, dev)
+    ws = torch.empty((nw, lib.gpitch_fused_whiten_fwd_workspace(m, s, p)),
+                     dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        rc = _cuda.load("fused_whiten").gpitch_fused_whiten_fwd(
-            *(t.data_ptr() for t in tensors), part.data_ptr(), out.data_ptr(), *strides,
-            *sizes, splits, torch.cuda.current_stream(dev).cuda_stream)
+        rc = lib.gpitch_fused_whiten_fwd(
+            *(t.data_ptr() for t in tensors), part.data_ptr(), out.data_ptr(),
+            ws.data_ptr(), *strides, *sizes, splits,
+            torch.cuda.current_stream(dev).cuda_stream)
     _cuda.check(rc, "fused_whiten")
     buf = out.view(nw, m * m + m)
     return buf[:, :m * m].view(nw, m, m), buf[:, m * m:].view(nw, m, 1)
@@ -281,8 +288,10 @@ def _refuse_data_grads(zc, xc, err):
 def fused_whiten(zc, xc, err, linv, energy, freq, var, inv_l):
     """(U (nw, M, M), v (nw, M, 1)) of ``fused_whiten_plain`` through kernel
     A (``make_fused_mxu``'s arguments), differentiable in linv, energy,
-    freq, var and inv_l through kernel B.  Raises if grad mode is on and
-    zc, xc or err requires grad."""
+    freq, var and inv_l through kernel B.  Linv must be lower triangular:
+    on the card kernel A reads its lower triangle only (the plain version
+    and kernel B take it whole; chol_inv's Linv is exactly lower).  Raises
+    if grad mode is on and zc, xc or err requires grad."""
     _refuse_data_grads(zc, xc, err)
     return _FusedWhiten.apply(fused_whiten, zc, xc, err, linv, energy, freq,
                               var, inv_l)

@@ -195,9 +195,10 @@ def _rel(got, want):
 
 
 # (nw, M, N, S, P): a ragged M and N, the SoSp and AMT widths, and sources
-# that take several feature chunks
+# that take several feature chunks; M 16, 30, 40, 112 and 160 launch every
+# instance of the kernels (RU 1, 2, 4, 7, 10)
 _WHITEN_SHAPES = [(3, 16, 300, 2, 3), (4, 112, 2001, 3, 5), (3, 160, 1001, 8, 10),
-                  (2, 40, 77, 17, 20)]
+                  (2, 40, 77, 17, 20), (3, 30, 257, 3, 3)]
 
 
 @pytest.mark.parametrize("shape", _WHITEN_SHAPES)
@@ -224,6 +225,25 @@ def test_cuda_fused_whiten_kernel_matches_plain(cuda, shape, per_window):
         for a, b in zip(g, want):
             assert a.shape == b.shape and bool(torch.isfinite(a).all())
             assert _rel(a, b) <= 1e-4
+
+
+@pytest.mark.parametrize("shape", [(4, 112, 2001, 3, 5), (3, 160, 1001, 8, 10),
+                                   (3, 30, 257, 3, 3)])
+def test_cuda_fused_whiten_reads_the_lower_triangle_of_linv_only(cuda, shape):
+    """Kernel A on a Linv whose strict upper triangle is noise gives the
+    f64 plain forward on torch.tril of it, within 1e-4 of max|ref|."""
+    from gpitch_tpu_torch.linalg.fused_whiten import fused_whiten, fused_whiten_plain
+    args = _whiten_args(cuda, *shape)
+    gen = torch.Generator().manual_seed(2)
+    noisy = args[3] + torch.triu(torch.randn(args[3].shape, generator=gen), 1).to(cuda)
+    with torch.no_grad():
+        got = fused_whiten(*args[:3], noisy, *args[4:])
+        want = fused_whiten_plain(*[a.double() for a in args[:3]], torch.tril(noisy).double(),
+                                  *[a.double() for a in args[4:]])
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and bool(torch.isfinite(a).all())
+        assert _rel(a, b) <= 1e-4
 
 
 @pytest.mark.parametrize("shape", _WHITEN_SHAPES)

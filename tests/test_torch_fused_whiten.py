@@ -192,10 +192,10 @@ def test_fused_whiten_grads_match_autograd_of_plain(per_window):
             close(got, ref.numpy(), 1e-10)
 
 
-def _bank():
-    """A 3-window port bank (ws 201, M 16, S 3, P 4), f64 on the CPU."""
+def _bank(nw=3, dtype=torch.float64):
+    """An ``nw``-window port bank (ws 201, M 16, S 3, P 4) on the CPU."""
     rng = np.random.default_rng(5)
-    nw, ws, m = 3, 201, 16
+    ws, m = 201, 16
     n = ws + (nw - 1) * 100
     x = np.arange(n) / FS + 2.0
     y = np.sin(2 * np.pi * 300 * x) + 0.1 * rng.standard_normal(n)
@@ -208,11 +208,26 @@ def _bank():
             e = np.linspace(1.0, 0.3, 4)
             ks.append(MercerMatern12sm.create(0.6 + 0.3 * i, 0.05 + 0.03 * i, e / e.sum(),
                                               (220.0 + 60.0 * i) * np.arange(1, 5),
-                                              dtype=torch.float64))
+                                              dtype=dtype))
         return tws.sum_kernel(ks)
 
     return tws.build_window_bank(x[idx], y[idx], zw[..., None], kern,
-                                 grid_dt=1 / FS, dtype=torch.float64, device="cpu")
+                                 grid_dt=1 / FS, dtype=dtype, device="cpu")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_bank_linv_is_exactly_lower_triangular(dtype):
+    """Kernel A reads Linv's lower triangle only (csrc/fused_whiten.cu):
+    the Linv that a bank's bound hands the pair (chol_inv's, through
+    fused_whiten_args) has an exactly zero strict upper triangle, on a
+    seeded 4-window bank in f32 and f64."""
+    bank = _bank(nw=4, dtype=dtype)
+    assert bank.fused_eligible()
+    linv = bank.fused_whiten_args()[3].detach()
+    assert tuple(linv.shape) == (4, 16, 16) and linv.dtype == dtype
+    assert bool(torch.isfinite(linv).all())
+    assert float(torch.triu(linv, 1).abs().max()) == 0.0
+    assert bool((torch.diagonal(linv, dim1=-2, dim2=-1) > 0).all())
 
 
 def test_fused_whiten_on_a_bank_matches_its_bound():
