@@ -933,30 +933,34 @@ def _no_grad(fn):
 _WHITEN_ARGS = ("zc", "xc", "err", "linv", "energy", "freq", "var", "inv_l")
 
 
-def _forward_rows(got, fwd32, fwd64) -> dict:
-    """Each output of kernel A against the f64 plain forward: within 1e-4
-    of max|ref| (the prototype's own limit, proto_fused_whiten.py:364) and
-    within 4x the f32 plain version's own error, which a kernel that took
-    its products in plain TF32 (~1e-3) would miss."""
+def _forward_rows(got, fwd32, fwd64, ref) -> dict:
+    """Each output of kernel A within 1e-4 of max|ref| of ``ref`` (the
+    prototype's own limit, proto_fused_whiten.py:364; ``ref`` is the f64
+    plain forward, or the f32 one where a case says so) and, against the
+    f64 plain forward, within 4x the f32 plain version's own error, which a
+    kernel that took its products in plain TF32 (~1e-3) would miss."""
     rows = {}
-    for what, g, g32, ref in zip(("U", "v"), got, fwd32, fwd64):
-        scale = float(ref.abs().max())
-        err = float((g.double() - ref).abs().max())
-        err32 = float((g32.double() - ref).abs().max())
-        row = {"max_abs_err": err, "max_rel_err": err / scale,
-               "plain_f32_rel_err": err32 / scale, "tol": min(1e-4 * scale, 4 * err32),
-               "finite": bool(torch.isfinite(g).all())}
-        row["ok"] = row["finite"] and err <= 1e-4 * scale and err <= 4 * err32
+    for what, g, g32, g64, r in zip(("U", "v"), got, fwd32, fwd64, ref):
+        scale = float(r.abs().max())
+        err = float((g.double() - r.double()).abs().max())
+        err64 = float((g.double() - g64).abs().max())
+        err32 = float((g32.double() - g64).abs().max())
+        row = {"max_abs_err": err, "max_rel_err": err / scale, "tol": 1e-4 * scale,
+               "f64_rel_err": err64 / float(g64.abs().max()),
+               "plain_f32_f64_rel_err": err32 / float(g64.abs().max()),
+               "tol_f64": 4 * err32, "finite": bool(torch.isfinite(g).all())}
+        row["ok"] = row["finite"] and err <= 1e-4 * scale and err64 <= 4 * err32
         rows[what] = row
     return rows
 
 
 def _whiten_case(name, d, dev, arbiter=True, timing=False) -> dict:
     """Kernel A through both entry points and kernel B against the plain
-    version: kernel A against the f64 plain forward (``_forward_rows``);
-    kernel B against autograd through the f64 plain version (``arbiter``),
-    else the f32 one, per output within the larger of 1e-3 of max|ref| and
-    4x the error of autograd through the f32 plain version."""
+    version: the f64 plain forward and autograd through it (``arbiter``),
+    else the f32 ones, are the reference; kernel A within the limits of
+    ``_forward_rows`` (also against the f64 plain forward in either case),
+    kernel B per output within the larger of 1e-3 of max|ref| and 4x the
+    error of autograd through the f32 plain version."""
     from gpitch_tpu_torch.linalg.fused_whiten import (
         fused_whiten, fused_whiten_bwd, fused_whiten_bwd_plain, fused_whiten_flat,
         fused_whiten_plain)
@@ -996,12 +1000,12 @@ def _whiten_case(name, d, dev, arbiter=True, timing=False) -> dict:
         del t64
         bwd_ref = bwd32
     out = {"phase": "fused_whiten", "case": name, "shape": [nw, m, n, s, p],
-           "reference": {"forward": "f64 plain",
-                         "backward": "f64 plain" if arbiter else "f32 plain"},
-           "forward": {}, "backward": {}}
+           "reference": "f64 plain" if arbiter else "f32 plain", "forward": {},
+           "backward": {}}
     ok = True
     for entry, got in fwd.items():
-        for what, row in _forward_rows(got, fwd32, fwd64).items():
+        for what, row in _forward_rows(got, fwd32, fwd64,
+                                       fwd64 if arbiter else fwd32).items():
             out["forward"][f"{entry}.{what}"] = row
             ok &= row["ok"]
     for what, g, g32, ref in zip(("dlinv", "dvar", "dinvl", "de", "df"), bwd, bwd32, bwd_ref):
@@ -1091,7 +1095,7 @@ def _whiten_splits(name, d, dev) -> dict:
         for got, ref in ((fwd[0], refs[0][0]), (dl, refs[1])):
             out["max_rel_diff"] = max(out["max_rel_diff"], float(
                 (got - ref).abs().max() / ref.abs().max()))
-        rows = _forward_rows(fwd, fwd32, fwd64)
+        rows = _forward_rows(fwd, fwd32, fwd64, fwd64)
         forward_ok &= all(r["ok"] for r in rows.values())
         for what, row in rows.items():
             worst = out["forward"].setdefault(what, row)

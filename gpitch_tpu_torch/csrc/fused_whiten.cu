@@ -60,8 +60,21 @@
 //     per SM; at the AMT width (M 160, 8 x 10) 205 KB with every source's
 //     features, one block of 8 warps (the features of all 80 pairs are what
 //     keeps them from being formed again);
-//   * every product is still an f32 FMA on the CUDA cores.
-// Later work for A: the products on the tensor cores in 3xTF32.
+//   * FP32 on the CUDA cores: every product stays an f32 FMA.  A form with
+//     A = tril(Linv) Kuf and U += A A^T on the tensor cores in 3xTF32
+//     (mma.sync m16n8k8, hi/lo splits of each operand, three products per
+//     product) passed every check but ran slower at both bank widths: at
+//     three TF32 products per product the mma.sync path gives little more
+//     than the f32 FMA rate, and the fragments' loads and splits cost more
+//     than that, most at M 160, where Linv's TF32 parts do not fit beside
+//     every source's features and are formed at every load.  Clock
+//     counters per phase (build, A, U) put the time in shared-memory loads
+//     of broadcast operands: the thin RU x 2 register tiles of a 32-sample
+//     tile issue about one load wavefront per two FMAs in all three phases.
+//   * the envelope is exp2f with log2 e folded into il per source (one
+//     MUFU.EX2 in place of expf's reduction), held to the f64 check.
+// Later work for A: wider register tiles (64-sample tiles, 4 columns a
+// thread) to halve the loads per FMA; the tensor cores through wgmma.
 //
 // Kernel B (redesigned for Hopper).  Its first form ran at 14-16% of its
 // bound: one 8-warp block per SM (a dense Linv, three (MP, 33) tiles and a
@@ -104,8 +117,9 @@
 //     record once per block (or per chunk and tile when the sources take
 //     several chunks).
 // Both kernels: every product is an f32 FMA on the CUDA cores, never TF32;
-// cos, sin and exp are the full-precision sincosf/expf (arguments reach ~6e3
-// rad), an angle is formed as (2 pi z) f like the plain version; ragged N:
+// cos and sin are the full-precision sincosf (arguments reach ~6e3 rad), exp
+// is expf in kernel B and exp2f in A, an angle is formed as (2 pi z) f like
+// the plain version; ragged N:
 // samples past the end get Kuf = 0 and err = 0, so they add nothing.  Both
 // split a window's tiles over several blocks when the windows alone do not
 // fill the card's resident blocks (`plan_splits`), each writing a partial
@@ -130,6 +144,7 @@ constexpr int kSmemLimit = 232448;    // dynamic shared memory of one block
 constexpr int kHalfSm = 113 * 1024;   // two blocks on one SM (228 KB, 1 KB each reserved)
 constexpr double kSetupTiles = 0.5;  // a block's set-up, in tiles (splits plan)
 constexpr float kTwoPi = 6.283185307179586f;
+constexpr float kLog2e = 1.4426950408889634f;
 
 __host__ __device__ inline int round4(int v) { return (v + 3) & ~3; }
 
@@ -161,8 +176,7 @@ __device__ __forceinline__ void tile_range(int N, int splits, int* begin, int* e
 }
 
 // ------------------------------------------------------------- kernel A
-constexpr int kKufP = kTile + 8;   // pitch of kernel A's Kuf tile (B fragments: rows t, columns g)
-constexpr int kAP = kTile + 4;     // pitch of its A tile, hi and lo (A fragments: rows g, columns t)
+constexpr int kAP = kTile + 2;     // pitch of kernel A's (MP, kTile) tile
 
 struct Args {
   const float* zc;      // (nw, M)
@@ -191,32 +205,22 @@ __host__ __device__ inline int fwd_workspace(int M, int S, int P) {
   return S * ((P + 1) & ~1) * 2 * padded_m(M);
 }
 
-// Whether kernel A keeps Linv's TF32 parts in shared memory (formed once
-// per block) or forms them at every fragment load: at M 160 the parts and
-// every source's features do not fit one block.
-__host__ __device__ constexpr bool split_linv(int ru) { return ru <= 7; }
-
 struct FwdLayout {
-  int linv, llo, tile, zf, xf, z, err, red, pf, pil, total;
+  int linv, tile, zf, xf, z, err, pf, pil, total;
 };
 
 // Shared memory of kernel A (floats; every array starts 16-byte aligned):
-// Linv's triangle (or its TF32 hi part, then its lo part), a region that
-// holds Kuf's (MP, kKufP) tile and then A's TF32 parts, (MP, kAP) each, the
-// z and x features of a chunk of sc sources (x: per pair group, [cos | sin]
-// of 32 samples, two partials to a sample), z, the tile's err, the chunk's
-// frequencies and inverse lengthscales.  After the last tile the v sums of
-// the 4 column tiles take the z features' place (at least 4 MP floats).
+// Linv's triangle, the (MP, kAP) tile (Kuf, then A), the z and x features
+// of a chunk of sc sources (x: per pair group, [cos | sin] of 32 samples,
+// two partials to a sample), z, the tile's err, the chunk's frequencies and
+// inverse lengthscales.
 __host__ __device__ inline FwdLayout make_fwd_layout(int ru, int sc, int p2) {
-  static_assert(2 * kAP >= kKufP, "Kuf's tile must fit A's region");
   const int mp = 16 * ru, pairs = sc * p2;
   FwdLayout l;
   int o = 0;
   l.linv = o; o += tri_offset(ru);
-  l.llo = o;  o += split_linv(ru) ? tri_offset(ru) : 0;
-  l.tile = o; o += mp * 2 * kAP;
+  l.tile = o; o += mp * kAP;
   l.zf = o;   o += pairs * 2 * mp;
-  l.red = l.zf;
   l.xf = o;   o += pairs * 2 * kTile;
   l.z = o;    o += mp;
   l.err = o;  o += kTile;
@@ -226,10 +230,12 @@ __host__ __device__ inline FwdLayout make_fwd_layout(int ru, int sc, int p2) {
   return l;
 }
 
-// Sources per feature chunk: every source when the block still fits two to
-// an SM, else as many as one block may hold (0: not even one).
-int fwd_chunk_sources(int ru, int S, int p2) {
-  auto bytes = [&](int sc) { return 4 * make_fwd_layout(ru, sc, p2).total; };
+// Sources per feature chunk of either kernel, from the shared-memory bytes
+// `bytes(sc)` of a block with sc sources a chunk: every source when the
+// block still fits two to an SM, else as many as one block may hold (0:
+// not even one).
+template <class Bytes>
+int chunk_sources(int S, Bytes bytes) {
   if (bytes(S) <= kHalfSm) return S;
   for (int sc = S; sc >= 1; --sc)
     if (bytes(sc) <= kSmemLimit) return sc;
@@ -263,8 +269,8 @@ __global__ void fwd_zfeat_kernel(Args a) {
 }
 
 // Sources s0 .. s0 + ns - 1 of window w: frequencies (0 for padded
-// partials), inverse lengthscales, and their z features copied from the
-// workspace.
+// partials), inverse lengthscales times log2 e (the envelope is an exp2),
+// and their z features copied from the workspace.
 __device__ void fwd_chunk(const Args& a, float* sm, const FwdLayout& l, int w, int s0, int ns) {
   const int P = a.P, p2 = a.p2;
   const float* f = a.freq + static_cast<int64_t>(w) * a.e_stride;
@@ -273,7 +279,7 @@ __device__ void fwd_chunk(const Args& a, float* sm, const FwdLayout& l, int w, i
     sm[l.pf + q] = p < P ? f[(s0 + s) * P + p] : 0.f;
   }
   const int64_t vb = static_cast<int64_t>(w) * a.v_stride + s0;
-  for (int q = threadIdx.x; q < ns; q += kThreads) sm[l.pil + q] = a.inv_l[vb + q];
+  for (int q = threadIdx.x; q < ns; q += kThreads) sm[l.pil + q] = a.inv_l[vb + q] * kLog2e;
   const float4* src = reinterpret_cast<const float4*>(
       a.ws + static_cast<int64_t>(w) * a.wsz + static_cast<int64_t>(s0) * p2 * 2 * a.mp);
   float4* dst = reinterpret_cast<float4*>(sm + l.zf);
@@ -294,85 +300,18 @@ __device__ void fwd_xfeat(const Args& a, float* sm, const FwdLayout& l, int w, i
   }
 }
 
-// 3xTF32 on the tensor cores: x = hi + lo, hi and lo TF32 (rounded to
-// nearest), so that a product hi hi + hi lo + lo hi keeps ~21 bits where one
-// TF32 product keeps 11.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
-}
-
-// d += a b for one m16n8k8 tile: a (16 x 8, row) and b (8 x 8, col) in the
-// fragments of lane (g, t) = (lane / 4, lane % 4): a0 (g, t), a1 (g + 8, t),
-// a2 (g, t + 4), a3 (g + 8, t + 4); b0 (t, g), b1 (t + 4, g); d0, d1 (g, 2 t
-// + 0, 1), d2, d3 (g + 8, 2 t + 0, 1).  Not volatile: the compiler may
-// interleave independent products.
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// The A fragment of rows (g, g + 8), columns (t, t + 4) from p (at row g,
-// column t) of a row-major f32 array of pitch ld, split into TF32 parts.
-__device__ __forceinline__ void frag_a(const float* p, int ld, uint32_t (&hi)[4],
-                                       uint32_t (&lo)[4]) {
-  split_tf32(p[0], hi[0], lo[0]);
-  split_tf32(p[8 * ld], hi[1], lo[1]);
-  split_tf32(p[4], hi[2], lo[2]);
-  split_tf32(p[8 * ld + 4], hi[3], lo[3]);
-}
-
-// The same from arrays that hold the parts already (hi at p, lo at p + lo_off).
-__device__ __forceinline__ void frag_a_split(const float* p, int ld, int lo_off,
-                                             uint32_t (&hi)[4], uint32_t (&lo)[4]) {
-  hi[0] = __float_as_uint(p[0]);
-  hi[1] = __float_as_uint(p[8 * ld]);
-  hi[2] = __float_as_uint(p[4]);
-  hi[3] = __float_as_uint(p[8 * ld + 4]);
-  lo[0] = __float_as_uint(p[lo_off]);
-  lo[1] = __float_as_uint(p[lo_off + 8 * ld]);
-  lo[2] = __float_as_uint(p[lo_off + 4]);
-  lo[3] = __float_as_uint(p[lo_off + 8 * ld + 4]);
-}
-
-// The B fragment of rows (t, t + 4), column g of a column-major array, that
-// is the A-side array's row g at columns (t, t + 4): from p (at row g,
-// column t) of a row-major array holding the parts (lo at p + lo_off).
-__device__ __forceinline__ void frag_b_split(const float* p, int lo_off, uint32_t (&hi)[2],
-                                             uint32_t (&lo)[2]) {
-  hi[0] = __float_as_uint(p[0]);
-  hi[1] = __float_as_uint(p[4]);
-  lo[0] = __float_as_uint(p[lo_off]);
-  lo[1] = __float_as_uint(p[lo_off + 4]);
-}
-
-// Per tile of 32 samples:
-//   * the build on the CUDA cores: thread (ty, tx) = (tid / 16, tid % 16)
-//     forms Kuf's elements (16 r + ty, 2 tx + c), r < RU, c < 2, into the
-//     (MP, kKufP) tile;
-//   * A = tril(Linv) Kuf on the tensor cores in 3xTF32: warp w takes the
-//     8-sample column tile w % 4 and the block rows r = w / 4 + 2 j, each
-//     over the nonzero 16-blocks of Linv's row only, and adds v += A err
-//     from its fragments; A's TF32 parts go over Kuf's tile;
-//   * U += A A^T on U's lower 16 x 16 blocks (a, b), b <= a: warp w takes
-//     blocks q = w + 8 j (in the order (0, 0), (1, 0), (1, 1), (2, 0), ..),
-//     both 8-column halves, held in registers across the tiles.
-// Linv's TF32 parts are formed once per block where shared memory allows it
-// (RU <= 7), else at every fragment load.
+// Per tile of 32 samples: Kuf's tile (each thread its RU x 2 elements, rows
+// 16 r + ty, columns 2 tx + c) into shared memory, A = tril(Linv) Kuf into
+// registers and v += A err, A over Kuf's tile, then U += A A^T on U's lower
+// 16 x 16 blocks: thread (ty, tx) = (tid / 16, tid % 16) holds U's entries
+// (16 a + ty, 16 b + tx), b <= a, in registers across the tiles.
 template <int RU>
 __global__ void __launch_bounds__(kThreads, RU >= 10 ? 1 : 2) fused_whiten_fwd_kernel(Args a) {
   constexpr int MP = 16 * RU, NQ = RU * (RU + 1) / 2;
-  constexpr int RJ = (RU + 1) / 2, QJ = (NQ + kWarps - 1) / kWarps;
-  constexpr bool kSplitL = split_linv(RU);
   extern __shared__ __align__(16) float sm[];
   const int M = a.M, N = a.N, S = a.S, sc = a.chunk_sources, G = a.p2 / 2;
   const FwdLayout l = make_fwd_layout(RU, sc, a.p2);
   const int w = blockIdx.y, tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
-  const int nt = warp % 4, par = warp / 4;
   const int nchunks = (S + sc - 1) / sc;
   const float* L = a.linv + static_cast<int64_t>(w) * M * M;
 #pragma unroll
@@ -381,15 +320,7 @@ __global__ void __launch_bounds__(kThreads, RU >= 10 ? 1 : 2) fused_whiten_fwd_k
     float* dst = sm + l.linv + tri_offset(r);
     for (int idx = tid; idx < 16 * cols; idx += kThreads) {
       const int ii = idx / cols, k = idx - ii * cols, i = 16 * r + ii;
-      const float x = (k <= i && i < M) ? L[static_cast<int64_t>(i) * M + k] : 0.f;
-      if (kSplitL) {
-        uint32_t hi, lo;
-        split_tf32(x, hi, lo);
-        dst[ii * tri_pitch(r) + k] = __uint_as_float(hi);
-        dst[l.llo - l.linv + ii * tri_pitch(r) + k] = __uint_as_float(lo);
-      } else {
-        dst[ii * tri_pitch(r) + k] = x;
-      }
+      dst[ii * tri_pitch(r) + k] = (k <= i && i < M) ? L[static_cast<int64_t>(i) * M + k] : 0.f;
     }
   }
   for (int i = tid; i < MP; i += kThreads)
@@ -399,13 +330,11 @@ __global__ void __launch_bounds__(kThreads, RU >= 10 ? 1 : 2) fused_whiten_fwd_k
   float zr[RU];
 #pragma unroll
   for (int r = 0; r < RU; ++r) zr[r] = sm[l.z + ty + 16 * r];
-  float qacc[QJ][2][4], vacc[RJ][2];
+  float qacc[NQ], vacc[RU];
 #pragma unroll
-  for (int j = 0; j < QJ; ++j)
+  for (int q = 0; q < NQ; ++q) qacc[q] = 0.f;
 #pragma unroll
-    for (int e = 0; e < 8; ++e) qacc[j][e / 4][e % 4] = 0.f;
-#pragma unroll
-  for (int j = 0; j < RJ; ++j) vacc[j][0] = vacc[j][1] = 0.f;
+  for (int r = 0; r < RU; ++r) vacc[r] = 0.f;
   float* tile = sm + l.tile;
   int begin, end;
   tile_range(N, a.splits, &begin, &end);
@@ -414,14 +343,14 @@ __global__ void __launch_bounds__(kThreads, RU >= 10 ? 1 : 2) fused_whiten_fwd_k
   for (int tn = begin; tn < end; ++tn) {
     const int t0 = tn * kTile;
     if (tid < kTile) {
-      const int tt = t0 + tid;
-      sm[l.err + tid] = tt < N ? a.err[static_cast<int64_t>(w) * N + tt] : 0.f;
+      const int t = t0 + tid;
+      sm[l.err + tid] = t < N ? a.err[static_cast<int64_t>(w) * N + t] : 0.f;
     }
     float xt[2];
 #pragma unroll
     for (int c = 0; c < 2; ++c) {
-      const int tt = t0 + 2 * tx + c;
-      xt[c] = tt < N ? a.xc[static_cast<int64_t>(w) * N + tt] : 0.f;
+      const int t = t0 + 2 * tx + c;
+      xt[c] = t < N ? a.xc[static_cast<int64_t>(w) * N + t] : 0.f;
     }
     // ---- the build: Kuf = sum_s E_s sum_p (var e cos z) cos x + (var e sin z) sin x
     float kacc[RU][2];
@@ -440,11 +369,11 @@ __global__ void __launch_bounds__(kThreads, RU >= 10 ? 1 : 2) fused_whiten_fwd_k
         float mix[RU][2];
 #pragma unroll
         for (int r = 0; r < RU; ++r) mix[r][0] = mix[r][1] = 0.f;
-        for (int gq = sl * G; gq < (sl + 1) * G; ++gq) {
-          const float4 cx = *reinterpret_cast<const float4*>(sm + l.xf + gq * 4 * kTile + 4 * tx);
+        for (int g = sl * G; g < (sl + 1) * G; ++g) {
+          const float4 cx = *reinterpret_cast<const float4*>(sm + l.xf + g * 4 * kTile + 4 * tx);
           const float4 sx =
-              *reinterpret_cast<const float4*>(sm + l.xf + gq * 4 * kTile + 2 * kTile + 4 * tx);
-          const float* zg = sm + l.zf + gq * 4 * MP;
+              *reinterpret_cast<const float4*>(sm + l.xf + g * 4 * kTile + 2 * kTile + 4 * tx);
+          const float* zg = sm + l.zf + g * 4 * MP;
 #pragma unroll
           for (int r = 0; r < RU; ++r) {
             const float2 cz = *reinterpret_cast<const float2*>(zg + 2 * (ty + 16 * r));
@@ -463,131 +392,97 @@ __global__ void __launch_bounds__(kThreads, RU >= 10 ? 1 : 2) fused_whiten_fwd_k
 #pragma unroll
         for (int r = 0; r < RU; ++r)
 #pragma unroll
-          for (int c = 0; c < 2; ++c) kacc[r][c] += expf(-fabsf(zr[r] - xt[c]) * il) * mix[r][c];
+          for (int c = 0; c < 2; ++c) kacc[r][c] += exp2f(-fabsf(zr[r] - xt[c]) * il) * mix[r][c];
       }
     }
 #pragma unroll
     for (int r = 0; r < RU; ++r) {
-      const int i = ty + 16 * r, tt = t0 + 2 * tx;
+      const int i = ty + 16 * r, t = t0 + 2 * tx;
       float2 v;
-      v.x = (i < M && tt < N) ? kacc[r][0] : 0.f;
-      v.y = (i < M && tt + 1 < N) ? kacc[r][1] : 0.f;
-      *reinterpret_cast<float2*>(tile + i * kKufP + 2 * tx) = v;
+      v.x = (i < M && t < N) ? kacc[r][0] : 0.f;
+      v.y = (i < M && t + 1 < N) ? kacc[r][1] : 0.f;
+      *reinterpret_cast<float2*>(tile + i * kAP + 2 * tx) = v;
     }
     __syncthreads();
-    // ---- A = tril(Linv) Kuf: block rows r = par + 2 j, k over [0, 16 (r + 1));
-    // the hi hi products and the two small ones in separate sums, so that
-    // no product waits on the one before it
-    float acc[RJ][4], acs[RJ][4];
+    // ---- A = tril(Linv) Kuf: for each 16-block kb of k, the block rows r >= kb
+    float acc[RU][2];
 #pragma unroll
-    for (int j = 0; j < RJ; ++j)
+    for (int r = 0; r < RU; ++r) acc[r][0] = acc[r][1] = 0.f;
+#pragma unroll 1
+    for (int kb = 0; kb < RU; ++kb) {
+      float2 kv[16];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][e] = acs[j][e] = 0.f;
-    const int last = RU - 1 - ((RU - 1 - par) & 1);     // this warp's last block row
-    for (int ks = 0; ks < 2 * (last + 1); ++ks) {
-      uint32_t bh[2], bl[2];
-      const float* kp = tile + (8 * ks + t) * kKufP + 8 * nt + g;
-      split_tf32(kp[0], bh[0], bl[0]);
-      split_tf32(kp[4 * kKufP], bh[1], bl[1]);
+      for (int kk = 0; kk < 16; ++kk)
+        kv[kk] = *reinterpret_cast<const float2*>(tile + (16 * kb + kk) * kAP + 2 * tx);
 #pragma unroll
-      for (int j = 0; j < RJ; ++j) {
-        const int r = par + 2 * j;
-        if (r >= RU || 2 * (r + 1) <= ks) continue;
-        const float* lp = sm + l.linv + tri_offset(r) + g * tri_pitch(r) + 8 * ks + t;
-        uint32_t ah[4], al[4];
-        if (kSplitL) frag_a_split(lp, tri_pitch(r), l.llo - l.linv, ah, al);
-        else frag_a(lp, tri_pitch(r), ah, al);
-        mma_tf32(acs[j], al, bh);
-        mma_tf32(acc[j], ah, bh);
-        mma_tf32(acs[j], ah, bl);
+      for (int r = 0; r < RU; ++r) {
+        if (r < kb) continue;
+        const float* row = sm + l.linv + tri_offset(r) + ty * tri_pitch(r) + 16 * kb;
+#pragma unroll
+        for (int k4 = 0; k4 < 16; k4 += 4) {
+          const float4 lv = *reinterpret_cast<const float4*>(row + k4);
+          const float lk[4] = {lv.x, lv.y, lv.z, lv.w};
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            acc[r][0] += lk[kk] * kv[k4 + kk].x;
+            acc[r][1] += lk[kk] * kv[k4 + kk].y;
+          }
+        }
       }
     }
     {
-      const float e0 = sm[l.err + 8 * nt + 2 * t], e1 = sm[l.err + 8 * nt + 2 * t + 1];
+      const float e0 = sm[l.err + 2 * tx], e1 = sm[l.err + 2 * tx + 1];
 #pragma unroll
-      for (int j = 0; j < RJ; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[j][e] += acs[j][e];
-        vacc[j][0] += acc[j][0] * e0;
-        vacc[j][0] += acc[j][1] * e1;
-        vacc[j][1] += acc[j][2] * e0;
-        vacc[j][1] += acc[j][3] * e1;
+      for (int r = 0; r < RU; ++r) {
+        vacc[r] += acc[r][0] * e0;
+        vacc[r] += acc[r][1] * e1;
       }
     }
     __syncthreads();
-    // A's TF32 parts over Kuf's tile: hi (MP, kAP), then lo
 #pragma unroll
-    for (int j = 0; j < RJ; ++j) {
-      const int r = par + 2 * j;
-      if (r >= RU) continue;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        uint32_t h0, l0, h1, l1;
-        split_tf32(acc[j][2 * h], h0, l0);
-        split_tf32(acc[j][2 * h + 1], h1, l1);
-        float* p = tile + (16 * r + g + 8 * h) * kAP + 8 * nt + 2 * t;
-        *reinterpret_cast<float2*>(p) = make_float2(__uint_as_float(h0), __uint_as_float(h1));
-        *reinterpret_cast<float2*>(p + MP * kAP) =
-            make_float2(__uint_as_float(l0), __uint_as_float(l1));
-      }
-    }
+    for (int r = 0; r < RU; ++r)
+      *reinterpret_cast<float2*>(tile + (ty + 16 * r) * kAP + 2 * tx) =
+          make_float2(acc[r][0], acc[r][1]);
     __syncthreads();
-    // ---- U += A A^T, lower blocks; the blocks of one k-step one after the
-    // other, so that consecutive products are independent
+    // ---- U += A A^T, lower blocks
+#pragma unroll 2
+    for (int t = 0; t < kTile; t += 2) {
+      float2 rv[RU], cv[RU];
 #pragma unroll
-    for (int ks = 0; ks < kTile / 8; ++ks) {
-#pragma unroll
-      for (int j = 0; j < QJ; ++j) {
-        const int q = warp + kWarps * j;
-        if (q >= NQ) continue;
-        const int u = static_cast<int>((sqrtf(8.f * q + 1.f) - 1.f) * 0.5f);
-        const int b = q - u * (u + 1) / 2;
-        uint32_t ah[4], al[4], bh0[2], bl0[2], bh1[2], bl1[2];
-        frag_a_split(tile + (16 * u + g) * kAP + 8 * ks + t, kAP, MP * kAP, ah, al);
-        const float* bp = tile + (16 * b + g) * kAP + 8 * ks + t;
-        frag_b_split(bp, MP * kAP, bh0, bl0);
-        frag_b_split(bp + 8 * kAP, MP * kAP, bh1, bl1);
-        mma_tf32(qacc[j][0], al, bh0);
-        mma_tf32(qacc[j][1], al, bh1);
-        mma_tf32(qacc[j][0], ah, bl0);
-        mma_tf32(qacc[j][1], ah, bl1);
-        mma_tf32(qacc[j][0], ah, bh0);
-        mma_tf32(qacc[j][1], ah, bh1);
+      for (int u = 0; u < RU; ++u) {
+        rv[u] = *reinterpret_cast<const float2*>(tile + (16 * u + ty) * kAP + t);
+        cv[u] = *reinterpret_cast<const float2*>(tile + (16 * u + tx) * kAP + t);
       }
+      int q = 0;
+#pragma unroll
+      for (int u = 0; u < RU; ++u)
+#pragma unroll
+        for (int b = 0; b <= u; ++b, ++q) {
+          qacc[q] += rv[u].x * cv[b].x;
+          qacc[q] += rv[u].y * cv[b].y;
+        }
     }
   }
   float* rec = a.part + (static_cast<int64_t>(w) * a.splits + blockIdx.x) * a.rec;
+  int q = 0;
 #pragma unroll
-  for (int j = 0; j < QJ; ++j) {
-    const int q = warp + kWarps * j;
-    if (q >= NQ) continue;
-    const int u = static_cast<int>((sqrtf(8.f * q + 1.f) - 1.f) * 0.5f), b = q - u * (u + 1) / 2;
+  for (int u = 0; u < RU; ++u)
 #pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const int i = 16 * u + g + 8 * ((e / 2) % 2), jj = 16 * b + 8 * (e / 4) + 2 * t + e % 2;
-      const float val = qacc[j][e / 4][e % 4];
-      if (i < M && jj < M) {
-        rec[i * M + jj] = val;
-        if (b != u) rec[jj * M + i] = val;
+    for (int b = 0; b <= u; ++b, ++q) {
+      const int i = 16 * u + ty, j = 16 * b + tx;
+      if (i < M && j < M) {
+        rec[i * M + j] = qacc[q];
+        if (b != u) rec[j * M + i] = qacc[q];
       }
     }
-  }
-  // v: the 4 lanes of a row add theirs, then the 4 column tiles in order
+  // v: the 16 lanes of a row (bits 0-3 of the lane index are tx) add theirs
 #pragma unroll
-  for (int j = 0; j < RJ; ++j) {
-    const int r = par + 2 * j;
+  for (int r = 0; r < RU; ++r) {
+    float v = vacc[r];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float v = vacc[j][h];
-      v += __shfl_xor_sync(0xffffffffu, v, 1);
-      v += __shfl_xor_sync(0xffffffffu, v, 2);
-      if (r < RU && t == 0) sm[l.red + nt * MP + 16 * r + g + 8 * h] = v;
-    }
+    for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+    if (tx == 0 && ty + 16 * r < M) rec[M * M + ty + 16 * r] = v;
   }
-  __syncthreads();
-  for (int i = tid; i < M; i += kThreads)
-    rec[M * M + i] = sm[l.red + i] + sm[l.red + MP + i] + sm[l.red + 2 * MP + i] +
-                     sm[l.red + 3 * MP + i];
 }
 
 // ------------------------------------------------------------- kernel B
@@ -647,16 +542,6 @@ __host__ __device__ inline BwdLayout make_bwd_layout(int mp, int sc, int P) {
   l.red = o; o += kWarps * pairs * 3;
   l.total = o;
   return l;
-}
-
-// Sources per feature chunk: every source when the block still fits two to
-// an SM, else as many as one block may hold (0: not even one).
-int bwd_chunk_sources(int mp, int S, int P) {
-  auto bytes = [&](int sc) { return 4 * make_bwd_layout(mp, sc, P).total; };
-  if (bytes(S) <= kHalfSm) return S;
-  for (int sc = S; sc >= 1; --sc)
-    if (bytes(sc) <= kSmemLimit) return sc;
-  return 0;
 }
 
 // The z features cos, sin(2 pi f_q z_i) of every pair q of window w, once
@@ -1126,7 +1011,8 @@ int fwd_dispatch(Args a, int nw, void* out, void* stream, int* splits_out = null
   if (nw == 0 || a.M == 0) return 0;
   a.mp = padded_m(a.M);
   a.p2 = (a.P + 1) & ~1;
-  a.chunk_sources = fwd_chunk_sources(a.mp / 16, a.S, a.p2);
+  a.chunk_sources = chunk_sources(
+      a.S, [&](int sc) { return 4 * make_fwd_layout(a.mp / 16, sc, a.p2).total; });
   if (a.chunk_sources == 0) return static_cast<int>(cudaErrorInvalidValue);
   a.rec = a.M * a.M + a.M;
   a.wsz = fwd_workspace(a.M, a.S, a.P);
@@ -1179,7 +1065,8 @@ int bwd_dispatch(BwdArgs a, int nw, void* stream, int* splits_out = nullptr) {
   if (splits_out) *splits_out = 1;
   if (nw == 0 || a.M == 0) return 0;
   a.mp = padded_m(a.M);
-  a.chunk_sources = bwd_chunk_sources(a.mp, a.S, a.P);
+  a.chunk_sources =
+      chunk_sources(a.S, [&](int sc) { return 4 * make_bwd_layout(a.mp, sc, a.P).total; });
   if (a.chunk_sources == 0) return static_cast<int>(cudaErrorInvalidValue);
   a.rec = a.M * a.M + a.M + 2 * a.S + 2 * a.S * a.P;
   a.wsz = bwd_workspace(a.M, a.S, a.P);
