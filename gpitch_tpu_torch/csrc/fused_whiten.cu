@@ -68,9 +68,10 @@
 //     than the f32 FMA rate, and the fragments' loads and splits cost more
 //     than that, most at M 160, where Linv's TF32 parts do not fit beside
 //     every source's features and are formed at every load.  Clock
-//     counters per phase (build, A, U) put the time in shared-memory loads
-//     of broadcast operands: the thin RU x 2 register tiles of a 32-sample
-//     tile issue about one load wavefront per two FMAs in all three phases.
+//     counters per phase (phase_clocks.py: build, A, U) and a count of the
+//     loads put the time in shared-memory loads of broadcast operands: the
+//     thin RU x 2 register tiles of a 32-sample tile make about one load
+//     wavefront per two FMAs in all three phases.
 //   * the envelope is exp2f with log2 e folded into il per source (one
 //     MUFU.EX2 in place of expf's reduction), held to the f64 check.
 // Later work for A: wider register tiles (64-sample tiles, 4 columns a
