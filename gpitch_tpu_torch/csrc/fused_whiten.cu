@@ -177,8 +177,7 @@ __device__ __forceinline__ void tile_range(int N, int splits, int* begin, int* e
 }
 
 // ------------------------------------------------------------- kernel A
-constexpr int kKufP = kTile + 8;   // pitch of kernel A's Kuf tile (B fragments: rows t, columns g)
-constexpr int kAP = kTile + 2;     // pitch of its A tile (conflict-free column pairs)
+constexpr int kAP = kTile + 2;     // pitch of kernel A's (MP, kTile) tile
 
 struct Args {
   const float* zc;      // (nw, M)
@@ -208,23 +207,21 @@ __host__ __device__ inline int fwd_workspace(int M, int S, int P) {
 }
 
 struct FwdLayout {
-  int linv, tile, zf, xf, z, err, red, pf, pil, total;
+  int linv, tile, zf, xf, z, err, pf, pil, total;
 };
 
 // Shared memory of kernel A (floats; every array starts 16-byte aligned):
-// Linv's triangle, a tile that holds Kuf (MP, kKufP), then A (MP, kAP), the
-// z and x features of a chunk of sc sources (x: per pair group, [cos | sin]
-// of 32 samples, two partials to a sample), z, the tile's err, the chunk's
-// frequencies and inverse lengthscales.  After the last tile the v sums of
-// the 4 column tiles take the z features' place (at least 4 MP floats).
+// Linv's triangle, the (MP, kAP) tile (Kuf, then A), the z and x features
+// of a chunk of sc sources (x: per pair group, [cos | sin] of 32 samples,
+// two partials to a sample), z, the tile's err, the chunk's frequencies and
+// inverse lengthscales.
 __host__ __device__ inline FwdLayout make_fwd_layout(int ru, int sc, int p2) {
   const int mp = 16 * ru, pairs = sc * p2;
   FwdLayout l;
   int o = 0;
   l.linv = o; o += tri_offset(ru);
-  l.tile = o; o += mp * kKufP;
+  l.tile = o; o += mp * kAP;
   l.zf = o;   o += pairs * 2 * mp;
-  l.red = l.zf;
   l.xf = o;   o += pairs * 2 * kTile;
   l.z = o;    o += mp;
   l.err = o;  o += kTile;
@@ -304,61 +301,18 @@ __device__ void fwd_xfeat(const Args& a, float* sm, const FwdLayout& l, int w, i
   }
 }
 
-// 3xTF32: x = hi + lo, hi rounded to TF32 (half the 13 low bits' range
-// added, then cleared; three integer and float operations where cvt.rna
-// takes nine) and lo = x - hi exactly, of which the tensor cores read the
-// top 19 bits, so that hi hi + hi lo + lo hi keeps ~21 bits of a product
-// where one TF32 product keeps 11.  x is finite.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-// d += a b for one m16n8k8 TF32 tile, in the fragments of lane (g, t) =
-// (lane / 4, lane % 4): a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8,
-// t + 4) of a (16 x 8); b0 (t, g), b1 (t + 4, g) of b (8 x 8); d0, d1 (g,
-// 2 t + 0, 1), d2, d3 (g + 8, 2 t + 0, 1).
-__device__ __forceinline__ void mma_tf32(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// The block rows of A = tril(Linv) Kuf that the warps of half h (warp / 4)
-// take, 4 bits a row (row + 1; the largest first): the halves carry equal
-// shares of the triangle, the sum of (r + 1) over their rows.
-__host__ __device__ constexpr uint32_t half_rows(int ru, int h) {
-  return ru == 1   ? (h ? 0x0u : 0x1u)
-         : ru == 2 ? (h ? 0x1u : 0x2u)
-         : ru == 4 ? (h ? 0x23u : 0x14u)
-         : ru == 7 ? (h ? 0x2345u : 0x167u)
-                   : (h ? 0x234568u : 0x179Au);
-}
-__host__ __device__ constexpr int row_count(uint32_t rows) {
-  return rows ? 1 + row_count(rows >> 4) : 0;
-}
-
 // Per tile of 32 samples: Kuf's tile (each thread its RU x 2 elements, rows
-// 16 r + ty, columns 2 tx + c) into shared memory; A = tril(Linv) Kuf on
-// the tensor cores in 3xTF32, warp (nt, h) = (warp % 4, warp / 4) taking
-// the samples 8 nt .. 8 nt + 7 and the block rows of half h, each over its
-// nonzero 16-blocks of Linv, and v += A err from its fragments; A over
-// Kuf's tile; then U += A A^T on U's lower 16 x 16 blocks on the CUDA
-// cores: thread (ty, tx) = (tid / 16, tid % 16) holds U's entries (16 a +
-// ty, 16 b + tx), b <= a, in registers across the tiles.
+// 16 r + ty, columns 2 tx + c) into shared memory, A = tril(Linv) Kuf into
+// registers and v += A err, A over Kuf's tile, then U += A A^T on U's lower
+// 16 x 16 blocks: thread (ty, tx) = (tid / 16, tid % 16) holds U's entries
+// (16 a + ty, 16 b + tx), b <= a, in registers across the tiles.
 template <int RU>
 __global__ void __launch_bounds__(kThreads, RU >= 10 ? 1 : 2) fused_whiten_fwd_kernel(Args a) {
   constexpr int MP = 16 * RU, NQ = RU * (RU + 1) / 2;
-  constexpr int HR = row_count(half_rows(RU, 0)) > row_count(half_rows(RU, 1))
-                         ? row_count(half_rows(RU, 0)) : row_count(half_rows(RU, 1));
   extern __shared__ __align__(16) float sm[];
   const int M = a.M, N = a.N, S = a.S, sc = a.chunk_sources, G = a.p2 / 2;
   const FwdLayout l = make_fwd_layout(RU, sc, a.p2);
   const int w = blockIdx.y, tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int warp = tid / 32, fg = (tid % 32) / 4, ft = tid % 4, nt = warp % 4;
-  const uint32_t rows = half_rows(RU, warp / 4);
   const int nchunks = (S + sc - 1) / sc;
   const float* L = a.linv + static_cast<int64_t>(w) * M * M;
 #pragma unroll
@@ -377,11 +331,11 @@ __global__ void __launch_bounds__(kThreads, RU >= 10 ? 1 : 2) fused_whiten_fwd_k
   float zr[RU];
 #pragma unroll
   for (int r = 0; r < RU; ++r) zr[r] = sm[l.z + ty + 16 * r];
-  float qacc[NQ], vacc[HR][2];
+  float qacc[NQ], vacc[RU];
 #pragma unroll
   for (int q = 0; q < NQ; ++q) qacc[q] = 0.f;
 #pragma unroll
-  for (int j = 0; j < HR; ++j) vacc[j][0] = vacc[j][1] = 0.f;
+  for (int r = 0; r < RU; ++r) vacc[r] = 0.f;
   float* tile = sm + l.tile;
   int begin, end;
   tile_range(N, a.splits, &begin, &end);
@@ -448,68 +402,48 @@ __global__ void __launch_bounds__(kThreads, RU >= 10 ? 1 : 2) fused_whiten_fwd_k
       float2 v;
       v.x = (i < M && t < N) ? kacc[r][0] : 0.f;
       v.y = (i < M && t + 1 < N) ? kacc[r][1] : 0.f;
-      *reinterpret_cast<float2*>(tile + i * kKufP + 2 * tx) = v;
+      *reinterpret_cast<float2*>(tile + i * kAP + 2 * tx) = v;
     }
     __syncthreads();
-    // ---- A = tril(Linv) Kuf (3xTF32): each of the half's rows over its
-    // nonzero k-steps, two at a time, the hi hi products and the two small
-    // ones in separate sums, so that no product waits on the one before it
-    float acc[HR][4];
+    // ---- A = tril(Linv) Kuf: for each 16-block kb of k, the block rows r >= kb
+    float acc[RU][2];
 #pragma unroll
-    for (int j = 0; j < HR; ++j) {
-      const int r = static_cast<int>((rows >> (4 * j)) & 15u) - 1;
-      acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-      if (r < 0) continue;
-      const int p8 = 8 * tri_pitch(r);
-      const float* lp = sm + l.linv + tri_offset(r) + fg * tri_pitch(r) + ft;
-      const float* kp = tile + ft * kKufP + 8 * nt + fg;
-      float d0[4] = {0.f, 0.f, 0.f, 0.f}, d1[4] = {0.f, 0.f, 0.f, 0.f};
-      float s0[4] = {0.f, 0.f, 0.f, 0.f}, s1[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int ks = 0; ks < 2 * (r + 1); ks += 2) {
-        const float* la = lp + 8 * ks;
-        const float* ka = kp + 8 * ks * kKufP;
-        uint32_t ah[8], al[8], bh[4], bl[4];
-        split_tf32(la[0], ah[0], al[0]);
-        split_tf32(la[p8], ah[1], al[1]);
-        split_tf32(la[4], ah[2], al[2]);
-        split_tf32(la[p8 + 4], ah[3], al[3]);
-        split_tf32(la[8], ah[4], al[4]);
-        split_tf32(la[p8 + 8], ah[5], al[5]);
-        split_tf32(la[12], ah[6], al[6]);
-        split_tf32(la[p8 + 12], ah[7], al[7]);
-        split_tf32(ka[0], bh[0], bl[0]);
-        split_tf32(ka[4 * kKufP], bh[1], bl[1]);
-        split_tf32(ka[8 * kKufP], bh[2], bl[2]);
-        split_tf32(ka[12 * kKufP], bh[3], bl[3]);
-        mma_tf32(s0, al[0], al[1], al[2], al[3], bh[0], bh[1]);
-        mma_tf32(s1, al[4], al[5], al[6], al[7], bh[2], bh[3]);
-        mma_tf32(d0, ah[0], ah[1], ah[2], ah[3], bh[0], bh[1]);
-        mma_tf32(d1, ah[4], ah[5], ah[6], ah[7], bh[2], bh[3]);
-        mma_tf32(s0, ah[0], ah[1], ah[2], ah[3], bl[0], bl[1]);
-        mma_tf32(s1, ah[4], ah[5], ah[6], ah[7], bl[2], bl[3]);
+    for (int r = 0; r < RU; ++r) acc[r][0] = acc[r][1] = 0.f;
+#pragma unroll 1
+    for (int kb = 0; kb < RU; ++kb) {
+      float2 kv[16];
+#pragma unroll
+      for (int kk = 0; kk < 16; ++kk)
+        kv[kk] = *reinterpret_cast<const float2*>(tile + (16 * kb + kk) * kAP + 2 * tx);
+#pragma unroll
+      for (int r = 0; r < RU; ++r) {
+        if (r < kb) continue;
+        const float* row = sm + l.linv + tri_offset(r) + ty * tri_pitch(r) + 16 * kb;
+#pragma unroll
+        for (int k4 = 0; k4 < 16; k4 += 4) {
+          const float4 lv = *reinterpret_cast<const float4*>(row + k4);
+          const float lk[4] = {lv.x, lv.y, lv.z, lv.w};
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            acc[r][0] += lk[kk] * kv[k4 + kk].x;
+            acc[r][1] += lk[kk] * kv[k4 + kk].y;
+          }
+        }
       }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][e] = (d0[e] + d1[e]) + (s0[e] + s1[e]);
     }
     {
-      const float e0 = sm[l.err + 8 * nt + 2 * ft], e1 = sm[l.err + 8 * nt + 2 * ft + 1];
+      const float e0 = sm[l.err + 2 * tx], e1 = sm[l.err + 2 * tx + 1];
 #pragma unroll
-      for (int j = 0; j < HR; ++j) {
-        vacc[j][0] += acc[j][0] * e0;
-        vacc[j][0] += acc[j][1] * e1;
-        vacc[j][1] += acc[j][2] * e0;
-        vacc[j][1] += acc[j][3] * e1;
+      for (int r = 0; r < RU; ++r) {
+        vacc[r] += acc[r][0] * e0;
+        vacc[r] += acc[r][1] * e1;
       }
     }
     __syncthreads();
 #pragma unroll
-    for (int j = 0; j < HR; ++j) {
-      const int r = static_cast<int>((rows >> (4 * j)) & 15u) - 1;
-      if (r < 0) continue;
-      float* p = tile + (16 * r + fg) * kAP + 8 * nt + 2 * ft;
-      *reinterpret_cast<float2*>(p) = make_float2(acc[j][0], acc[j][1]);
-      *reinterpret_cast<float2*>(p + 8 * kAP) = make_float2(acc[j][2], acc[j][3]);
-    }
+    for (int r = 0; r < RU; ++r)
+      *reinterpret_cast<float2*>(tile + (ty + 16 * r) * kAP + 2 * tx) =
+          make_float2(acc[r][0], acc[r][1]);
     __syncthreads();
     // ---- U += A A^T, lower blocks
 #pragma unroll 2
@@ -542,23 +476,14 @@ __global__ void __launch_bounds__(kThreads, RU >= 10 ? 1 : 2) fused_whiten_fwd_k
         if (b != u) rec[j * M + i] = qacc[q];
       }
     }
-  // v: the 4 lanes of a fragment row add theirs, then the 4 column tiles
-  // in order
+  // v: the 16 lanes of a row (bits 0-3 of the lane index are tx) add theirs
 #pragma unroll
-  for (int j = 0; j < HR; ++j) {
-    const int r = static_cast<int>((rows >> (4 * j)) & 15u) - 1;
+  for (int r = 0; r < RU; ++r) {
+    float v = vacc[r];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float v = vacc[j][h];
-      v += __shfl_xor_sync(0xffffffffu, v, 1);
-      v += __shfl_xor_sync(0xffffffffu, v, 2);
-      if (r >= 0 && ft == 0) sm[l.red + nt * MP + 16 * r + fg + 8 * h] = v;
-    }
+    for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+    if (tx == 0 && ty + 16 * r < M) rec[M * M + ty + 16 * r] = v;
   }
-  __syncthreads();
-  for (int i = tid; i < M; i += kThreads)
-    rec[M * M + i] = sm[l.red + i] + sm[l.red + MP + i] + sm[l.red + 2 * MP + i] +
-                     sm[l.red + 3 * MP + i];
 }
 
 // ------------------------------------------------------------- kernel B
