@@ -1162,7 +1162,8 @@ def _whiten_bank(name, model, dev) -> dict:
     out["grad_rel_err"] = {k: float((grads["fused"][k] - g).abs().max() / g.abs().max())
                            for k, g in grads["common"].items()}
     out["ok"] = (out["AAT_rel_err"] <= 1e-4 and out["Aerr_rel_err"] <= 1e-4
-                 and out["flat_equal"] and triu_max == 0.0 and sorted(grads["fused"]) == sorted(grads["common"])
+                 and out["flat_equal"] and triu_max == 0.0
+                 and sorted(grads["fused"]) == sorted(grads["common"])
                  and len(grads["common"]) > 0
                  and all(r <= 1e-3 for r in out["grad_rel_err"].values()))
     emit(out)
@@ -1174,9 +1175,10 @@ def phase_fused_whiten(dev, sosp_model, full_model) -> dict:
     """Kernels A and B: (a) the prototypes' inputs at the SoSp width (222
     windows, N 2001, M 112, S 3, P 5, 16 kHz); (b) the AMT width (43
     windows, 44.1 kHz, M 160, 8 pitches from C4 x 10 harmonics); (c) an
-    88-pitch dictionary (8 windows, M 160, S 88, P 20), kernel B against
-    the f32 plain version; (d) the trained 62- and 222-window SoSp banks' own bound,
-    the launches counted over (d) alone; (e) times at (a) and (b), and both
+    88-pitch dictionary (8 windows, M 160, S 88, P 20) against the f32
+    plain version (and kernel A also against the f64 one); (d) the trained
+    62- and 222-window SoSp banks' own bound, the launches counted over (d)
+    alone; (e) times at (a) and (b), and both
     kernels at each split of a window's tiles over blocks at (a), at 62
     windows of (a)'s width, and at (b)."""
     from gpitch_tpu_torch.linalg.fused_whiten import (fused_whiten, fused_whiten_bwd,
