@@ -9,7 +9,9 @@ separated by barriers: the build of Kuf's tile, A = tril(Linv) Kuf, and U
 += A A^T.  For each TREE (a checkout holding ``chip_smoke.py`` and
 ``gpitch_tpu_torch``), this copies the package into
 ``build/phase_clocks/<n>/``, inserts ``clock64()`` counters into kernel A at
-the comments that open the A and U phases, builds the copy, runs kernel A
+the comments that open the A and U phases (``// ---- A = tril(Linv) Kuf``,
+``// ---- U += A A^T, lower blocks``; a tree without them is refused),
+builds the copy, runs kernel A
 at the SoSp width (222 windows, M 112, 3 x 5) and the AMT width (43
 windows, M 160, 8 x 10), one block per window, and prints, per width, the
 median over windows of the cycles per tile that warps 0 and 4 spent from a
