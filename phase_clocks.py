@@ -11,12 +11,12 @@ separated by barriers: the build of Kuf's tile, A = tril(Linv) Kuf, and U
 ``build/phase_clocks/<n>/``, inserts ``clock64()`` counters into kernel A at
 the comments that open the A and U phases (``// ---- A = tril(Linv) Kuf``,
 ``// ---- U += A A^T, lower blocks``; a tree without them is refused),
-builds the copy, runs kernel A
-at the SoSp width (222 windows, M 112, 3 x 5) and the AMT width (43
-windows, M 160, 8 x 10), one block per window, and prints, per width, the
-median over windows of the cycles per tile that warps 0 and 4 spent from a
-tile's start to the A phase (the build and its barriers), then to the U
-phase (A, its store and their barriers), then to the tile's end.  The
+builds the copy, runs kernel A at the SoSp width (222 windows, M 112, 3 x
+5) and the AMT width (43 windows, M 160, 8 x 10), one block per window,
+and prints, per width, the median over windows of the cycles per tile that
+warps 0 and 4 spent from a tile's start to the A phase (the build and its
+barriers), then to the U phase (A, its store and their barriers), then to
+the tile's end.  The
 counters overwrite U[w, 0, :6]; nothing is checked.  A block shares its SM
 with another at M 112 (two resident blocks), so the cycles there are those
 of two blocks interleaved.  Needs a CUDA card.
@@ -32,7 +32,7 @@ import sys
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# (anchor, text inserted before it, which occurrence: 0 the first)
+# (anchor in kernel A, text inserted before it)
 _PATCHES = [
     ("  for (int tn = begin; tn < end; ++tn) {\n",
      "  long long tb = 0, ta = 0, tu = 0, c0 = 0, c1;\n"),
@@ -79,17 +79,17 @@ print(json.dumps(out))
 
 def instrument(src: str) -> str:
     """kernel A's source with the counters; raises if an anchor is missing."""
-    def insert(text, anchor, before, start=0):
-        i = text.find(anchor, start)
+    def insert(text, anchor, before):
+        i = text.find(anchor)
         if i < 0:
             raise ValueError(f"anchor not found: {anchor.strip()!r}")
-        return text[:i] + before + text[i:], i + len(before)
+        return text[:i] + before + text[i:]
 
     end_b = src.index("// ------------------------------------------------------------- kernel B")
     kernel_a = src.rindex("__global__", 0, end_b)
     head, body, tail = src[:kernel_a], src[kernel_a:end_b], src[end_b:]
     for anchor, before in _PATCHES:
-        body, _ = insert(body, anchor, before)
+        body = insert(body, anchor, before)
     i = body.index(_LOOP_TOP[0]) + len(_LOOP_TOP[0])
     body = body[:i] + _LOOP_TOP[1] + body[i:]
     k = body.rindex("}\n")
@@ -102,7 +102,6 @@ def main() -> int:
     if not trees:
         print(__doc__, file=sys.stderr)
         return 2
-    summary = {}
     for n, tree in enumerate(trees):
         dst = os.path.join(ROOT, "build", "phase_clocks", str(n))
         shutil.rmtree(dst, ignore_errors=True)
@@ -121,8 +120,8 @@ def main() -> int:
         if res.returncode != 0:
             print(res.stderr[-4000:], file=sys.stderr)
             return 1
-        summary[tree] = json.loads(res.stdout.strip().splitlines()[-1])
-        print(json.dumps({"tree": tree, "cycles_per_tile": summary[tree]}), flush=True)
+        cycles = json.loads(res.stdout.strip().splitlines()[-1])
+        print(json.dumps({"tree": tree, "cycles_per_tile": cycles}), flush=True)
     return 0
 
 
