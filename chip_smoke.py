@@ -49,10 +49,23 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               launches (none for the 88-pitch Sum of kernels);
  12. modgp    the ModGP SVGP model: the golden fixture in f64 and f32, the
               demo (N 16000, 1000 minibatch Adam steps, source RMSE) and
-              the bench workload (M 128, 2000 steps, steps/s);
- 13. profile  torch.profiler over 5 bank steps and one predict_s of 8's
-              222-window bank, 5 bank steps of 11's 10 s bank and 50 ModGP
-              steps, last because its tracing may stay attached;
+              the bench workload (M 128, 1000 steps, steps/s);
+ 13. lbfgs    one L-BFGS solver per window (the reference's optimizer):
+              (a) the first 16 windows of sosp-4s, 30 iterations in f32,
+              against the JAX package's f64 trajectories
+              (tests/torch_lbfgs_goldens.npz); (b) sosp-14s at full width
+              (222 windows), SoSp.optimize(method="lbfgs", maxiter=20),
+              predict_s and the RMSE, with the kernels' launches,
+              evaluations and host syncs per iteration; (c) amt-1s,
+              AMT.optimize(method="lbfgs", maxiter=20) and its F-measure;
+              (d) (a) again with one window made NaN on purpose;
+ 14. natgrad  natural gradients with Adam and L-BFGS on the ModGP golden
+              fixture in f32 against the goldens, and the demo trained by
+              500 minibatch natgrad_adam steps (source RMSE);
+ 15. profile  torch.profiler over 5 bank steps and one predict_s of 8's
+              222-window bank, 3 L-BFGS iterations of 13(b)'s bank, 5 bank
+              steps of 11's 10 s bank and 50 ModGP steps, last because its
+              tracing may stay attached;
 then the kernels line, the nvidia-smi line and the result line.
 Exits non-zero without printing a result when there is no CUDA device.
 """
@@ -806,7 +819,7 @@ def phase_modgp(dev) -> tuple[dict, object]:
     tests/golden_values.json (rtol 1e-9, atol 1e-12) and in f32 (the ELBO
     at rtol 2e-4); (b) the demo: 1000 minibatch-100 Adam steps at lr 0.005
     by fit_adam_timed, the source recovered on x[::4] (RMSE < 0.05);
-    (c) the bench workload (M 128, noise variance 1e-3), 2000 steps.  The
+    (c) the bench workload (M 128, noise variance 1e-3), 1000 steps.  The
     Cholesky kernel's launches are read over (b) and (c).  Returns (the
     record, the trained demo model with its data)."""
     from gpitch_tpu_torch.linalg.chol import cholesky_batched as chol
@@ -829,7 +842,7 @@ def phase_modgp(dev) -> tuple[dict, object]:
 
     chol.launches = 0
     runs = {}
-    for name, steps, kw in (("demo", 1000, {}), ("bench", 2000, {"num_inducing": 128,
+    for name, steps, kw in (("demo", 1000, {}), ("bench", 1000, {"num_inducing": 128,
                                                                   "noise": 1e-3})):
         model, x, y, truth = make_modgp_demo(dev, **kw)
         xt = torch.as_tensor(x, dtype=torch.float32, device=dev)
@@ -855,6 +868,237 @@ def phase_modgp(dev) -> tuple[dict, object]:
     assert all(r["losses_finite"] for r in runs.values())
     assert runs["demo"]["rmse_source"] < 0.05, "source recovery failed"
     return out, demo
+
+
+# ------------------------------------------------- L-BFGS and natgrad
+LBFGS_GOLDENS = os.path.join(ROOT, "tests", "torch_lbfgs_goldens.npz")
+MODGP_LBFGS_ITERS = 15
+NATGRAD = dict(num_steps=40, gamma=0.1, learning_rate=0.01, segment=10)
+
+
+def best_visited_totals(window_losses: np.ndarray) -> np.ndarray:
+    """Per step, the sum over windows of each window's lowest loss so far
+    (NaN losses never count as lower)."""
+    lw = np.where(np.isnan(window_losses), np.inf, window_losses)
+    return np.minimum.accumulate(lw, axis=1).sum(0)
+
+
+def best_totals_dev(window_losses: np.ndarray, golden: np.ndarray) -> float:
+    """The largest gap between two runs' best-visited totals, as a share of
+    the golden run's whole decrease (its totals cross zero, so a gap
+    relative to the total itself says little there)."""
+    want = best_visited_totals(golden)
+    return float(np.max(np.abs(best_visited_totals(window_losses) - want))
+                 / (want[0] - want[-1]))
+
+
+def _zero_path() -> None:
+    from gpitch_tpu_torch.linalg.chol import cholesky_batched
+    cholesky_batched.launches = 0
+    _zero_fused()
+
+
+def _path_launches() -> dict:
+    from gpitch_tpu_torch.linalg.chol import cholesky_batched
+    return {"cholesky_batched": cholesky_batched.launches, **_fused_launches()}
+
+
+def _lbfgs_counts(info, seconds: float) -> dict:
+    """An L-BFGS run's counts (``optimize_bank``'s info) per iteration and
+    per evaluation of the bank's bound and gradient, by the host clock."""
+    it = info["iterations"]
+    evals = info["trials"] + info["grad_evaluations"] + info["value_evaluations"]
+    return {"iterations": it, "evaluations": evals,
+            "evaluations_per_iteration": evals / it,
+            "syncs_per_iteration": info["syncs"] / it,
+            "trials_per_iteration": info["trials_per_iteration"],
+            "ms_per_iteration": seconds / it * 1e3,
+            "ms_per_evaluation": seconds / evals * 1e3,
+            "windows_at_initial_state": info["windows_at_initial_state"],
+            "windows_nonfinite": info["windows_nonfinite"]}
+
+
+def phase_lbfgs(dev):
+    """Per-window L-BFGS on the card, f32: (a) the first 16 windows of
+    sosp-4s for 30 iterations against the JAX package's f64 per-window
+    trajectories, loss[0] within rtol 5e-3 and the best-visited totals
+    within 3x the port's own f32 spread on the CPU (both from
+    tests/torch_lbfgs_goldens.npz); (d) the same windows with window 5's
+    first inducing point made NaN: it stays NaN and every other window
+    follows (a) (rtol 1e-6); (b) sosp-14s at full width through
+    SoSp.optimize(method="lbfgs", maxiter=20, timed=True), then predict_s
+    and the RMSE limit of the Adam path, and the launches of the Cholesky
+    kernel and kernels A and B; (c) amt-1s through AMT.optimize(
+    method="lbfgs", maxiter=20), with the windows whose best f32 value lies
+    below what any state can give, and their state's value by the plain
+    versions on the CPU and in f64 (reported, not limited; see PERF.md
+    §6).  Returns (the records, (b)'s model)."""
+    from gpitch_tpu_torch.audio.pianoroll import Pianoroll
+    from gpitch_tpu_torch.core.params import Param, map_params, take_windows, to_device
+    from gpitch_tpu_torch.pipelines.windowed_sgpr import optimize_bank
+    gold = np.load(LBFGS_GOLDENS)
+    gl = gold["sosp16_window_losses"]
+    nwin, iters = gl.shape
+    out = {}
+
+    model, _ = make_sosp(4.0, dev, torch.float32)
+    sub = take_windows(model.bank, slice(0, nwin))
+    del model
+    _zero_path()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, losses, info = optimize_bank(sub, iters, method="lbfgs", return_info=True)
+    seconds = time.perf_counter() - t0
+    spread = float(gold["port_f32_cpu_sosp16_best_dev"])
+    rec = {"phase": "lbfgs", "case": "a_sosp4s_16", "windows": nwin,
+           "loss0": float(losses[0]), "golden0": float(gl[:, 0].sum()),
+           "rel0": float(abs(losses[0] / gl[:, 0].sum() - 1)),
+           "best_final": float(best_visited_totals(info["window_losses"])[-1]),
+           "golden_best_final": float(best_visited_totals(gl)[-1]),
+           "best_dev": best_totals_dev(info["window_losses"], gl),
+           "best_dev_limit": 3 * spread, "cpu_f32_best_dev": spread,
+           "launches": _path_launches(), **_lbfgs_counts(info, seconds)}
+    emit(rec)
+    out["a"] = rec
+    assert rec["rel0"] <= 5e-3, f"L-BFGS loss[0] off the golden: {rec['rel0']}"
+    assert rec["best_dev"] <= rec["best_dev_limit"], rec
+
+    bad = take_windows(sub, slice(0, nwin))
+    with torch.no_grad():
+        bad.Z.raw[5, 0, 0] = float("nan")
+    _, _, binfo = optimize_bank(bad, iters, method="lbfgs", return_info=True)
+    keep = [i for i in range(nwin) if i != 5]
+    a_lw, b_lw = info["window_losses"][keep], binfo["window_losses"][keep]
+    rec = {"phase": "lbfgs", "case": "d_nan_window", "bad_window": 5,
+           "bad_all_nan": bool(np.isnan(binfo["window_losses"][5]).all()),
+           "others_max_rel_diff": float(np.max(np.abs(b_lw / a_lw - 1))),
+           "windows_nonfinite": binfo["windows_nonfinite"],
+           "windows_nonfinite_clean": info["windows_nonfinite"],
+           "windows_at_initial_state": binfo["windows_at_initial_state"]}
+    emit(rec)
+    out["d"] = rec
+    assert rec["bad_all_nan"] and rec["others_max_rel_diff"] <= 1e-6, rec
+    assert rec["windows_nonfinite"] == info["windows_nonfinite"] + 1, rec
+    del sub, bad
+
+    onsets = [(p, on + 4.0 * k) for k in range(4) for p, on in ONSETS
+              if on + 4.0 * k < 14.0]
+    model, sources = make_sosp(14.0, dev, torch.float32, onsets=onsets)
+    _zero_path()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses, (first_s, run_s) = model.optimize(maxiter=20, method="lbfgs", timed=True)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _path_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    best = best_visited_totals(model.opt_info["window_losses"])
+    t0 = time.perf_counter()
+    model.predict_s()
+    predict_s = time.perf_counter() - t0
+    rmse = model.compute_rmse(sources)
+    rms = float(np.mean([np.sqrt(np.mean(s ** 2)) for s in sources]))
+    rec = {"phase": "lbfgs", "case": "b_sosp14s", "windows": model.nwin,
+           "loss_first": float(losses[0]), "best_first": float(best[0]),
+           "best_last": float(best[-1]), "timed_first_s": first_s, "timed_run_s": run_s,
+           "peak_gib": peak, "predict_s_s": predict_s, "rmse": rmse,
+           "rmse_limit": 0.3 * rms, "launches": launches,
+           **_lbfgs_counts(model.opt_info, seconds)}
+    emit(rec)
+    out["b"] = rec
+    assert np.isfinite(best).all() and best[-1] < best[0], rec
+    assert np.isfinite(rmse) and rmse < rec["rmse_limit"], "separation failed"
+    assert all(n > 0 for n in launches.values()), f"a kernel never ran: {launches}"
+
+    amt, events = make_amt(1.0, dev, torch.float32)
+    _zero_path()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    amt.optimize(maxiter=20, method="lbfgs")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    amt.piano_roll = Pianoroll(fs=20, duration=1.0, notes=events)
+    p, r, f = amt.evaluate(mode="mad")
+    abest = best_visited_totals(amt.opt_info["window_losses"])
+    # no state of a window gives a loss below 0.5 N log(2 pi sigma^2) (the
+    # bound is at most log N(y | 0, Q + sigma^2 I)): a best value below it
+    # is the f32 bound broken down at that state
+    with torch.no_grad():
+        sigma2 = amt.bank.variance.value.double().cpu().numpy().reshape(-1)
+    floor = 0.5 * amt.window_size * np.log(2 * np.pi * sigma2)
+    best_w = np.nanmin(amt.opt_info["window_losses"], axis=1)
+    broken = np.flatnonzero(best_w < floor).tolist()
+    # those windows' returned state by the plain versions (f32, CPU) and in f64
+    plain, f64 = [], []
+    if broken:
+        with torch.no_grad():
+            part = take_windows(amt.bank, broken)
+            plain = to_device(part, "cpu").loss().tolist()
+            f64 = map_params(part, lambda q: Param(q.raw.detach().double(), q.transform,
+                                                   q.trainable)).loss().tolist()
+    rec = {"phase": "lbfgs", "case": "c_amt1s", "windows": amt.nwin,
+           "best_first": float(abest[0]), "best_last": float(abest[-1]),
+           "windows_below_the_exact_floor": broken, "their_best": best_w[broken].tolist(),
+           "their_floor": floor[broken].tolist(), "their_plain_f32_cpu": plain,
+           "their_f64": f64,
+           "launches": _path_launches(),
+           "mad_pianoroll": {"precision": float(p), "recall": float(r), "f": float(f)},
+           **_lbfgs_counts(amt.opt_info, seconds)}
+    emit(rec)
+    out["c"] = rec
+    assert np.isfinite(abest).all() and np.all(np.diff(abest) <= 0) and abest[-1] < abest[0], rec
+    assert np.isfinite(amt.matrix_var).all()
+    return out, model
+
+
+def phase_natgrad(dev) -> dict:
+    """ModGP's other optimizers on the card, f32: (a) the golden fixture,
+    full-batch natgrad_adam (NATGRAD) and L-BFGS (15 iterations), against
+    the JAX package's f64 trajectories (tests/torch_lbfgs_goldens.npz)
+    within 2e-4 (the fixture's f32 ELBO limit; the port's f32 spread on the
+    CPU is printed beside it); (b) the demo (N 16000, M 76) trained by 500
+    minibatch-100 natgrad_adam steps (gamma 0.1, lr 0.005, segments of
+    100): source RMSE < 0.05, skipped steps and steps/s."""
+    from gpitch_tpu_torch.models import fit_modgp
+    from gpitch_tpu_torch.models.natgrad import fit_natgrad_adam
+    gold = np.load(LBFGS_GOLDENS)
+    model, x, y = golden_modgp(torch.float32, dev)
+    _, ng = fit_natgrad_adam(model, x, y, **NATGRAD)
+    _, lb = fit_modgp(model, x, y, num_steps=MODGP_LBFGS_ITERS, method="lbfgs",
+                      minibatch_size=None)
+    run_min = np.minimum.accumulate
+    out = {"phase": "natgrad",
+           "golden_natgrad_rel": float(np.max(np.abs(ng / gold["modgp_natgrad_losses"] - 1))),
+           "cpu_f32_natgrad_rel": float(gold["port_f32_cpu_natgrad_rel"]),
+           "golden_lbfgs_min_rel": float(np.max(np.abs(
+               run_min(lb) / run_min(gold["modgp_lbfgs_losses"]) - 1))),
+           "cpu_f32_lbfgs_min_rel": float(gold["port_f32_cpu_lbfgs_min_rel"]),
+           "golden_limit": 2e-4}
+
+    model, x, y, truth = make_modgp_demo(dev)
+    xt = torch.as_tensor(x, dtype=torch.float32, device=dev)
+    yt = torch.as_tensor(y, dtype=torch.float32, device=dev)
+    steps = 500
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model, losses, info = fit_modgp(
+        model, xt, yt, num_steps=steps, method="natgrad_adam", learning_rate=0.005,
+        minibatch_size=100, segment=100, gamma=0.1,
+        generator=torch.Generator(device=dev).manual_seed(0), return_info=True)
+    seconds = time.perf_counter() - t0
+    src = model.predict_source(xt[::4]).cpu().numpy()
+    out["demo"] = {"steps": steps, "steps_per_s": steps / seconds,
+                   "ms_per_step": seconds / steps * 1e3, "n_skipped": info["n_skipped"],
+                   "adam_steps": info["adam_steps"], "returned": info["returned"],
+                   "full_loss_at_segments": info["full_loss_at_segments"],
+                   "rmse_source": float(np.sqrt(np.mean((src[:, :1] - truth[::4]) ** 2)))}
+    emit(out)
+    assert out["golden_natgrad_rel"] <= out["golden_limit"], out
+    assert out["golden_lbfgs_min_rel"] <= out["golden_limit"], out
+    assert np.isfinite(out["demo"]["rmse_source"]) and out["demo"]["rmse_source"] < 0.05, \
+        "source recovery failed"
+    return out
 
 
 # --------------------------------------------- fused whiten (kernels 3-5)
@@ -1225,7 +1469,7 @@ def phase_profile(windows) -> None:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            run()
+            counts = run()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
         rows = prof.key_averages()
@@ -1247,11 +1491,25 @@ def phase_profile(windows) -> None:
                 if name in e.key:
                     ms, n = port.get(name, (0.0, 0))
                     port[name] = (ms + _device_us(e) / 1e3, n + e.count)
-        emit({"phase": "profile", "window": what, "wall_ms": wall_us / 1e3,
-              "device_ms": device_us / 1e3, "device_busy_share": device_us / wall_us,
-              "top_ops": top(ops, 10), "top_kernels": top(kernels, 10),
-              "port_kernels": {k: {"device_ms": ms, "launches": n}
-                               for k, (ms, n) in port.items()}})
+        rec = {"phase": "profile", "window": what, "wall_ms": wall_us / 1e3,
+               "device_ms": device_us / 1e3, "device_busy_share": device_us / wall_us,
+               "top_ops": top(ops, 10), "top_kernels": top(kernels, 10),
+               "port_kernels": {k: {"device_ms": ms, "launches": n}
+                                for k, (ms, n) in port.items()}}
+        if isinstance(counts, dict) and "evaluations" in counts:
+            rec.update(counts, device_ms_per_evaluation=device_us / 1e3 / counts["evaluations"],
+                       wall_ms_per_iteration=wall_us / 1e3 / counts["iterations"])
+        emit(rec)
+
+
+def _lbfgs_window(model, iterations: int) -> dict:
+    """``iterations`` of L-BFGS on the model's bank (a fresh solver from
+    its current state) and the run's counts."""
+    model.optimize(maxiter=iterations, method="lbfgs")
+    info = model.opt_info
+    return {"iterations": info["iterations"],
+            "evaluations": info["trials"] + info["grad_evaluations"]
+            + info["value_evaluations"], "syncs": info["syncs"]}
 
 
 def _new_path_windows(dev, amt_model, svgp, x, y):
@@ -1290,9 +1548,13 @@ def main() -> int:
     amt = phase_amt(dev)
     _, amt_model = phase_amt_full(dev)
     _, (svgp, x, y) = phase_modgp(dev)
+    lbfgs, lbfgs_model = phase_lbfgs(dev)
+    phase_natgrad(dev)
     # last: the profiler's tracing may stay attached to the process
     phase_profile([("5 bank steps", lambda: full_model.optimize(maxiter=5)),
-                   ("predict_s", lambda: full_model.predict_s())]
+                   ("predict_s", lambda: full_model.predict_s()),
+                   ("3 L-BFGS iterations (222 windows)",
+                    lambda: _lbfgs_window(lbfgs_model, 3))]
                   + _new_path_windows(dev, amt_model, svgp, x, y))
 
     main_chol = next(r for r in chol["cases"] if r["kind"] == "spd"
@@ -1307,6 +1569,7 @@ def main() -> int:
          "replaces": "gpitch_tpu/linalg/pallas/chol.py:131",
          "launches": sosp["launches"]["cholesky_batched"],
          "launches_amt": amt["launches"]["cholesky_batched"],
+         "launches_lbfgs": lbfgs["b"]["launches"]["cholesky_batched"],
          "shape": main_chol["shape"],
          "max_abs_err": main_chol["max_abs_err_plain"], "ms": main_chol["kernel_ms"],
          "plain_ms": main_chol["plain_ms"], "bound_ms": main_chol["bound_ms"],
@@ -1346,6 +1609,7 @@ def main() -> int:
                         "replaces": replaces, "launches": sosp["launches"][counter],
                         "launches_sosp": sosp["launches"][counter],
                         "launches_amt": amt["launches"][counter],
+                        "launches_lbfgs": lbfgs["b"]["launches"][counter],
                         "entry_launches_in_d": whiten["launches"][name],
                         "shape": case_a["shape"], "max_abs_err": err, "ms": ms,
                         "plain_ms": plain, "bound_ms": tm[f"bound_{k}_ms"],

@@ -21,7 +21,7 @@ from ..config import numpy_dtype
 from .transforms import Identity, Transform
 
 __all__ = ["Param", "named_params", "map_params", "map_named_params", "static_field", "trainable_tensors",
-           "to_device", "take_windows", "cat_windows", "load_raw"]
+           "copy_params", "to_device", "take_windows", "cat_windows", "load_raw"]
 
 
 class Param:
@@ -48,6 +48,15 @@ class Param:
         value = np.asarray(value, dtype=numpy_dtype(dtype))
         raw = np.asarray(transform.inverse(value), dtype=value.dtype)
         return cls(torch.as_tensor(raw, device=device), transform, trainable)
+
+    @classmethod
+    def wrap(cls, raw: torch.Tensor, transform: Transform = Identity(),
+             trainable: bool = True) -> "Param":
+        """A Param over ``raw`` as it is, not detached: a raw computed from
+        other tensors, which a gradient flows back through."""
+        p = cls.__new__(cls)
+        p.raw, p.transform, p.trainable = raw, transform, trainable
+        return p
 
     @property
     def value(self) -> torch.Tensor:
@@ -106,6 +115,12 @@ def static_field(default=None, **kw):
 
 def trainable_tensors(obj) -> list[torch.Tensor]:
     return [p.raw for _, p in named_params(obj) if p.trainable]
+
+
+def copy_params(obj):
+    """A copy of the tree whose raw leaves are fresh copies."""
+    return map_params(obj, lambda p: Param(p.raw.detach().clone(), p.transform,
+                                           p.trainable))
 
 
 def to_device(obj, device):

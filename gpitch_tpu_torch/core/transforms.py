@@ -38,6 +38,11 @@ class Transform:
     def inverse(self, y: np.ndarray) -> np.ndarray:
         raise NotImplementedError
 
+    def inverse_tensor(self, y: torch.Tensor) -> torch.Tensor:
+        """``inverse`` in torch, differentiable, where a model's value is
+        computed on the device (the natural-gradient step)."""
+        raise NotImplementedError
+
 
 @dataclasses.dataclass(frozen=True)
 class Identity(Transform):
@@ -45,6 +50,9 @@ class Identity(Transform):
         return x
 
     def inverse(self, y):
+        return y
+
+    def inverse_tensor(self, y):
         return y
 
 
@@ -95,10 +103,19 @@ class FillTriangular(Transform):
         xc = torch.cat([x[..., self.n:], torch.flip(x, dims=(-1,))], dim=-1)
         return torch.tril(xc.reshape(x.shape[:-1] + (self.n, self.n)))
 
-    def inverse(self, y):
+    def _index(self):
         n = self.n
         k = np.arange(n * (n + 1) // 2)
         slots = np.concatenate([k[n:], k[::-1]]).reshape(n, n)
         ii, jj = np.tril_indices(n)
         order = np.argsort(slots[ii, jj])
-        return np.asarray(y)[..., ii[order], jj[order]]
+        return ii[order], jj[order]
+
+    def inverse(self, y):
+        ii, jj = self._index()
+        return np.asarray(y)[..., ii, jj]
+
+    def inverse_tensor(self, y):
+        ii, jj = self._index()
+        return y[..., torch.as_tensor(ii, device=y.device),
+                 torch.as_tensor(jj, device=y.device)]

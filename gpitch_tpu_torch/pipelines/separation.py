@@ -1,9 +1,10 @@
 """Source separation over overlap windows (SoSp).
 
 Counterpart of gpitch_tpu/pipelines/separation.py in its 'fft' and 'load'
-kernel modes with Adam: per-pitch kernels from the FFT of isolated notes,
-inducing points at each window's extrema, one batched window bank trained
-by Adam on the device, per-source posteriors merged by Hann overlap-add.
+kernel modes: per-pitch kernels from the FFT of isolated notes, inducing
+points at each window's extrema, one batched window bank trained on the
+device (Adam, or one L-BFGS solver per window), per-source posteriors
+merged by Hann overlap-add.
 """
 
 from __future__ import annotations
@@ -32,8 +33,9 @@ def learn_pitch_params(train_signals, names, fs, mode: str = "fft",
     'load')."""
     if mode == "train":
         raise NotImplementedError(
-            "kernel_mode='train' (sampled covariance + kernel fit) is ported "
-            "in a later slice of the PyTorch port; use 'fft' or 'load'")
+            "kernel_mode='train' (sampled covariance + kernel fit) is ROADMAP "
+            "item 14, ported in a later slice of the PyTorch port; use 'fft' "
+            "or 'load'")
     if mode == "load":
         if saved is None:
             raise ValueError("mode='load' requires saved params")
@@ -94,6 +96,7 @@ class SoSp:
         self.reg = reg
         self.bank = self._build_bank()
         self.matrix_var = None
+        self.opt_info = None
         self.esource = None
         self.mean = None
         self.var = None
@@ -119,14 +122,19 @@ class SoSp:
                                      device=self.device)
 
     def optimize(self, maxiter: int = 500, learning_rate: float = 0.01,
-                 method: str = "adam", window_chunk: int | None = None):
-        """Adam on all windows at once.  Returns the per-step total loss
-        (numpy)."""
-        self.bank, losses = optimize_bank(self.bank, num_steps=maxiter,
-                                          learning_rate=learning_rate,
-                                          method=method, window_chunk=window_chunk)
+                 method: str = "adam", timed: bool = False,
+                 window_chunk: int | None = None, mesh=None, mesh_axis: str = "w"):
+        """All windows at once (see ``optimize_bank``): ``method`` "adam", or
+        "lbfgs" (one solver per window, the reference's optimizer).
+        Returns the per-step total loss (numpy), with ``timed=True``
+        (losses, (first_s, run_s)); the run's counts are kept as
+        ``opt_info``."""
+        out = optimize_bank(self.bank, num_steps=maxiter, learning_rate=learning_rate,
+                            method=method, timed=timed, window_chunk=window_chunk,
+                            mesh=mesh, mesh_axis=mesh_axis, return_info=True)
+        self.bank, losses, self.opt_info = out[0], out[1], out[-1]
         self.matrix_var = pitch_variances(self.bank).cpu().numpy()
-        return losses
+        return (losses, out[2]) if timed else losses
 
     def predict_f(self, batch_size: int = 8):
         """Mixture posterior per window: mean, var (nw, ws) numpy."""

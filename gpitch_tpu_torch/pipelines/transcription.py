@@ -3,9 +3,10 @@
 Counterpart of gpitch_tpu/pipelines/transcription.py: per-pitch kernels
 from the FFT of isolated notes (lengthscales trainable), the test piece cut
 into windows with the targets scaled by ``y_scale`` (20), one batched
-window bank trained by Adam on the device, and the learned per-window
-per-pitch variance ``matrix_var`` as the transcription, turned into a
-pianoroll by a threshold rule and scored by the frame-level F-measure.
+window bank trained on the device (Adam, or one L-BFGS solver per window),
+and the learned per-window per-pitch variance ``matrix_var`` as the
+transcription, turned into a pianoroll by a threshold rule and scored by
+the frame-level F-measure.
 """
 
 from __future__ import annotations
@@ -106,6 +107,7 @@ class AMT:
         self.reg = reg
         self.bank = self._build_bank()
         self.matrix_var = np.zeros((len(self.pitches), self.nwin))
+        self.opt_info = None
 
     def _kern_builder(self):
         kerns = init_kern_com(len(self.pitches), self.params[0], self.params[1],
@@ -128,15 +130,18 @@ class AMT:
     def optimize(self, maxiter: int = 500, learning_rate: float = 0.01,
                  method: str = "adam", timed: bool = False,
                  window_chunk: int | None = None, mesh=None,
-                 segment: int | None = 250):
-        """Adam on all windows at once (see ``optimize_bank``).  Returns the
-        per-step total loss (numpy), with ``timed=True`` (losses, (first_s,
-        run_s))."""
+                 mesh_axis: str = "w", segment: int | None = 250):
+        """All windows at once (see ``optimize_bank``): ``method`` "adam", or
+        "lbfgs" (one solver per window, the reference's optimizer).
+        Returns the per-step total loss (numpy), with ``timed=True``
+        (losses, (first_s, run_s)); the run's counts are kept as
+        ``opt_info``."""
         out = optimize_bank(self.bank, num_steps=maxiter,
                             learning_rate=learning_rate, method=method,
                             timed=timed, segment=segment,
-                            window_chunk=window_chunk, mesh=mesh)
-        self.bank, losses = out[:2]
+                            window_chunk=window_chunk, mesh=mesh,
+                            mesh_axis=mesh_axis, return_info=True)
+        self.bank, losses, self.opt_info = out[0], out[1], out[-1]
         self.matrix_var = pitch_variances(self.bank).cpu().numpy()
         return (losses, out[2]) if timed else losses
 

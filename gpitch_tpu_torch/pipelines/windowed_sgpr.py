@@ -1,15 +1,17 @@
 """Batched windowed-SGPR engine: the compute core of separation.
 
-Counterpart of gpitch_tpu/pipelines/windowed_sgpr.py (the Adam path).  The
-window axis is an explicit leading batch axis: one SGPRSS holds every
-window's data, inducing points and free hyperparameters, its bound is one
-batched computation, and Adam updates all windows at once.  Windows are
+Counterpart of gpitch_tpu/pipelines/windowed_sgpr.py.  The window axis is
+an explicit leading batch axis: one SGPRSS holds every window's data,
+inducing points and free hyperparameters, and its bound is one batched
+computation.  Adam updates all windows at once; L-BFGS runs one
+independent solver per window, all advanced together.  Windows are
 independent, so chunking the window axis is exact.
 """
 
 from __future__ import annotations
 
 import heapq
+import time
 from typing import Callable
 
 import numpy as np
@@ -18,7 +20,8 @@ import torch
 from ..config import DEFAULT_DEVICE, resolve_device
 from ..core.params import Param, cat_windows, map_params, take_windows, to_device
 from ..kernels.base import StackedSum, Sum
-from ..models.fit import adam_segments, first_segment_excess
+from ..models._lbfgs import LbfgsStats, lbfgs_run
+from ..models.fit import ParamRows, adam_segments, first_segment_excess
 from ..models.sgpr import SGPRSS, check_on_grid
 
 __all__ = ["sum_kernel", "pad_inducing", "build_window_bank", "bank_loss",
@@ -156,41 +159,101 @@ def bank_loss(bank) -> torch.Tensor:
 def optimize_bank(bank, num_steps: int = 500, learning_rate: float = 0.01,
                   method: str = "adam", timed: bool = False,
                   segment: int | None = 250, window_chunk: int | None = None,
-                  mesh=None):
-    """Adam on every window at once; returns (the trained bank, losses) with
-    losses the per-step total over windows (numpy), and with ``timed=True``
-    (bank, losses, (first_s, run_s)).  The input bank is left unchanged.
+                  mesh=None, mesh_axis: str = "w", return_info: bool = False):
+    """Train every window of the bank; returns (the trained bank, losses)
+    with losses the per-step total over windows (numpy), with ``timed=True``
+    (bank, losses, (first_s, run_s)), and with ``return_info`` a dict of
+    the run's counts last.  The input bank is left unchanged.
 
-    ``segment``: a host fence (the losses' copy) every ``segment`` steps
-    (``None``: one at the end).  ``window_chunk``: optimize the window axis
-    in chunks of this size, one after another (exact: every leaf and Adam
-    moment is per window).  ``timed``: eager torch has no compile step, so
-    first_s is the first segment's excess over the median of all later
-    segments (of every chunk), and run_s the rest of the wall time, the
-    split the JAX package makes for its chunked runs.
+    ``method="adam"``: Adam on every window at once, a host fence (the
+    losses' copy) every ``segment`` steps (``None``: one at the end).
+    ``method="lbfgs"``: one independent L-BFGS solver per window (see
+    ``_optimize_bank_lbfgs``; ``learning_rate`` and ``segment`` do not
+    apply), the reference's per-window optimizer; the returned bank is
+    each window's best-visited state.  ``window_chunk``: optimize the
+    window axis in chunks of this size, one after another (exact: every
+    leaf and optimizer state is per window).  ``timed``: eager torch has
+    no compile step, so first_s is the first segment's excess over the
+    median of all later segments (of every chunk), and run_s the rest of
+    the wall time, the split the JAX package makes for its chunked runs.
+    ``mesh``/``mesh_axis``: window-parallel distribution, not yet ported.
     """
+    if method not in ("adam", "lbfgs"):
+        raise ValueError(f"unknown method {method!r}")
     if mesh is not None:
         raise NotImplementedError(
-            "mesh=: window-parallel distribution is ROADMAP item 14, a later "
+            "mesh=: window-parallel distribution is ROADMAP item 16, a later "
             "slice of the PyTorch port; run on one device")
-    if method != "adam":
-        raise NotImplementedError(
-            f"method={method!r}: per-window L-BFGS is ported in a later slice "
-            "of the PyTorch port; use method='adam'")
+    if method == "lbfgs":
+        bank, losses, seconds, info = _optimize_bank_lbfgs(
+            bank, num_steps, window_chunk=window_chunk)
+    else:
+        nw = bank.X.raw.shape[0]
+        chunk = nw if window_chunk is None else max(1, window_chunk)
+        banks, losses, seconds = [], np.zeros(num_steps), []
+        for c0 in range(0, nw, chunk):
+            part = bank if chunk >= nw else take_windows(bank, slice(c0, c0 + chunk))
+            part, ls, secs = adam_segments(part, bank_loss, num_steps, learning_rate,
+                                           segment=segment or num_steps)
+            banks.append(part)
+            losses += ls
+            seconds += secs
+        bank = banks[0] if len(banks) == 1 else cat_windows(banks)
+        info = {"syncs": len(seconds)}
+    out = (bank, losses) + ((first_segment_excess(seconds),) if timed else ())
+    return out + (info,) if return_info else out
+
+
+def _optimize_bank_lbfgs(bank, num_steps: int, window_chunk: int | None = None,
+                         step_segment: int = 100):
+    """One independent L-BFGS solver per window (``models._lbfgs``: optax's
+    L-BFGS and zoom linesearch batched over the window axis, each window's
+    linesearch on its own): the counterpart of the JAX package's vmapped
+    ``lbfgs_solve`` and of the reference's per-window scipy L-BFGS-B.
+
+    A window's values are ``bank.loss()``'s entry and its gradient the
+    gradient of their sum.  The solver state threads through a host fence
+    every ``step_segment`` iterations, so segments are exact, and chunks
+    of ``window_chunk`` windows are exact too.  A window whose bound goes
+    NaN at a trial (a step that makes its Kuu indefinite) turns only its
+    own values NaN; its linesearch shrinks the step, or it freezes.
+
+    Returns (bank of each window's best-visited state, losses: the
+    per-step total over windows, the wall seconds of each segment, info):
+    info holds the per-window losses (nw, num_steps), the solver's counts
+    (iterations, linesearch trials, other evaluations, host syncs, trials
+    per iteration), the windows that end at their initial state and the
+    windows that ever met a non-finite value."""
     nw = bank.X.raw.shape[0]
     chunk = nw if window_chunk is None else max(1, window_chunk)
-    banks, losses, seconds = [], np.zeros(num_steps), []
+    step_segment = max(1, min(step_segment, num_steps))
+    banks, window_losses, seconds = [], [], []
+    stats = LbfgsStats()
+    at_initial, nonfinite = 0, 0
     for c0 in range(0, nw, chunk):
         part = bank if chunk >= nw else take_windows(bank, slice(c0, c0 + chunk))
-        part, ls, secs = adam_segments(part, bank_loss, num_steps, learning_rate,
-                                       segment=segment or num_steps)
-        banks.append(part)
-        losses += ls
-        seconds += secs
+        rows = ParamRows(part, lambda b: b.loss(), batched=True)
+        w0 = w = rows.rows()
+        state = best = None
+        bad = torch.zeros(w.shape[0], dtype=torch.bool, device=w.device)
+        lw = []
+        for start in range(0, num_steps, step_segment):
+            t0 = time.perf_counter()
+            w, ls, state, best, _ = lbfgs_run(
+                rows.value_and_grad, rows.value, w, min(step_segment, num_steps - start),
+                state=state, best=best, stats=stats, nonfinite=bad)
+            lw.append(ls.cpu().numpy())                     # the host fence
+            seconds.append(time.perf_counter() - t0)
+        window_losses.append(np.concatenate(lw, axis=1))
+        banks.append(rows.model_at(best[0]))
+        at_initial += int((best[0] == w0).all(-1).sum())
+        nonfinite += int(bad.sum())
+    window_losses = np.concatenate(window_losses)
+    info = {"window_losses": window_losses,
+            "windows_at_initial_state": at_initial, "windows_nonfinite": nonfinite,
+            **vars(stats)}
     bank = banks[0] if len(banks) == 1 else cat_windows(banks)
-    if timed:
-        return bank, losses, first_segment_excess(seconds)
-    return bank, losses
+    return bank, window_losses.astype(np.float64).sum(0), seconds, info
 
 
 def _centered_windows(bank, x_windows) -> np.ndarray:

@@ -323,3 +323,48 @@ def test_cuda_bank_bound_goes_through_the_fused_pair_in_f32_only(cuda, monkeypat
     assert sorted(grads) == sorted(ref_grads)
     for k, g in ref_grads.items():
         assert _rel(grads[k], g.double()) <= 1e-3, k
+
+
+def _lbfgs_bank(cuda, dtype, nw=6, ws=401):
+    """A small stacked bank on the card (2 pitches x 2 partials, M 40)."""
+    from gpitch_tpu_torch.kernels import MercerMatern12sm
+    from gpitch_tpu_torch.pipelines import windowed_sgpr as tws
+    rng = np.random.default_rng(5)
+    fs = 16000.0
+    x = np.arange(nw * ws).reshape(nw, ws) / fs
+    y = np.sin(2 * np.pi * 330 * x) + 0.1 * rng.standard_normal(x.shape)
+    return tws.build_window_bank(x, y, x[:, ::10, None], lambda: tws.sum_kernel([
+        MercerMatern12sm.create(0.7, 0.05, [0.7, 0.3], [f, 2 * f], dtype=dtype)
+        for f in (220.0, 330.0)]), dtype=dtype, device=cuda)
+
+
+def test_cuda_bank_lbfgs_matches_the_cpu_in_f64(cuda):
+    """Per-window L-BFGS, 10 iterations, f64: the card (the Cholesky kernel
+    in f64, the unfused composition) against the CPU, per-window losses at
+    rtol 1e-8."""
+    from gpitch_tpu_torch.core.params import to_device
+    from gpitch_tpu_torch.pipelines import windowed_sgpr as tws
+    bank = _lbfgs_bank(cuda, torch.float64)
+    _, _, _, got = tws._optimize_bank_lbfgs(bank, 10)
+    _, _, _, want = tws._optimize_bank_lbfgs(to_device(bank, "cpu"), 10)
+    np.testing.assert_allclose(got["window_losses"], want["window_losses"], rtol=1e-8)
+
+
+def test_cuda_bank_lbfgs_contains_a_nan_window(cuda):
+    """f32 through the fused pair: a window with a NaN inducing point (NaN
+    Kuu into the Cholesky kernel, NaN Linv into kernels A and B) stays NaN
+    and at its initial state, nothing traps, and every other window's
+    trajectory equals the run without it."""
+    from gpitch_tpu_torch.linalg.fused_whiten import fused_whiten_bwd
+    from gpitch_tpu_torch.pipelines import windowed_sgpr as tws
+    before = fused_whiten_bwd.launches
+    _, _, _, clean = tws._optimize_bank_lbfgs(_lbfgs_bank(cuda, torch.float32), 10)
+    assert fused_whiten_bwd.launches > before
+    bad = _lbfgs_bank(cuda, torch.float32)
+    with torch.no_grad():
+        bad.Z.raw[2, 0, 0] = float("nan")
+    _, _, _, info = tws._optimize_bank_lbfgs(bad, 10)
+    keep = [0, 1, 3, 4, 5]
+    assert np.isnan(info["window_losses"][2]).all()
+    np.testing.assert_array_equal(info["window_losses"][keep], clean["window_losses"][keep])
+    assert info["windows_at_initial_state"] == clean["windows_at_initial_state"] + 1

@@ -226,8 +226,16 @@ def test_optimize_bank_window_chunks_are_exact(rng):
     for (_, a), (_, b) in zip(named_params(chunked), named_params(whole)):
         np.testing.assert_allclose(a.raw.detach().numpy(), b.raw.detach().numpy(),
                                    rtol=1e-12, atol=1e-14)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tws.optimize_bank(tb, num_steps=1, method="lbfgs")
+    # method="lbfgs" trains: one solver per window, finite and decreasing
+    # best-visited losses
+    lbfgs, ll = tws.optimize_bank(tb, num_steps=5, method="lbfgs")
+    assert np.isfinite(ll).all() and ll[-1] < ll[0]
+    best = tws.bank_loss(lbfgs).item()
+    assert np.isfinite(best) and best <= ll.min() + 1e-9 * abs(ll.min())
+    with pytest.raises(ValueError, match="unknown method"):
+        tws.optimize_bank(tb, num_steps=1, method="sgd")
+    with pytest.raises(NotImplementedError, match="item 16"):
+        tws.optimize_bank(tb, num_steps=1, mesh=object())
 
 
 def _bound_and_grads(model):

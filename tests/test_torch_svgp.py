@@ -395,9 +395,19 @@ def test_fit_modgp_trains_and_names_what_is_left():
                               generator=torch.Generator().manual_seed(0))
     assert losses.shape == (30,) and np.isfinite(losses).all()
     assert losses[-5:].mean() < losses[:5].mean()
-    for method, item in (("natgrad_adam", "item 10"), ("lbfgs", "item 11")):
-        with pytest.raises(NotImplementedError, match=item):
-            fit_modgp(model, x, y, num_steps=1, method=method)
+    # natural gradients with Adam and L-BFGS train too: finite losses and a
+    # best-visited loss below the start
+    with torch.no_grad():
+        start = model.loss(x, y).item()
+    for method, kw in (("natgrad_adam", {"segment": 5}), ("lbfgs", {})):
+        out, ls = fit_modgp(model, x, y, num_steps=10, method=method,
+                            minibatch_size=None, **kw)
+        with torch.no_grad():
+            end = out.loss(x, y).item()
+        assert np.isfinite(ls).all() and np.isfinite(end), method
+        assert end < start and end <= ls.min() + 1e-9 * abs(ls.min()), method
+    with pytest.raises(ValueError, match="unknown method"):
+        fit_modgp(model, x, y, num_steps=1, method="sgd")
 
 
 def test_modgp_entry_point_defaults_to_the_card():

@@ -163,7 +163,7 @@ def test_small_amt_timed_segments_and_chunks_are_exact(small):
                                            window_chunk=3, segment=2)
     np.testing.assert_allclose(losses, tl, rtol=1e-12)
     assert first_s >= 0.0 and run_s > 0.0
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="item 16"):
         tm.optimize(maxiter=1, mesh=object())
 
 
