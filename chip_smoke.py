@@ -62,9 +62,24 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
  14. natgrad  natural gradients with Adam and L-BFGS on the ModGP golden
               fixture in f32 against the goldens, and the demo trained by
               500 minibatch natgrad_adam steps (source RMSE);
- 15. profile  torch.profiler over 5 bank steps and one predict_s of 8's
+ 15. lag_table  (after 11) the lag-table route (one stationary table per
+              window, Kuf and Kuu gathered from it): amt-10s and amt88-2s
+              with lag_table=True, f64 bound against the direct route
+              (1e-9), the f32 difference, 2 + 10 Adam steps (ms, peak
+              memory, launches: the Cholesky kernel only); and a masked
+              sosp-4s bank (the last window's trailing half) against that
+              window cut to its valid samples (f64 1e-9), 5 Adam steps;
+ 16. kernel_train  (after 14) learn_pitch_params(mode="train") on the notes
+              of sosp-4s at full width (10000 windows of 441, 5 partials)
+              against the JAX package's f64 parameters
+              (tests/torch_kernel_learning_goldens.npz); sosp-14s from the
+              learned kernels ('load'), 20 Adam steps and predict_s, RMSE
+              and launches, beside the same run from the FFT kernels;
+ 17. profile  torch.profiler over 5 bank steps and one predict_s of 8's
               222-window bank, 3 L-BFGS iterations of 13(b)'s bank, 5 bank
-              steps of 11's 10 s bank and 50 ModGP steps, last because its
+              steps of 11's 10 s bank, 50 ModGP steps, and 5 and 1
+              lag-table bank steps of 15's amt-10s and amt88-2s banks (the
+              gather and its scatter-add backward by op), last because its
               tracing may stay attached;
 then the kernels line, the nvidia-smi line and the result line.
 Exits non-zero without printing a result when there is no CUDA device.
@@ -145,15 +160,23 @@ def _f0(midi: int) -> float:
     return 440.0 * 2.0 ** ((midi - 69) / 12.0)
 
 
-def make_sosp(seconds: float, device, dtype, onsets=ONSETS, max_par=5,
-              num_inducing=112, note_seconds=2.0):
-    """The separation workload of tests_tpu/workloads.make_sosp: piano-like
-    notes (seeded by pitch) at the given onsets.  Returns (model, sources)."""
+def sosp_notes(note_seconds=2.0) -> dict:
+    """The isolated notes of the separation workload: C4, E4 and G4 as
+    ``synth_piano_note`` seeded by MIDI number, at 16 kHz."""
     from gpitch_tpu_torch.audio.io import synth_piano_note
+    return {p: synth_piano_note(fs=FS, seconds=note_seconds, f0=_f0(p), seed=p)[1][:, 0]
+            for p in PITCHES}
+
+
+def make_sosp(seconds: float, device, dtype, onsets=ONSETS, max_par=5,
+              num_inducing=112, note_seconds=2.0, kernel_mode="fft", saved_params=None):
+    """The separation workload of tests_tpu/workloads.make_sosp: piano-like
+    notes (seeded by pitch) at the given onsets; the pitch kernels from the
+    notes' FFT, or with ``kernel_mode="load"`` from ``saved_params``.
+    Returns (model, sources)."""
     from gpitch_tpu_torch.pipelines import SoSp
     n = int(FS * seconds)
-    notes = {p: synth_piano_note(fs=FS, seconds=note_seconds, f0=_f0(p), seed=p)[1][:, 0]
-             for p in PITCHES}
+    notes = sosp_notes(note_seconds)
     sources = {p: np.zeros(n) for p in PITCHES}
     for p, on in onsets:
         i0 = int(on * FS)
@@ -163,9 +186,9 @@ def make_sosp(seconds: float, device, dtype, onsets=ONSETS, max_par=5,
     x = (np.arange(n) / FS).reshape(-1, 1)
     model = SoSp(train_signals=[notes[p] for p in PITCHES],
                  train_names=[f"piano_M{p}_train.wav" for p in PITCHES],
-                 fs=FS, mixture=(x, mix), window_size=2001, kernel_mode="fft",
+                 fs=FS, mixture=(x, mix), window_size=2001, kernel_mode=kernel_mode,
                  max_par=max_par, num_inducing=num_inducing, dec=2,
-                 device=device, dtype=dtype)
+                 saved_params=saved_params, device=device, dtype=dtype)
     return model, [sources[p] for p in PITCHES]
 
 
@@ -766,7 +789,7 @@ def phase_amt_full(dev):
     """The AMT bank at full width: 10 s (439 windows) with the 8 sounding
     pitches x 10 partials in windows of 64, and the 88-pitch dictionary
     (MIDI 21-108, 8 partials, the L1 penalty on) on 2 s in windows of 16.
-    Returns (the records, the 10 s model)."""
+    Returns (the records, the 10 s model, the 88-pitch model)."""
     out = {}
     t0 = time.perf_counter()
     model, _ = make_amt(10.0, dev, torch.float32)
@@ -779,9 +802,8 @@ def phase_amt_full(dev):
     build_s = time.perf_counter() - t0
     out["piano88"] = _amt_bank_steps("piano88_2s", piano, 16)
     out["piano88"]["build_s"] = build_s
-    del piano
     torch.cuda.empty_cache()
-    return out, model
+    return out, model, piano
 
 
 # ------------------------------------------------------------ ModGP (SVGP)
@@ -868,6 +890,268 @@ def phase_modgp(dev) -> tuple[dict, object]:
     assert all(r["losses_finite"] for r in runs.values())
     assert runs["demo"]["rmse_source"] < 0.05, "source recovery failed"
     return out, demo
+
+
+# ------------------------------------------------- kernel learning
+KL_GOLDENS = os.path.join(ROOT, "tests", "torch_kernel_learning_goldens.npz")
+KL_TRAIN = dict(num_sam=10000, covsize=441, max_par=5)     # 250 L-BFGS steps
+
+
+def learned_kernels(device, dtype, timings=None):
+    """``learn_pitch_params(mode="train")`` on the notes of sosp-4s at full
+    width (KL_TRAIN).  Returns (params, the sampled kernels (covsize,)
+    each, the fit RMSE of each pitch)."""
+    from gpitch_tpu_torch.pipelines.kernel_learning import approximate_kernel
+    from gpitch_tpu_torch.pipelines.separation import learn_pitch_params
+    notes = sosp_notes()
+    params, (_, sk) = learn_pitch_params(
+        [notes[p] for p in PITCHES], [f"piano_M{p}_train.wav" for p in PITCHES], FS,
+        mode="train", timings=timings, device=device, dtype=dtype, **KL_TRAIN)
+    n = KL_TRAIN["covsize"]
+    x = np.linspace(0.0, (n - 1.0) / FS, n)
+    rmse = []
+    for i, kern in enumerate(sk):
+        p = np.hstack([[0.0, float(params[0][i])], params[1][i], params[2][i]])
+        fitted = approximate_kernel(torch.as_tensor(p, dtype=torch.float64), x).numpy()
+        rmse.append(float(np.sqrt(np.mean((fitted - kern[:, 0]) ** 2))))
+    return params, [k[:, 0] for k in sk], rmse
+
+
+def learned_deviation(params, golden) -> dict:
+    """Per quantity (lengthscale, energy, frequency), the largest deviation
+    over the pitches of ``params`` from the golden ones, each as a share of
+    the golden quantity's largest |value| for that pitch."""
+    out = {}
+    for k, name in enumerate(("lengthscale", "energy", "frequency")):
+        out[name] = max(float(np.max(np.abs(np.asarray(a, float) - g)) / np.max(np.abs(g)))
+                        for a, g in zip(params[k], golden[name]))
+    return out
+
+
+def _all_launches() -> dict:
+    """The Cholesky and specmix kernels' and the fused pair's launches since
+    the last ``_zero_all``."""
+    from gpitch_tpu_torch.linalg.specmix import specmix_matrix
+    return {**_path_launches(), "specmix_matrix": specmix_matrix.launches}
+
+
+def _zero_all() -> None:
+    from gpitch_tpu_torch.linalg.specmix import specmix_matrix
+    specmix_matrix.launches = 0
+    _zero_path()
+
+
+def _sosp14s(dev, **kw):
+    onsets = [(p, on + 4.0 * k) for k in range(4) for p, on in ONSETS
+              if on + 4.0 * k < 14.0]
+    return make_sosp(14.0, dev, torch.float32, onsets=onsets, **kw)
+
+
+def _steps_then_sources(model, sources, steps: int) -> dict:
+    """``steps`` Adam steps, then predict_s and the separation RMSE."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = model.optimize(maxiter=steps, learning_rate=0.01)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / steps * 1e3
+    t0 = time.perf_counter()
+    model.predict_s()
+    predict_s = time.perf_counter() - t0
+    return {"ms_per_bank_step": step_ms, "predict_s_s": predict_s,
+            "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+            "losses_finite": bool(np.isfinite(losses).all()),
+            "rmse": model.compute_rmse(sources)}
+
+
+def phase_kernel_train(dev):
+    """Kernel learning on the card, f32: learn_pitch_params(mode="train")
+    on the three notes of sosp-4s at full width (KL_TRAIN: 10000 sampled
+    windows of 441, 5 partials, 250 L-BFGS steps), held against the JAX
+    package's f64 parameters within 3x the port's own f32 deviation on the
+    CPU (tests/torch_kernel_learning_goldens.npz); then sosp-14s (222
+    windows) with kernel_mode="load" from the learned parameters, 20 Adam
+    steps and predict_s (the launches of the Cholesky kernel, kernels A and
+    B and specmix over the build, the steps and the prediction; peak
+    memory; RMSE < 0.3 x mean source RMS), and the same run from the FFT
+    kernels beside it."""
+    gold = np.load(KL_GOLDENS)
+    timings = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, _, rmse = learned_kernels(dev, torch.float32, timings)
+    learn_s = time.perf_counter() - t0
+    dev_ = learned_deviation(params, gold)
+    limits = {k: 3 * float(gold[f"port_f32_cpu_dev_{k}"]) for k in dev_}
+    pitches = [{"midi": p, "sample_cov_s": timings["sample_cov"][i],
+                "fit_s": timings["fit"][i], "lengthscale": float(params[0][i]),
+                "energy": np.asarray(params[1][i], float).tolist(),
+                "frequency": np.asarray(params[2][i], float).tolist(),
+                "fit_rmse": rmse[i], "golden_fit_rmse": float(gold["rmse"][i])}
+               for i, p in enumerate(PITCHES)]
+    out = {"phase": "kernel_train", "case": "learn", "learn_s": learn_s,
+           "pitches": pitches, "deviation": dev_, "limit": limits,
+           "cpu_f32_fit_rmse_rel": float(gold["port_f32_cpu_rmse_rel"]),
+           "fit_rmse_rel": float(np.max(np.abs(np.asarray(rmse) / gold["rmse"] - 1)))}
+    emit(out)
+    assert all(dev_[k] <= limits[k] for k in dev_), out
+
+    runs = {}
+    for mode in ("load", "fft"):
+        _zero_all()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, sources = _sosp14s(dev, kernel_mode=mode, saved_params=params)
+        torch.cuda.synchronize()
+        rec = {"build_s": time.perf_counter() - t0, "windows": model.nwin,
+               **_steps_then_sources(model, sources, 20),
+               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "launches": _all_launches()}
+        runs[mode] = rec
+        del model
+    rms = float(np.mean([np.sqrt(np.mean(s ** 2)) for s in sources]))
+    rec = {"phase": "kernel_train", "case": "sosp14s",
+           "learned": runs["load"], "fft": runs["fft"], "rmse_limit": 0.3 * rms}
+    emit(rec)
+    learned = runs["load"]
+    assert learned["losses_finite"] and np.isfinite(learned["rmse"]), rec
+    assert learned["rmse"] < rec["rmse_limit"], "separation from learned kernels failed"
+    assert all(n > 0 for n in learned["launches"].values()), f"a kernel never ran: {rec}"
+    return {"learn": out, "sosp14s": rec}
+
+
+def _rebuild_bank(model, dtype, windows=slice(None), samples=slice(None), **kw):
+    """The bank of a SoSp or AMT ``model`` built anew from its windows
+    (``windows``, cut to ``samples``), inducing points and kernel
+    parameters, in ``dtype``, with ``kw`` (``lag_table``, ``masks``)
+    passed to build_window_bank."""
+    from gpitch_tpu_torch.pipelines.windowed_sgpr import build_window_bank
+    saved, model.dtype = model.dtype, dtype
+    try:
+        return build_window_bank(model.xw[windows, samples], model.yw[windows, samples],
+                                 model.z[windows], model._kern_builder, reg=model.reg,
+                                 y_scale=getattr(model, "y_scale", 1.0),
+                                 grid_dt=model.grid_dt, dtype=dtype, device=model.device,
+                                 **kw)
+    finally:
+        model.dtype = saved
+
+
+@torch.no_grad()
+def _window_losses(bank, chunk: int) -> np.ndarray:
+    """The per-window losses of a bank, ``chunk`` windows at a time."""
+    from gpitch_tpu_torch.core.params import take_windows
+    nw = bank.X.raw.shape[0]
+    return np.concatenate([take_windows(bank, slice(c0, c0 + chunk)).loss().cpu().numpy()
+                           for c0 in range(0, nw, chunk)]).astype(np.float64)
+
+
+def _bank_rel(a: np.ndarray, b: np.ndarray) -> float:
+    return float(np.max(np.abs(a / b - 1)))
+
+
+def _table_case(name, model, direct_rec, window_chunk) -> tuple[dict, object]:
+    """One bank on the lag-table route against its direct route: the f64
+    bound (table against direct, 1e-9), the f32 bound's difference, and 2 +
+    10 Adam steps of the f32 table bank (ms a step, peak memory, the
+    kernels' launches), beside the direct route's steps in ``direct_rec``
+    (phase amt_full, this process).  Returns (the record, the table bank)."""
+    from gpitch_tpu_torch.pipelines.windowed_sgpr import optimize_bank
+    f64 = {}
+    for table in (True, False):
+        bank = _rebuild_bank(model, torch.float64, lag_table=table)
+        f64[table] = _window_losses(bank, window_chunk)
+        del bank
+    f32 = {table: _rebuild_bank(model, torch.float32, lag_table=table)
+           for table in (True, False)}
+    loss32 = {table: _window_losses(b, window_chunk) for table, b in f32.items()}
+    bank = f32[True]
+    del f32
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    bank, _ = optimize_bank(bank, 2, 0.01, window_chunk=window_chunk)
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    _zero_all()
+    t0 = time.perf_counter()
+    bank, losses = optimize_bank(bank, 10, 0.01, window_chunk=window_chunk)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rec = {"phase": "lag_table", "case": name, "windows": model.nwin,
+           "pitches": len(getattr(model, "pitches", PITCHES)), "M": int(model.z.shape[1]),
+           "num_lags": bank.num_lags, "window_chunk": window_chunk,
+           "fused_eligible": bank.fused_eligible(),
+           "f64_table_vs_direct_rel": _bank_rel(f64[True], f64[False]),
+           "f32_table_vs_direct_rel": _bank_rel(loss32[True], loss32[False]),
+           "f32_table_vs_f64_rel": _bank_rel(loss32[True], f64[False]),
+           "f32_direct_vs_f64_rel": _bank_rel(loss32[False], f64[False]),
+           "warmup_2_steps_s": warmup_s, "ms_per_bank_step": wall / 10 * 1e3,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "losses_finite": bool(np.isfinite(losses).all()),
+           "launches_in_10_steps": _all_launches(),
+           "direct": {k: direct_rec[k] for k in ("ms_per_bank_step", "peak_gib", "fused",
+                                                  "launches_in_10_steps")}}
+    emit(rec)
+    assert rec["f64_table_vs_direct_rel"] <= 1e-9, rec
+    assert rec["losses_finite"] and not rec["fused_eligible"], rec
+    launches = rec["launches_in_10_steps"]
+    assert launches["cholesky_batched"] > 0 and launches["fused_whiten"] == 0 \
+        and launches["fused_whiten_bwd"] == 0, rec
+    return rec, bank
+
+
+def phase_lag_table(dev, amt_model, amt_rec, piano, piano_rec) -> tuple[dict, tuple]:
+    """The lag-table route on the card: (a) amt-10s (439 windows in chunks
+    of 64, M 160, 8 x 10) and (b) amt88-2s (87 windows in chunks of 16, a
+    Sum of 88 kernels) built with lag_table=True, against the same banks
+    on their direct route (fused at amt-10s, unfused for the Sum); (c) a
+    masked bank: sosp-4s with the last window's trailing half masked, its
+    bound against the same window cut to its valid samples (f64 within
+    1e-9; f32 reported), through the unfused route and the Cholesky
+    kernel, and 5 Adam steps of it.  Returns (the records, (a)'s and (b)'s
+    f32 table banks after their steps)."""
+    from gpitch_tpu_torch.pipelines.windowed_sgpr import optimize_bank
+    out = {}
+    launches = {"cholesky_batched": 0, "fused_whiten": 0, "fused_whiten_bwd": 0,
+                "specmix_matrix": 0}
+    out["a"], table_bank = _table_case("a_amt10s", amt_model, amt_rec, 64)
+    out["b"], table88 = _table_case("b_amt88_2s", piano, piano_rec, 16)
+    for rec in (out["a"], out["b"]):
+        for k, n in rec["launches_in_10_steps"].items():
+            launches[k] += n
+    torch.cuda.empty_cache()
+
+    model, _ = make_sosp(4.0, dev, torch.float32)
+    ws = model.window_size
+    valid = ws // 2 + 1
+    masks = np.ones(model.xw.shape)
+    masks[-1, valid:] = 0.0
+    last = slice(model.nwin - 1, model.nwin)
+    rel = {}
+    for dtype in (torch.float64, torch.float32):
+        masked = _rebuild_bank(model, dtype, masks=masks)
+        cut = _rebuild_bank(model, dtype, windows=last, samples=slice(0, valid))
+        rel[str(dtype)] = float(_window_losses(masked, 64)[-1] / _window_losses(cut, 1)[0] - 1)
+    _zero_all()
+    masked, losses = optimize_bank(masked, 5, 0.01)
+    torch.cuda.synchronize()
+    rec = {"phase": "lag_table", "case": "c_masked_sosp4s", "windows": model.nwin,
+           "valid_in_last": valid, "fused_eligible": masked.fused_eligible(),
+           "f64_masked_vs_cut_rel": rel["torch.float64"],
+           "f32_masked_vs_cut_rel": rel["torch.float32"],
+           "losses_finite": bool(np.isfinite(losses).all()),
+           "launches_in_5_steps": _all_launches()}
+    emit(rec)
+    out["c"] = rec
+    assert abs(rec["f64_masked_vs_cut_rel"]) <= 1e-9, rec
+    assert rec["losses_finite"] and not rec["fused_eligible"], rec
+    ml = rec["launches_in_5_steps"]
+    assert ml["cholesky_batched"] > 0 and ml["fused_whiten"] == ml["fused_whiten_bwd"] == 0, rec
+    for k, n in ml.items():
+        launches[k] += n
+    out["launches"] = launches
+    return out, (table_bank, table88)
 
 
 # ------------------------------------------------- L-BFGS and natgrad
@@ -1491,15 +1775,24 @@ def phase_profile(windows) -> None:
                 if name in e.key:
                     ms, n = port.get(name, (0.0, 0))
                     port[name] = (ms + _device_us(e) / 1e3, n + e.count)
+        # the lag table's gather and its backward (a scatter-add), by op
+        gather = {e.key: {"device_ms": _device_us(e) / 1e3, "calls": e.count}
+                  for e in ops if e.key in ("aten::gather", "aten::scatter_add_")}
         rec = {"phase": "profile", "window": what, "wall_ms": wall_us / 1e3,
                "device_ms": device_us / 1e3, "device_busy_share": device_us / wall_us,
                "top_ops": top(ops, 10), "top_kernels": top(kernels, 10),
                "port_kernels": {k: {"device_ms": ms, "launches": n}
-                                for k, (ms, n) in port.items()}}
+                                for k, (ms, n) in port.items()},
+               "gather_ops": gather}
         if isinstance(counts, dict) and "evaluations" in counts:
             rec.update(counts, device_ms_per_evaluation=device_us / 1e3 / counts["evaluations"],
                        wall_ms_per_iteration=wall_us / 1e3 / counts["iterations"])
         emit(rec)
+
+
+def _table_steps(bank, steps: int, window_chunk: int) -> None:
+    from gpitch_tpu_torch.pipelines.windowed_sgpr import optimize_bank
+    optimize_bank(bank, steps, 0.01, window_chunk=window_chunk)
 
 
 def _lbfgs_window(model, iterations: int) -> dict:
@@ -1546,16 +1839,25 @@ def main() -> int:
     del sosp_model
     torch.cuda.empty_cache()
     amt = phase_amt(dev)
-    _, amt_model = phase_amt_full(dev)
+    amt_full, amt_model, piano = phase_amt_full(dev)
+    lag, (table_bank, table88) = phase_lag_table(dev, amt_model, amt_full["sounding"],
+                                                 piano, amt_full["piano88"])
+    del piano
+    torch.cuda.empty_cache()
     _, (svgp, x, y) = phase_modgp(dev)
     lbfgs, lbfgs_model = phase_lbfgs(dev)
     phase_natgrad(dev)
+    train = phase_kernel_train(dev)
     # last: the profiler's tracing may stay attached to the process
     phase_profile([("5 bank steps", lambda: full_model.optimize(maxiter=5)),
                    ("predict_s", lambda: full_model.predict_s()),
                    ("3 L-BFGS iterations (222 windows)",
                     lambda: _lbfgs_window(lbfgs_model, 3))]
-                  + _new_path_windows(dev, amt_model, svgp, x, y))
+                  + _new_path_windows(dev, amt_model, svgp, x, y)
+                  + [("5 lag-table bank steps (amt-10s, 439 windows)",
+                      lambda: _table_steps(table_bank, 5, 64)),
+                     ("1 lag-table bank step (amt88-2s, 87 windows)",
+                      lambda: _table_steps(table88, 1, 16))])
 
     main_chol = next(r for r in chol["cases"] if r["kind"] == "spd"
                      and r["shape"] == [sosp["windows"], 112, 112]
@@ -1570,6 +1872,8 @@ def main() -> int:
          "launches": sosp["launches"]["cholesky_batched"],
          "launches_amt": amt["launches"]["cholesky_batched"],
          "launches_lbfgs": lbfgs["b"]["launches"]["cholesky_batched"],
+         "launches_train": train["sosp14s"]["learned"]["launches"]["cholesky_batched"],
+         "launches_lag": lag["launches"]["cholesky_batched"],
          "shape": main_chol["shape"],
          "max_abs_err": main_chol["max_abs_err_plain"], "ms": main_chol["kernel_ms"],
          "plain_ms": main_chol["plain_ms"], "bound_ms": main_chol["bound_ms"],
@@ -1579,6 +1883,8 @@ def main() -> int:
          "source": "gpitch_tpu_torch/csrc/specmix.cu",
          "replaces": "gpitch_tpu/linalg/pallas/specmix.py:49",
          "launches": sosp["launches"]["specmix_matrix"],
+         "launches_train": train["sosp14s"]["learned"]["launches"]["specmix_matrix"],
+         "launches_lag": lag["launches"]["specmix_matrix"],
          "shape": main_spec["shape"],
          "max_abs_err": main_spec["max_abs_err"], "ms": main_spec["kernel_ms"],
          "plain_ms": main_spec["plain_ms"], "bound_ms": main_spec["bound_ms"],
@@ -1610,6 +1916,8 @@ def main() -> int:
                         "launches_sosp": sosp["launches"][counter],
                         "launches_amt": amt["launches"][counter],
                         "launches_lbfgs": lbfgs["b"]["launches"][counter],
+                        "launches_train": train["sosp14s"]["learned"]["launches"][counter],
+                        "launches_lag": lag["launches"][counter],
                         "entry_launches_in_d": whiten["launches"][name],
                         "shape": case_a["shape"], "max_abs_err": err, "ms": ms,
                         "plain_ms": plain, "bound_ms": tm[f"bound_{k}_ms"],

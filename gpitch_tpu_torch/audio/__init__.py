@@ -1,4 +1,7 @@
-from .io import read_wav, synth_piano_note  # noqa: F401
+from .io import Audio, read_wav, readaudio, synth_piano_note, synth_tone  # noqa: F401
 from .pianoroll import Pianoroll, read_note_table  # noqa: F401
-from .spectrum import init_cparam  # noqa: F401
-from .windowing import merged_mean, merged_variance, window_stack  # noqa: F401
+from .spectrum import get_features, init_cparam, peak_indexes  # noqa: F401
+from .windowing import (augmentate, get_results_arrays, get_results_arrays_noov,  # noqa: F401
+                        hann, merged_mean, merged_variance, merged_x, merged_y,
+                        num_windows, ola_weights, overlap_add, segmented,
+                        trim_n_merge, window_stack, windowed)

@@ -1,6 +1,6 @@
-"""Audio input and the synthetic piano note (host numpy).
+"""Audio input, test signals and the windowed audio container (host numpy).
 
-A copy of gpitch_tpu/audio/io.py's ``read_wav`` and ``synth_piano_note``.
+A copy of gpitch_tpu/audio/io.py.
 """
 
 from __future__ import annotations
@@ -9,7 +9,9 @@ import os
 
 import numpy as np
 
-__all__ = ["read_wav", "synth_piano_note"]
+from .windowing import segmented, windowed
+
+__all__ = ["read_wav", "readaudio", "Audio", "synth_tone", "synth_piano_note"]
 
 _PCM_SCALE = {np.dtype(np.int16): 32768.0, np.dtype(np.int32): 2147483648.0,
               np.dtype(np.uint8): 128.0}
@@ -35,6 +37,34 @@ def read_wav(path):
     return data, fs
 
 
+def readaudio(fname, frames=-1, start=0, aug=False, scaled=False):
+    """(x, y, fs): a mono column vector from ``start`` for ``frames``
+    samples, optionally peak-normalized and left-padded with 1000 zeros,
+    and its time vector."""
+    y, fs = read_wav(fname)
+    if y.ndim == 2:
+        y = y.mean(axis=1)
+    y = y.reshape(-1, 1)
+    if start:
+        y = y[start:]
+    if frames is not None and frames > 0:
+        y = y[:frames]
+    if scaled:
+        beta = np.max(np.abs(y))
+        y = y / (beta if beta != 0.0 else 1.0)
+    if aug:
+        y = np.concatenate([np.zeros((1000, 1)), y], axis=0)
+    n = y.shape[0]
+    return np.linspace(0.0, (n - 1.0) / fs, n).reshape(-1, 1), y, fs
+
+
+def synth_tone(fs=16000, seconds=1.0, freq=440.0):
+    """(x, cos(2 pi freq x)) column vectors of fs * seconds samples."""
+    n = int(round(fs * seconds))
+    x = np.linspace(0.0, (n - 1.0) / fs, n).reshape(-1, 1)
+    return x, np.cos(2.0 * np.pi * freq * x)
+
+
 def synth_piano_note(fs=16000, seconds=2.0, f0=261.626, onset=0.0,
                      num_partials=8, inharmonicity=3e-4, noise=3e-4, seed=0):
     """Piano-like isolated note: inharmonic decaying partials under a
@@ -57,3 +87,31 @@ def synth_piano_note(fs=16000, seconds=2.0, f0=261.626, onset=0.0,
     if noise:
         y = y + noise * rng.standard_normal(n)
     return t.reshape(-1, 1), y.reshape(-1, 1)
+
+
+class Audio:
+    """A recording (or, without ``path``, a 1 s 440 Hz tone at 16 kHz) and
+    its windows ``X``, ``Y``: lists of (ws, 1) arrays, 50%-overlap frames
+    when ``overlap`` else disjoint segments."""
+
+    def __init__(self, path=None, filename=None, frames=-1, start=0, scaled=False,
+                 window_size=None, overlap=True, aug=False):
+        self.path = path
+        if path is None:
+            self.name = "unnamed"
+            self.fs = 16000
+            self.x, self.y = synth_tone(self.fs, 1.0, 440.0)
+        else:
+            self.read(filename=filename, frames=frames, start=start, scaled=scaled,
+                      aug=aug)
+        self.wsize = window_size if window_size is not None else self.x.shape[0]
+        self.X, self.Y = self.windowed(overlap)
+
+    def read(self, filename, frames=-1, start=0, scaled=False, aug=False):
+        self.name = filename
+        self.x, self.y, self.fs = readaudio((self.path or "") + filename, frames=frames,
+                                            start=start, scaled=scaled, aug=aug)
+
+    def windowed(self, overlap=True):
+        self.X, self.Y = (windowed if overlap else segmented)(self.x, self.y, self.wsize)
+        return self.X, self.Y

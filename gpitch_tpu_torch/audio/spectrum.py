@@ -1,14 +1,14 @@
 """FFT peak picking for the kernel initialization (host numpy).
 
-A copy of gpitch_tpu/audio/spectrum.py's ``peak_indexes`` and
-``init_cparam``.
+A copy of gpitch_tpu/audio/spectrum.py: ``peak_indexes``, ``init_cparam``
+and ``get_features``.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["peak_indexes", "init_cparam"]
+__all__ = ["peak_indexes", "init_cparam", "get_features"]
 
 
 def peak_indexes(y, thres: float = 0.3, min_dist: int = 1):
@@ -67,3 +67,26 @@ def init_cparam(y, fs, maxh: int, ideal_f0: float, scaled: bool = True,
         energies = energies / np.sum(energies)
     order = np.argsort(freqs)
     return [freqs[order], energies[order], F, S, thres_abs]
+
+
+def get_features(f, s, f_centers=None, nfpc: int = 1, use_centers: bool = True,
+                 totalnumf: int = 10):
+    """Kernel features from an FFT (frequencies f, magnitudes s): ``nfpc``
+    bins around each harmonic center, or the global top ``totalnumf`` bins.
+    Returns (frequency, energy), energies normalized to sum 1."""
+    f = np.asarray(f).reshape(-1)
+    s = np.asarray(s).reshape(-1)
+    if use_centers:
+        freq_l, var_l = [], []
+        for fc in np.asarray(f_centers).reshape(-1):
+            idx = int(np.argmin(np.abs(f - fc)))
+            sl = (slice(idx, idx + 1) if nfpc == 1
+                  else slice(max(idx - nfpc // 2, 0), idx + nfpc // 2))
+            freq_l.append(f[sl])
+            var_l.append(s[sl])
+        frequency = np.concatenate(freq_l)
+        energy = np.concatenate(var_l)
+        return frequency, energy / np.sum(energy)
+    idx = np.argsort(s)[::-1][:totalnumf]
+    energy = s[idx].copy()
+    return f[idx].copy(), energy / np.sum(energy)

@@ -1,4 +1,8 @@
-from .base import Kernel, StackedSum, Sum, absdist, stack_modules  # noqa: F401
-from .spectral import Matern12sm, MercerMatern12sm, cos_mixture, cosine_features  # noqa: F401
+from .base import (Constant, Kernel, Product, StackedSum, Sum, White, absdist,  # noqa: F401
+                   euclid_dist, sqdist, stack_modules, unstack_modules)
+from .feature import Env, Hann, KernelGPR, MeanGP, NonParam, Sig  # noqa: F401
+from .spectral import (Matern12sm, Matern32sm, Matern32smOld, Matern32sml,  # noqa: F401
+                       MercerCosMix, MercerMatern12sm, Spectrum, Spectrum2,
+                       cos_mixture, cos_mixture_r, cosine_features)
 from .stationary import (RBF, Cosine, Gammaexponential, LogisticHat, Matern12,  # noqa: F401
                          Matern32, Matern52, Stationary)

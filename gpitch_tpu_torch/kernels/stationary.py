@@ -7,6 +7,8 @@ stacked bank of S kernels has (S,) leaves) that broadcast against the
 leading axes of X (..., N, 1):
 
     K(X, X2=None) -> (..., N, M)        Kdiag(X) -> (..., N)
+
+and ``k_r(r)`` takes distances r (..., L) (see kernels/base.py).
 """
 
 from __future__ import annotations
@@ -30,6 +32,11 @@ def _bcast(p: torch.Tensor) -> torch.Tensor:
     return p[..., None, None]
 
 
+def _on_distances(fn, r: torch.Tensor) -> torch.Tensor:
+    """``fn``, written for (..., N, M) distances, at distances r (..., L)."""
+    return fn(r[..., None])[..., 0]
+
+
 @dataclasses.dataclass
 class Stationary(Kernel):
     """Positive variance and lengthscales; k(x, x') = variance *
@@ -50,12 +57,13 @@ class Stationary(Kernel):
     def K(self, X, X2=None):
         return self._k_scaled(self._r(X, X2))
 
-    def K_fwd(self, X, X2=None):
-        return self.K(X, X2)
-
     def Kdiag(self, X):
         return self.variance.value[..., None] * torch.ones(
             X.shape[:-1], dtype=X.dtype, device=X.device)
+
+    def k_r(self, r):
+        return _on_distances(lambda d: self._k_scaled(
+            d / _bcast(self.lengthscales.value)), r)
 
     def _k_scaled(self, r):
         raise NotImplementedError
@@ -102,16 +110,16 @@ class Cosine(Kernel):
                    frequency=Param.create(frequency, Positive(), dtype=dtype))
 
     def K(self, X, X2=None):
-        return self.k_r(absdist(X, X2))
-
-    def K_fwd(self, X, X2=None):
-        return self.K(X, X2)
+        return self._cos(absdist(X, X2))
 
     def Kdiag(self, X):
         return self.variance.value[..., None] * torch.ones(
             X.shape[:-1], dtype=X.dtype, device=X.device)
 
     def k_r(self, r):
+        return _on_distances(self._cos, r)
+
+    def _cos(self, r):
         return _bcast(self.variance.value) * torch.cos(
             2.0 * math.pi * _bcast(self.frequency.value) * r)
 

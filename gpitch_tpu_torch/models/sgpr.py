@@ -1,11 +1,12 @@
-"""Collapsed sparse GP regression (Titsias bound) and the source-separation
-variant SGPRSS.
+"""Dense GP regression (GPR), the collapsed sparse GP regression bound
+(SGPR, Titsias) and the source-separation variant SGPRSS.
 
-Counterpart of gpitch_tpu/models/sgpr.py (SGPR, SGPRSS; the lag-table path
-is not ported yet).  Every tensor may carry leading batch axes: a window
-bank is one SGPRSS whose leaves have a window axis first, ``elbo`` returns
-one bound per window, and each covariance, factorization and product is
-one batched op over the windows.
+Counterpart of gpitch_tpu/models/sgpr.py.  Every tensor of an SGPR may
+carry leading batch axes: a window bank is one SGPRSS whose leaves have a
+window axis first, ``elbo`` returns one bound per window, and each
+covariance, factorization and product is one batched op over the windows.
+With ``lag_table`` the covariances of an on-grid model are gathered from
+one stationary table per window instead of built directly.
 """
 
 from __future__ import annotations
@@ -22,9 +23,9 @@ from ..core.transforms import Positive
 from ..kernels.base import StackedSum
 from ..kernels.spectral import Matern12sm
 from ..linalg.fused_whiten import MAX_M, fused_whiten
-from ..linalg.ops import safe_chol_inv
+from ..linalg.ops import safe_chol_inv, safe_cholesky, solve_lower
 
-__all__ = ["SGPR", "SGPRSS", "check_on_grid"]
+__all__ = ["GPR", "SGPR", "SGPRSS", "check_on_grid"]
 
 _LOG2PI = 1.8378770664093453
 
@@ -42,6 +43,53 @@ def _eye(n: int, like: torch.Tensor) -> torch.Tensor:
 
 
 @dataclasses.dataclass
+class GPR:
+    """Dense GP regression through torch.linalg (the model KernelGPR
+    interpolates with)."""
+
+    kern: Any = None
+    variance: Any = None          # likelihood noise
+    X: Any = None                 # (N, D), fixed
+    Y: Any = None                 # (N, 1), fixed
+    numerics: NumericsConfig = static_field(NumericsConfig())
+
+    @classmethod
+    def create(cls, X, Y, kern, noise_variance=1.0, numerics=NumericsConfig(),
+               dtype=torch.float32):
+        return cls(kern=kern,
+                   variance=Param.create(noise_variance, Positive(), dtype=dtype),
+                   X=Param.create(X, trainable=False, dtype=dtype),
+                   Y=Param.create(Y, trainable=False, dtype=dtype), numerics=numerics)
+
+    def _chol(self):
+        K = self.kern.K(self.X.value)
+        Ky = K + self.variance.value * _eye(K.shape[-1], K)
+        return safe_cholesky(Ky, self.numerics.jitter_value(K.dtype))
+
+    def log_marginal_likelihood(self):
+        y = self.Y.value
+        L = self._chol()
+        alpha = solve_lower(L, y)
+        return (-0.5 * alpha.square().sum()
+                - torch.log(torch.diagonal(L)).sum()
+                - 0.5 * y.shape[0] * _LOG2PI)
+
+    def build_likelihood(self):
+        return self.log_marginal_likelihood()
+
+    def loss(self):
+        return -self.log_marginal_likelihood()
+
+    def predict_f(self, Xnew):
+        """Posterior mean (Nnew, 1) and variance (Nnew, 1) at Xnew."""
+        L = self._chol()
+        A = solve_lower(L, self.kern.K(self.X.value, Xnew))
+        V = solve_lower(L, self.Y.value)
+        var = self.kern.Kdiag(Xnew) - A.square().sum(0)
+        return A.mT @ V, var[:, None]
+
+
+@dataclasses.dataclass
 class SGPR:
     """Collapsed SGPR.  ``mask`` ((..., N) in {0, 1}, optional) marks valid
     data points: with zero-padded rows the bound equals the unpadded one.
@@ -50,6 +98,15 @@ class SGPR:
     inputs, subtracted on the host before the cast), which keeps f32
     distances and cosine arguments small; ``x0`` is kept as a double-single
     (hi, lo) pair so Xnew - hi - lo is exact to f32.
+
+    ``lag_table`` (off by default, as in the JAX package): on a uniform
+    grid of step ``grid_dt`` a stationary k(|x - x'|) takes only
+    ``num_lags`` distinct values, so Kuf, Kuu and the diagonal are gathered
+    from one table k(l grid_dt), l < num_lags, of the (summed) kernel per
+    window: exact, not an approximation.  Such a model never takes the
+    fused pair (``fused_eligible``).  Its covariances are gathered by
+    rounded integer lag, so d(bound)/dX and d(bound)/dZ are zero there;
+    X and Z are not trainable.
     """
 
     kern: Any = None
@@ -62,14 +119,20 @@ class SGPR:
     mask: Any = None              # (..., N) or None
     reg: bool = static_field(False)
     reg_beta: float = static_field(1000.0)
+    grid_dt: Any = static_field(None)      # uniform-grid spacing or None
+    num_lags: int = static_field(0)        # lag-table length (grid mode)
+    lag_table: bool = static_field(False)  # the lag-table route
     numerics: NumericsConfig = static_field(NumericsConfig())
 
     @classmethod
     def create(cls, X, Y, kern, Z, noise_variance=1.0, mask=None, reg=False,
-               numerics=NumericsConfig(), grid_dt=None, center=True,
-               dtype=torch.float32):
+               numerics=NumericsConfig(), grid_dt=None, num_lags=None,
+               center=True, lag_table=False, dtype=torch.float32):
         """One model from host arrays.  ``grid_dt``: validate that every X and
         Z value is a multiple of the sample spacing (raises ValueError
+        otherwise).  With it, ``lag_table=True`` takes the table route:
+        ``num_lags`` (default: the index span of X and Z) must cover that
+        span, and the kernel must have ``k_r`` (NotImplementedError
         otherwise)."""
         xarr = np.asarray(X, dtype=np.float64).reshape(-1)
         zarr = np.asarray(Z, dtype=np.float64).reshape(-1)
@@ -84,6 +147,18 @@ class SGPR:
         Z = (zarr - x0).reshape(-1, 1)
         if grid_dt is not None:
             check_on_grid(X, Z, grid_dt)
+            allv = np.concatenate([X.reshape(-1), Z.reshape(-1)]) / grid_dt
+            span = int(np.round(allv.max() - allv.min())) + 1
+            if num_lags is not None and num_lags < span:
+                # a short table would clamp lags and corrupt Kuf and Kuu
+                raise ValueError(f"num_lags={num_lags} < index span {span} of X union Z")
+            if lag_table:
+                kern.k_r(torch.zeros(1, dtype=dtype))   # raises if not stationary
+                num_lags = span if num_lags is None else num_lags
+            else:
+                num_lags = 0
+        else:
+            num_lags = 0
 
         def data(v):
             return Param.create(v, trainable=False, dtype=dtype)
@@ -93,20 +168,58 @@ class SGPR:
                    X=data(X), Y=data(np.asarray(Y).reshape(-1, 1)), Z=data(Z),
                    x0=data(x0_hi), x0_lo=data(x0_lo),
                    mask=None if mask is None else data(np.asarray(mask).reshape(-1)),
-                   reg=reg, numerics=numerics)
+                   reg=reg, grid_dt=grid_dt, num_lags=num_lags,
+                   lag_table=bool(lag_table and grid_dt is not None), numerics=numerics)
 
     @property
     def mask_value(self):
         return None if self.mask is None else self.mask.value
+
+    # ------------------------------------------------- the lag-table route
+    def _grid_t0(self):
+        """(...) the least of X and Z, masked samples included."""
+        return torch.minimum(self.X.value[..., 0].amin(-1), self.Z.value[..., 0].amin(-1))
+
+    def _grid_index(self, v, t0):
+        """Integer grid positions of v (..., K) from t0 (...), int64 (the
+        index type of torch.gather)."""
+        return torch.round((v - t0[..., None]) / self.grid_dt).long()
+
+    def _grid_indices(self):
+        """Grid positions of X and Z, offset to start at 0."""
+        t0 = self._grid_t0()
+        return (self._grid_index(self.X.value[..., 0], t0),
+                self._grid_index(self.Z.value[..., 0], t0))
+
+    def _lag_table(self):
+        """(..., num_lags): k(l grid_dt) of the whole (summed) kernel, one
+        table per model."""
+        x = self.X.value
+        r = torch.arange(self.num_lags, dtype=x.dtype, device=x.device) * self.grid_dt
+        return self.kern.k_r(r)
+
+    @staticmethod
+    def _gather(table, i, j):
+        """table[..., |i[:, None] - j[None, :]|]: (..., len(i), len(j))."""
+        lags = (i[..., :, None] - j[..., None, :]).abs()
+        return torch.gather(table[..., None, :].expand(lags.shape[:-1] + table.shape[-1:]),
+                            -1, lags)
 
     # ------------------------------------------------------------- bound
     def _covs(self):
         """(err, kdiag, kuf, kuu) with the mask applied."""
         x, y, z = self.X.value, self.Y.value, self.Z.value
         err = y
-        kdiag = self.kern.Kdiag(x)
-        kuf = self.kern.K(z, x)
-        kuu = self.kern.K(z)
+        if self.lag_table:
+            ix, iz = self._grid_indices()
+            table = self._lag_table()
+            kuf = self._gather(table, iz, ix)
+            kuu = self._gather(table, iz, iz)
+            kdiag = table[..., :1].expand(x.shape[:-1])
+        else:
+            kdiag = self.kern.Kdiag(x)
+            kuf = self.kern.K(z, x)
+            kuu = self.kern.K(z)
         if self.mask is not None:
             mv = self.mask_value
             err = err * mv[..., :, None]
@@ -119,15 +232,18 @@ class SGPR:
         return safe_chol_inv(kuu, self.numerics.jitter_value(kuu.dtype))[1]
 
     def _stacked_matern12sm(self) -> bool:
-        """A StackedSum of Matern12sm and no mask: the chain the pair takes."""
-        return (self.mask is None and isinstance(self.kern, StackedSum)
+        """A StackedSum of Matern12sm, no mask, no lag table: the chain the
+        pair takes."""
+        return (self.mask is None and not self.lag_table
+                and isinstance(self.kern, StackedSum)
                 and isinstance(self.kern.stacked, Matern12sm))
 
     def fused_eligible(self) -> bool:
         """Whether the bound takes the fused route (see ``_common``): a
-        StackedSum of Matern12sm, no mask, M <= MAX_M, and float32 on the
-        card (the kernels' type) or any type on the CPU (the plain
-        versions).  Decided from the model's structure and dtype alone."""
+        StackedSum of Matern12sm, no mask, no lag table, M <= MAX_M, and
+        float32 on the card (the kernels' type) or any type on the CPU (the
+        plain versions).  Decided from the model's structure and dtype
+        alone."""
         if not self._stacked_matern12sm():
             return False
         z = self.Z.raw
@@ -141,10 +257,11 @@ class SGPR:
         chain, so that its U / sigma^2 and v are ``_common``'s AAT and Aerr.
         The leading axes are flattened into the window axis (a model without
         one gets a window axis of 1).  Differentiable in the kernel's
-        parameters; needs a stacked Matern12sm kernel and no mask."""
+        parameters; needs a stacked Matern12sm kernel, no mask and no lag
+        table."""
         if not self._stacked_matern12sm():
             raise ValueError("fused_whiten_args: needs a StackedSum of "
-                             "Matern12sm and no mask")
+                             "Matern12sm, no mask and no lag table")
         st = self.kern.stacked
         z, x, y = self.Z.value, self.X.value, self.Y.value
         m, n = z.shape[-2], x.shape[-2]
@@ -166,8 +283,8 @@ class SGPR:
         the fused pair: ``fused_whiten`` (kernel A forward, kernel B
         backward; their plain versions on the CPU) gives AAT * sigma2 and
         Aerr without writing Kuf or A, and A is returned as None.  Every
-        other model (a Sum, a mask, M > 160, float64 on the card) takes
-        ``_common_unfused``.  A kernel that fails to build or launch
+        other model (a Sum, a mask, a lag table, M > 160, float64 on the
+        card) takes ``_common_unfused``.  A kernel that fails to build or launch
         raises: no route gives way to the other."""
         if not self.fused_eligible():
             return self._common_unfused()
@@ -284,12 +401,15 @@ class SGPRSS(SGPR):
         sigma2 = self.variance.value[..., None, None]
         stacked = isinstance(self.kern, StackedSum)
         s = self.kern.num_terms if stacked else None
-        reuse = xnew_is_x and stacked and s <= source_batch
+        reuse = xnew_is_x and not self.lag_table and stacked and s <= source_batch
 
         kis = None
         if reuse:
             kis = self.kern.K_terms_fwd(x, Xnew)             # (..., S, N, N)
             kxx = kis.sum(-3)
+        elif self.lag_table:
+            ix = self._grid_index(x[..., 0], self._grid_t0())
+            kxx = self._gather(self._lag_table(), ix, ix)
         else:
             kxx = self.kern.K_fwd(x)
         mv = self.mask_value

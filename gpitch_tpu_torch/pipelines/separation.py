@@ -1,49 +1,73 @@
 """Source separation over overlap windows (SoSp).
 
-Counterpart of gpitch_tpu/pipelines/separation.py in its 'fft' and 'load'
-kernel modes: per-pitch kernels from the FFT of isolated notes, inducing
-points at each window's extrema, one batched window bank trained on the
-device (Adam, or one L-BFGS solver per window), per-source posteriors
-merged by Hann overlap-add.
+Counterpart of gpitch_tpu/pipelines/separation.py: per-pitch kernels
+learned from isolated notes ('train': a sampled covariance and a kernel
+fit), taken from their FFT ('fft') or given ('load'); inducing points at
+each window's extrema; one batched window bank trained on the device
+(Adam, or one L-BFGS solver per window); per-source posteriors merged by
+Hann overlap-add.
 """
 
 from __future__ import annotations
 
+import fnmatch
+import os
+import time
 from typing import Sequence
 
 import numpy as np
 import torch
 
+from ..audio.io import Audio
 from ..audio.spectrum import init_cparam
 from ..audio.windowing import merged_mean, merged_variance, window_stack
 from ..config import DEFAULT_DEVICE, resolve_device
 from ..utils.math import find_ideal_f0
 from .init import init_kern_com, init_liv_robust
+from .kernel_learning import fit_kernels, sample_cov
 from .windowed_sgpr import (build_window_bank, optimize_bank, pad_inducing,
                             pitch_variances, predict_bank_mixture,
                             predict_bank_sources, sum_kernel)
 
-__all__ = ["SoSp", "learn_pitch_params"]
+__all__ = ["SoSp", "learn_pitch_params", "load_mixture_from_sources"]
 
 
 def learn_pitch_params(train_signals, names, fs, mode: str = "fft",
-                       covsize: int = 441, max_par: int = 1, saved=None):
-    """Per-pitch [lengthscales, energies, frequencies]: 'fft' = FFT peak
-    init, 'load' = ``saved``.  Returns (params, [xk, sk]) (sk None for
-    'load')."""
-    if mode == "train":
-        raise NotImplementedError(
-            "kernel_mode='train' (sampled covariance + kernel fit) is ROADMAP "
-            "item 14, ported in a later slice of the PyTorch port; use 'fft' "
-            "or 'load'")
+                       covsize: int = 441, num_sam: int = 10000, max_par: int = 1,
+                       saved=None, timings: dict | None = None,
+                       device=DEFAULT_DEVICE, dtype: torch.dtype = torch.float32):
+    """Per-pitch [lengthscales, energies, frequencies]: 'train' = a sampled
+    covariance (``num_sam`` windows of ``covsize`` samples, host numpy)
+    and the kernel fit (``fit_kernels``, on ``device`` in ``dtype``),
+    'fft' = FFT peak init, 'load' = ``saved``.  Returns (params, [xk, sk])
+    (None for 'load').  ``timings``: a dict that receives per-pitch
+    seconds, 'sample_cov' and 'fit' lists ('fit': the batched solve the
+    pitch was in)."""
     if mode == "load":
         if saved is None:
             raise ValueError("mode='load' requires saved params")
         return saved, None
-    if mode != "fft":
+    if mode not in ("fft", "train"):
         raise ValueError(f"unknown kernel mode {mode!r}")
     params = [[], [], []]
     xk, sk = [], []
+    if mode == "train":
+        for y in train_signals:
+            t0 = time.perf_counter()
+            _, kern_sampled, _ = sample_cov(np.asarray(y).reshape(-1), num_sam=num_sam,
+                                            size=covsize)
+            if timings is not None:
+                timings.setdefault("sample_cov", []).append(time.perf_counter() - t0)
+            sk.append(kern_sampled)
+            xk.append(np.linspace(0.0, (covsize - 1.0) / fs, covsize).reshape(-1, 1))
+        fits, seconds = fit_kernels(sk, train_signals, names, max_par, fs,
+                                    device=device, dtype=dtype)
+        for p, _, _ in fits:
+            for k in range(3):
+                params[k].append(p[k])
+        if timings is not None:
+            timings.setdefault("fit", []).extend(seconds)
+        return params, [xk, sk]
     for i, y in enumerate(train_signals):
         y = np.asarray(y).reshape(-1)
         f0 = find_ideal_f0([names[i]])[0]
@@ -55,6 +79,19 @@ def learn_pitch_params(train_signals, names, fs, mode: str = "fft",
         sk.append((spec / np.max(spec)).reshape(-1, 1))
         xk.append(np.linspace(0.0, (covsize - 1.0) / fs, covsize).reshape(-1, 1))
     return params, [xk, sk]
+
+
+def load_mixture_from_sources(test_path, instrument, names=("_C_", "_E_", "_G_"),
+                              window_size: int = 2001):
+    """The test mixture as the sum of the isolated source recordings in
+    ``test_path`` whose names match ``*{instrument}{tag}*.wav``, one per
+    tag.  Returns (x, mixture, [Audio of each source])."""
+    sources = []
+    for tag in names:
+        cands = fnmatch.filter(os.listdir(test_path), f"*{instrument}{tag}*.wav")
+        sources.append(Audio(path=test_path + os.sep, filename=cands[0],
+                             window_size=window_size))
+    return sources[0].x.copy(), sum(s.y for s in sources), sources
 
 
 class SoSp:
@@ -80,7 +117,7 @@ class SoSp:
         self.num_pitches = len(train_signals)
         self.params, self.kern_sampled = learn_pitch_params(
             train_signals, train_names, fs, mode=kernel_mode, max_par=max_par,
-            saved=saved_params)
+            saved=saved_params, device=self.device, dtype=dtype)
 
         self.x = np.asarray(mixture[0]).reshape(-1, 1)
         self.y = np.asarray(mixture[1]).reshape(-1, 1)
@@ -162,3 +199,13 @@ class SoSp:
             r = np.asarray(real).reshape(-1, 1)[: est[0].shape[0]]
             out.append(np.sqrt(np.mean((r - est[0]) ** 2)))
         return float(np.mean(out))
+
+    def save_results(self, path, real_sources=None):
+        """npz of the sources' means and variances, matrix_var and, when
+        given, the true sources."""
+        np.savez(path,
+                 esrc=np.stack([e[0] for e in self.esource]),
+                 vsrc=np.stack([e[1] for e in self.esource]),
+                 matrix_var=self.matrix_var,
+                 src=None if real_sources is None else np.stack(
+                     [np.asarray(s).reshape(-1, 1) for s in real_sources]))

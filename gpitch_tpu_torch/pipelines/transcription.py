@@ -91,7 +91,7 @@ class AMT:
         self.piano_roll = pianoroll
         self.params, self.kern_sampled = learn_pitch_params(
             train_signals, train_names, fs, mode=kernel_mode, max_par=max_par,
-            saved=saved_params)
+            saved=saved_params, device=self.device, dtype=dtype)
 
         self.x = np.asarray(test[0]).reshape(-1, 1)
         self.y = np.asarray(test[1]).reshape(-1, 1)

@@ -19,14 +19,14 @@ import torch
 
 from ..config import DEFAULT_DEVICE, resolve_device
 from ..core.params import Param, cat_windows, map_params, take_windows, to_device
-from ..kernels.base import StackedSum, Sum
+from ..kernels.base import StackedSum, Sum, stack_modules
 from ..models._lbfgs import LbfgsStats, lbfgs_run
 from ..models.fit import ParamRows, adam_segments, first_segment_excess
 from ..models.sgpr import SGPRSS, check_on_grid
 
 __all__ = ["sum_kernel", "pad_inducing", "build_window_bank", "bank_loss",
            "optimize_bank", "predict_bank_sources", "predict_bank_mixture",
-           "pitch_variances"]
+           "pitch_variances", "chunked_vmap"]
 
 
 def sum_kernel(kerns):
@@ -107,36 +107,80 @@ def pad_inducing(z_list, m: int | None = None, grid_dt=None) -> np.ndarray:
     return np.stack(out)
 
 
+def _build_window_bank_loop(x_windows, y_windows, z_windows, kern_builder,
+                            noise_variance=1.0, masks=None, reg=False,
+                            y_scale=1.0, grid_dt=None, lag_table=False,
+                            dtype=torch.float32, device=DEFAULT_DEVICE):
+    """The bank as nw ``SGPRSS.create`` calls stacked on a window axis: the
+    oracle ``build_window_bank`` is held against."""
+    nw = np.asarray(x_windows).shape[0]
+    num_lags = None
+    if grid_dt is not None and lag_table:
+        num_lags = max(int(np.round(np.ptp(np.concatenate(
+            [np.asarray(x_windows[i]).reshape(-1), np.asarray(z_windows[i]).reshape(-1)])
+            / grid_dt))) + 1 for i in range(nw))
+    models = [SGPRSS.create(np.asarray(x_windows[i], dtype=np.float64).reshape(-1, 1),
+                            y_scale * np.asarray(y_windows[i]).reshape(-1, 1),
+                            kern_builder(), Z=np.asarray(z_windows[i]),
+                            noise_variance=noise_variance,
+                            mask=None if masks is None else np.asarray(masks[i]),
+                            reg=reg, grid_dt=grid_dt, num_lags=num_lags,
+                            lag_table=lag_table, dtype=dtype)
+              for i in range(nw)]
+    return to_device(stack_modules(models), resolve_device(device))
+
+
 def build_window_bank(x_windows, y_windows, z_windows, kern_builder: Callable,
-                      noise_variance: float = 1.0, reg: bool = False,
-                      y_scale: float = 1.0, grid_dt=None, dtype=torch.float32,
-                      device=DEFAULT_DEVICE):
+                      noise_variance: float = 1.0, masks=None, reg: bool = False,
+                      y_scale: float = 1.0, grid_dt=None, lag_table: bool = False,
+                      dtype=torch.float32, device=DEFAULT_DEVICE):
     """One SGPRSS over all windows (leaves (nw, ...)), built on the host and
     moved to ``device`` once ('cuda' unless the caller asks for 'cpu').
 
     kern_builder() -> a fresh kernel; every window starts from that copy.
-    Per-window centering runs vectorized in f64 (x0 = min of the inputs and
-    the inducing points, split into an f32 (hi, lo) pair); ``grid_dt``
-    validates that windows and inducing points sit on the sample grid;
-    ``y_scale`` scales the targets.
+    Per-window centering runs vectorized in f64 (x0 = min of the valid
+    inputs and the inducing points, split into an f32 (hi, lo) pair);
+    ``masks`` ((nw, ws) in {0, 1}) marks each window's valid samples and
+    becomes the bank's mask leaf; ``grid_dt`` validates that windows and
+    inducing points sit on the sample grid; ``lag_table`` (with
+    ``grid_dt``) takes the table route, one table length for the whole
+    bank; ``y_scale`` scales the targets.
     """
     xw = np.asarray(x_windows, dtype=np.float64)
     xw = xw.reshape(xw.shape[0], -1)
     yw = y_scale * np.asarray(y_windows, dtype=np.float64).reshape(xw.shape[0], -1)
     zw = np.asarray(z_windows, dtype=np.float64).reshape(xw.shape[0], -1)
     nw = xw.shape[0]
-    x0 = np.minimum(xw.min(axis=1), zw.min(axis=1))
+    mk = None
+    xmin = xw.min(axis=1)
+    if masks is not None:
+        mk = np.asarray(masks, dtype=np.float64).reshape(nw, -1)
+        valid = mk > 0
+        xmin = np.where(valid.any(axis=1),
+                        np.min(np.where(valid, xw, np.inf), axis=1), xmin)
+    x0 = np.minimum(xmin, zw.min(axis=1))
     x0_hi = x0.astype(np.float32).astype(np.float64)
     x0_lo = x0 - x0_hi
     Xc = xw - x0[:, None]
     Zc = zw - x0[:, None]
+    num_lags = None
     if grid_dt is not None:
         check_on_grid(Xc, Zc, grid_dt)
+        if lag_table:
+            # one table length for the stacked bank: the largest per-window
+            # index span max - min (not max alone: centering on the valid
+            # samples leaves masked leading samples at negative positions,
+            # and the table's offset starts at the least of all of them)
+            xv, zv = Xc / grid_dt, Zc / grid_dt
+            hi = np.maximum(xv.max(axis=1), zv.max(axis=1))
+            lo = np.minimum(xv.min(axis=1), zv.min(axis=1))
+            num_lags = int(np.round((hi - lo).max())) + 1
     device = resolve_device(device)
 
     template = SGPRSS.create(
         Xc[0], yw[0], kern_builder(), Z=Zc[0], noise_variance=noise_variance,
-        reg=reg, center=False, dtype=dtype)
+        mask=None if mk is None else mk[0], reg=reg, grid_dt=grid_dt,
+        num_lags=num_lags, lag_table=lag_table, center=False, dtype=dtype)
 
     def tile(p: Param) -> Param:
         return Param(p.raw.detach().expand((nw,) + tuple(p.raw.shape)).clone(),
@@ -148,6 +192,8 @@ def build_window_bank(x_windows, y_windows, z_windows, kern_builder: Callable,
     bank = map_params(template, tile)
     bank.X, bank.Y, bank.Z = data(Xc[..., None]), data(yw[..., None]), data(Zc[..., None])
     bank.x0, bank.x0_lo = data(x0_hi), data(x0_lo)
+    if mk is not None:
+        bank.mask = data(mk)
     return to_device(bank, device)
 
 
@@ -254,6 +300,26 @@ def _optimize_bank_lbfgs(bank, num_steps: int, window_chunk: int | None = None,
             **vars(stats)}
     bank = banks[0] if len(banks) == 1 else cat_windows(banks)
     return bank, window_losses.astype(np.float64).sum(0), seconds, info
+
+
+def chunked_vmap(fn: Callable, bank, batch_size: int = 8):
+    """``fn`` over the window axis in chunks of ``batch_size`` windows:
+    ``bank`` is a model, a tensor, or a tuple of them with a window axis
+    first; ``fn`` takes one chunk of it and returns a tensor or a tuple of
+    tensors with the window axis first, concatenated over the chunks.
+    Bounds the peak memory of predictions that build (ws, ws) Grams per
+    window."""
+    def take(obj, sl):
+        if isinstance(obj, tuple):
+            return tuple(take(o, sl) for o in obj)
+        return obj[sl] if isinstance(obj, torch.Tensor) else take_windows(obj, sl)
+
+    first = bank[0] if isinstance(bank, tuple) else bank
+    nw = first.shape[0] if isinstance(first, torch.Tensor) else first.X.raw.shape[0]
+    outs = [fn(take(bank, slice(c0, c0 + batch_size))) for c0 in range(0, nw, batch_size)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(parts) for parts in zip(*outs))
+    return torch.cat(outs)
 
 
 def _centered_windows(bank, x_windows) -> np.ndarray:

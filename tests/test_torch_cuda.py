@@ -368,3 +368,78 @@ def test_cuda_bank_lbfgs_contains_a_nan_window(cuda):
     assert np.isnan(info["window_losses"][2]).all()
     np.testing.assert_array_equal(info["window_losses"][keep], clean["window_losses"][keep])
     assert info["windows_at_initial_state"] == clean["windows_at_initial_state"] + 1
+
+
+def _grid_bank(dev, dtype, **kw):
+    """4 overlapping windows of 401 samples at 16 kHz, M 40 on the grid, two
+    stacked 2-partial kernels; ``kw`` (lag_table, masks) to the build."""
+    from gpitch_tpu_torch.kernels import MercerMatern12sm
+    from gpitch_tpu_torch.pipelines import windowed_sgpr as tws
+    rng = np.random.default_rng(8)
+    nw, ws, fs = 4, 401, 16000.0
+    x = (np.arange(nw)[:, None] * 200 + np.arange(ws)[None, :]) / fs + 3.0
+    y = np.sin(2 * np.pi * 330 * x) + 0.1 * rng.standard_normal(x.shape)
+    return tws.build_window_bank(x, y, x[:, 5::10, None], lambda: tws.sum_kernel([
+        MercerMatern12sm.create(0.7, 0.05, [0.7, 0.3], [f, 2 * f], dtype=dtype)
+        for f in (220.0, 330.0)]), grid_dt=1 / fs, dtype=dtype, device=dev, **kw)
+
+
+def _masks():
+    m = np.ones((4, 401))
+    m[3, 250:] = 0.0
+    m[1, :60] = 0.0
+    return m
+
+
+def _launched(bank):
+    """(bound, gradients, launches of the Cholesky kernel, kernel A, kernel B)
+    of one bound and gradient of the bank."""
+    from gpitch_tpu_torch.core.params import named_params
+    from gpitch_tpu_torch.linalg.chol import cholesky_batched
+    from gpitch_tpu_torch.linalg.fused_whiten import fused_whiten, fused_whiten_bwd
+    counters = (cholesky_batched, fused_whiten, fused_whiten_bwd)
+    before = [c.launches for c in counters]
+    loss = bank.loss()
+    loss.sum().backward()
+    torch.cuda.synchronize()
+    grads = {k: p.raw.grad.cpu() for k, p in named_params(bank) if p.trainable}
+    return loss.detach().cpu(), grads, tuple(c.launches - b for c, b in zip(counters, before))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_cuda_lag_table_bank_equals_the_direct_bank_in_f64(cuda, masked):
+    """The lag-table bank on the card in f64 against the direct bank on the
+    card (1e-9 relative, the chip_smoke limit) and against the table bank
+    on the CPU (1e-9); the table route launches the Cholesky kernel and
+    never the fused pair, in f64 and in f32."""
+    from gpitch_tpu_torch.core.params import to_device
+    kw = {"masks": _masks()} if masked else {}
+    table = _grid_bank(cuda, torch.float64, lag_table=True, **kw)
+    loss, grads, launched = _launched(table)
+    direct, _, _ = _launched(_grid_bank(cuda, torch.float64, **kw))
+    assert _rel(loss, direct) <= 1e-9
+    cpu_loss, cpu_grads, _ = _launched(to_device(table, "cpu"))
+    assert _rel(loss, cpu_loss) <= 1e-9
+    for k, g in cpu_grads.items():
+        assert _rel(grads[k], g) <= 1e-8, k
+    assert launched[0] > 0 and launched[1:] == (0, 0)
+    table32 = _grid_bank(cuda, torch.float32, lag_table=True, **kw)
+    assert not table32.fused_eligible()
+    loss32, _, launched32 = _launched(table32)
+    assert launched32[0] > 0 and launched32[1:] == (0, 0)
+    assert _rel(loss32.double(), loss) <= 1e-4
+
+
+def test_cuda_masked_bank_goes_through_the_cholesky_kernel(cuda):
+    """A masked f32 bank on the card takes the unfused route (the Cholesky
+    kernel, no fused launch) and agrees with the same bank's plain
+    versions on the CPU: bound 1e-5 relative, gradients 1e-3 of max|ref|."""
+    from gpitch_tpu_torch.core.params import to_device
+    bank = _grid_bank(cuda, torch.float32, masks=_masks())
+    assert not bank.fused_eligible()
+    loss, grads, launched = _launched(bank)
+    assert launched[0] > 0 and launched[1:] == (0, 0)
+    ref, ref_grads, _ = _launched(to_device(bank, "cpu"))
+    assert _rel(loss.double(), ref.double()) <= 1e-5
+    for k, g in ref_grads.items():
+        assert _rel(grads[k].double(), g.double()) <= 1e-3, k

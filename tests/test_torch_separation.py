@@ -92,10 +92,15 @@ def test_small_sosp_mixture_prediction_matches(small):
 
 
 def test_train_mode_is_left_to_a_later_slice():
+    """The 'train' kernel mode, ported since: a one-note SoSp learns its
+    kernel from the sampled covariance as the JAX package does (1e-8)."""
     kw, _ = _piece(0.2, [(60, 0.0)], 0.5)
     kw["kernel_mode"] = "train"
-    with pytest.raises(NotImplementedError, match="later slice"):
-        TSoSp(**kw, window_size=1001, device="cpu")
+    tm = TSoSp(**kw, window_size=1001, device="cpu", dtype=torch.float64)
+    jm = JSoSp(**kw, window_size=1001)
+    for k in range(3):
+        np.testing.assert_allclose(np.asarray(tm.params[k][0], float), jm.params[k][0],
+                                   rtol=1e-8)
 
 
 @pytest.mark.slow
