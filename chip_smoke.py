@@ -75,13 +75,36 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               (tests/torch_kernel_learning_goldens.npz); sosp-14s from the
               learned kernels ('load'), 20 Adam steps and predict_s, RMSE
               and launches, beside the same run from the FFT kernels;
- 17. profile  torch.profiler over 5 bank steps and one predict_s of 8's
+ 17. hmc      (after 13) HMC: (a) the JAX package's two Gaussian targets
+              in f32 at its thresholds; (b) run_hmc's 12 component-kernel
+              raws of the Adam-fitted ModGP on the synthetic C4 note, 4
+              chains, 8 leapfrog steps, 100 + 100 iterations (finite, rates
+              > 0.2, split R-hat of the identified quantities); (c) the 16
+              trained windows of 13(a), every window's kernel leaves, 4
+              chains folded into the window axis (the Cholesky kernel, A
+              and B launched): the value against one chain at a time
+              (1e-5), the gradient against f64 as one chain's is;
+ 18. distributed  (a) a one-rank NCCL group in a fresh process: the
+              shard-map bank loss and optimize_bank(mesh=) on sosp-4s; (b)
+              two processes on the one card (gloo): sosp-14s
+              SoSp.optimize(2, then 20, mesh=) against 8's single-process
+              steps (1e-5), ms a step and launches per rank; (c) per-window
+              L-BFGS on 16 sosp-4s windows, two ranks against one process;
+ 19. resume   optimize_bank_resumable on sosp-4s: 30 steps in one call
+              against 20 and a resume to 30 in a fresh process, bit for bit;
+              the same on 64 windows of 15's amt-10s table bank (reported);
+              the checkpoint's size and write/read ms;
+ 20. demos    the four ``python -m gpitch_tpu_torch.demos.<name>``, each in
+              its own process, all at once, each meeting its threshold;
+ 21. profile  torch.profiler over 5 bank steps and one predict_s of 8's
               222-window bank, 3 L-BFGS iterations of 13(b)'s bank, 5 bank
-              steps of 11's 10 s bank, 50 ModGP steps, and 5 and 1
-              lag-table bank steps of 15's amt-10s and amt88-2s banks (the
-              gather and its scatter-add backward by op), last because its
-              tracing may stay attached;
+              steps of 11's 10 s bank, 50 ModGP steps, 5 and 1 lag-table
+              bank steps of 15's amt-10s and amt88-2s banks (the gather and
+              its scatter-add backward by op), and 10 HMC iterations of
+              17(b), last because its tracing may stay attached;
 then the kernels line, the nvidia-smi line and the result line.
+``python3 chip_smoke.py --worker <kind> <rank> <world> <store> ...`` runs
+one rank of 18 or the fresh process of 19 (the phases start them).
 Exits non-zero without printing a result when there is no CUDA device.
 """
 
@@ -668,8 +691,17 @@ def phase_first_use() -> dict:
     return out
 
 
-def phase_full(dev) -> dict:
-    """14 s of the mix, the onset pattern repeated every 4 s (222 windows)."""
+def _leaf_rows(bank) -> dict:
+    """Every trainable raw leaf of a bank on the host, by path."""
+    from gpitch_tpu_torch.core.params import named_params
+    return {k: p.raw.detach().cpu().numpy() for k, p in named_params(bank) if p.trainable}
+
+
+def phase_full(dev):
+    """14 s of the mix, the onset pattern repeated every 4 s (222 windows):
+    2 warm-up steps, then 20 Adam steps (the fused pair's launches counted)
+    and predict_s.  Returns (the model, the 20 steps' losses, their trained
+    leaves)."""
     onsets = [(p, on + 4.0 * k) for k in range(4) for p, on in ONSETS
               if on + 4.0 * k < 14.0]
     t0 = time.perf_counter()
@@ -686,6 +718,7 @@ def phase_full(dev) -> dict:
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / 20 * 1e3
     launches = _fused_launches()
+    trained = _leaf_rows(model.bank)          # the distributed phase's reference
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model.predict_s()
@@ -700,7 +733,7 @@ def phase_full(dev) -> dict:
     emit(out)
     assert np.isfinite(losses).all() and np.isfinite(rmse)
     assert all(n > 0 for n in launches.values()), f"the fused pair never ran: {launches}"
-    return model
+    return model, losses, trained
 
 
 # ------------------------------------------------------ transcription (AMT)
@@ -1216,7 +1249,7 @@ def phase_lbfgs(dev):
     method="lbfgs", maxiter=20), with the windows whose best f32 value lies
     below what any state can give, and their state's value by the plain
     versions on the CPU and in f64 (reported, not limited; see PERF.md
-    §6).  Returns (the records, (b)'s model)."""
+    §6).  Returns (the records, (b)'s model, (a)'s trained windows)."""
     from gpitch_tpu_torch.audio.pianoroll import Pianoroll
     from gpitch_tpu_torch.core.params import Param, map_params, take_windows, to_device
     from gpitch_tpu_torch.pipelines.windowed_sgpr import optimize_bank
@@ -1231,7 +1264,7 @@ def phase_lbfgs(dev):
     _zero_path()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    _, losses, info = optimize_bank(sub, iters, method="lbfgs", return_info=True)
+    trained_sub, losses, info = optimize_bank(sub, iters, method="lbfgs", return_info=True)
     seconds = time.perf_counter() - t0
     spread = float(gold["port_f32_cpu_sosp16_best_dev"])
     rec = {"phase": "lbfgs", "case": "a_sosp4s_16", "windows": nwin,
@@ -1333,7 +1366,7 @@ def phase_lbfgs(dev):
     out["c"] = rec
     assert np.isfinite(abest).all() and np.all(np.diff(abest) <= 0) and abest[-1] < abest[0], rec
     assert np.isfinite(amt.matrix_var).all()
-    return out, model
+    return out, model, trained_sub
 
 
 def phase_natgrad(dev) -> dict:
@@ -1737,6 +1770,534 @@ def phase_fused_whiten(dev, sosp_model, full_model) -> dict:
     return {"cases": cases, "launches": launches}
 
 
+# ------------------------------------------------------------------- HMC
+# the kernels of a bank's bound and gradient (specmix builds predictions only)
+_PATH = ("cholesky_batched", "fused_whiten", "fused_whiten_bwd")
+HMC_MODGP = dict(num_chains=4, num_leapfrog=8, num_warmup=100, num_samples=100,
+                 fit_steps=500)
+HMC_BANK = dict(num_chains=4, num_leapfrog=8, num_warmup=20, num_samples=20)
+
+
+def _split_rhat(x: np.ndarray) -> float:
+    """Split R-hat of (chains, samples) draws (scripts/run_quality.py's)."""
+    c, n = x.shape
+    half = n // 2
+    xs = np.concatenate([x[:, :half], x[:, half:2 * half]], 0)
+    w = xs.var(axis=1, ddof=1).mean()
+    b = half * xs.mean(axis=1).var(ddof=1)
+    var = (half - 1) / half * w + b / half
+    return float(np.sqrt(var / max(w, 1e-30)))
+
+
+def _hmc_targets(dev) -> dict:
+    """tests/test_hmc_natgrad.py's two Gaussian targets in f32 on the card."""
+    from gpitch_tpu_torch.models import hmc_sample
+    f32 = torch.float32
+    cov = torch.tensor([[1.0, 0.6], [0.6, 1.0]], dtype=f32, device=dev)
+    prec, mean = torch.linalg.inv(cov), torch.tensor([1.0, -2.0], dtype=f32, device=dev)
+    std, amean = (torch.tensor(v, dtype=f32, device=dev) for v in ([0.05, 20.0], [2.0, -30.0]))
+    out = {}
+    for name, fn, init, kw, seed in (
+            ("correlated", lambda q: -0.5 * (((q["theta"] - mean) @ prec) * (q["theta"] - mean)).sum(-1),
+             torch.zeros(2, dtype=f32, device=dev),
+             dict(num_samples=1500, num_warmup=500, num_leapfrog=12, num_chains=4), 0),
+            ("anisotropic", lambda q: -0.5 * ((q["theta"] - amean) / std).square().sum(-1),
+             amean + torch.tensor([0.1, 5.0], dtype=f32, device=dev),
+             dict(num_samples=800, num_warmup=400, num_leapfrog=12, num_chains=4,
+                  jitter_init=0.01), 3)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        samples, rates = hmc_sample(fn, {"theta": init},
+                                    torch.Generator(device=dev).manual_seed(seed), **kw)
+        th = samples["theta"].reshape(-1, 2).double().cpu().numpy()
+        seconds = time.perf_counter() - t0
+        rec = {"rates": rates.tolist(), "seconds": seconds,
+               "ms_per_leapfrog_step": seconds * 1e3 / (
+                   (kw["num_samples"] + kw["num_warmup"]) * kw["num_leapfrog"])}
+        if name == "correlated":
+            rec["mean_err"] = float(np.abs(th.mean(0) - [1.0, -2.0]).max())
+            rec["cov_err"] = float(np.abs(np.cov(th.T) - [[1.0, 0.6], [0.6, 1.0]]).max())
+            rec["ok"] = bool(min(rec["rates"]) > 0.5 and rec["mean_err"] <= 0.1
+                             and rec["cov_err"] <= 0.2)
+        else:
+            rec["mean_err_sd"] = (np.abs(th.mean(0) - [2.0, -30.0]) / [0.05, 20.0]).tolist()
+            rec["std_rel_err"] = (np.abs(th.std(0) / [0.05, 20.0] - 1)).tolist()
+            rec["ok"] = bool(min(rec["rates"]) > 0.5 and max(rec["mean_err_sd"]) < 0.25
+                             and max(rec["std_rel_err"]) <= 0.35)
+        out[name] = rec
+    return out
+
+
+def make_hmc_modgp(dev):
+    """scripts/run_quality.py's run_hmc model on the synthetic C4 note that
+    demos/demo_modgp_real_audio.py falls back to (2 s at 16 kHz, 5 partials
+    from the FFT, inducing points at the extrema, dec 9), fitted by
+    HMC_MODGP["fit_steps"] minibatch Adam steps (lr 0.0025).  Returns (the
+    fitted model, x, y)."""
+    from gpitch_tpu_torch.audio import init_cparam, synth_piano_note
+    from gpitch_tpu_torch.kernels import Matern32, MercerMatern12sm
+    from gpitch_tpu_torch.models import ModGP, fit_adam_segmented, minibatch_fn
+    from gpitch_tpu_torch.pipelines import init_liv
+    fs, f0 = 16000, _f0(60)
+    x, y = synth_piano_note(fs=fs, seconds=2.0, f0=f0)
+    freqs, energies, _, _, _ = init_cparam(y, fs=fs, maxh=5, ideal_f0=f0)
+    z, _ = init_liv(x=x, y=y, win_size=31, thres=0.05, dec=9)
+    model = ModGP.create(z=z, kern=[[Matern32.create(variance=3.5, lengthscales=0.2)],
+                                    [MercerMatern12sm.create(variance=1.0, lengthscales=0.5,
+                                                             energy=energies,
+                                                             frequency=freqs)]],
+                         device=dev)
+    xt = torch.as_tensor(x, dtype=torch.float32, device=dev)
+    yt = torch.as_tensor(y, dtype=torch.float32, device=dev)
+    n = xt.shape[0]
+    model, _, _, _ = fit_adam_segmented(
+        model, lambda m, xb, yb: m.loss(xb, yb, num_data=n), HMC_MODGP["fit_steps"], 0.0025,
+        minibatch_fn(xt, yt, 100, torch.Generator(device=dev).manual_seed(0)), segment=500)
+    return model, xt, yt
+
+
+def hmc_modgp_logprob(model, x, y):
+    """run_hmc's log density: the full-data ELBO with the component
+    kernel's lengthscale, variance, energies and frequencies substituted,
+    plus N(init, max(10, 0.25 |init|)^2) priors on those raws.  Returns
+    (logprob, init leaves)."""
+    from gpitch_tpu_torch.core.params import named_params, with_raw
+    paths = [f".kern_com.{k}" for k in ("lengthscales", "variance", "energy", "frequency")]
+    raws = dict(named_params(model))
+    init = {k: raws[k].raw.detach().clone() for k in paths}
+    scale = {k: torch.clamp(0.25 * v.abs(), min=10.0) for k, v in init.items()}
+    n = x.shape[0]
+
+    def one(leaves):
+        prior = -0.5 * sum(((leaves[k] - init[k]) / scale[k]).square().sum() for k in paths)
+        return with_raw(model, leaves).elbo(x, y, n) + prior
+
+    return torch.func.vmap(one), init
+
+
+def _hmc_modgp(dev) -> tuple[dict, tuple]:
+    from gpitch_tpu_torch.core.params import named_params
+    from gpitch_tpu_torch.models import hmc_sample
+    t0 = time.perf_counter()
+    model, x, y = make_hmc_modgp(dev)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    logprob, init = hmc_modgp_logprob(model, x, y)
+    kw = {k: v for k, v in HMC_MODGP.items() if k != "fit_steps"}
+    t0 = time.perf_counter()
+    samples, rates = hmc_sample(logprob, init, torch.Generator(device=dev).manual_seed(2),
+                                jitter_init=0.05, **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    s = {k.split(".")[-1]: v.double().cpu().numpy() for k, v in samples.items()}
+    raws = {k.split(".")[-1]: p for k, p in named_params(model.kern_com)}
+    vals = {k: raws[k].transform.forward(torch.as_tensor(v)).numpy().reshape(
+        kw["num_chains"], kw["num_samples"], -1) for k, v in s.items()}
+    prod = vals["variance"][..., :1] * vals["energy"]
+    rhat = {"var_x_energy": [_split_rhat(prod[..., j]) for j in range(prod.shape[-1])],
+            "lengthscale": [_split_rhat(vals["lengthscales"][..., j])
+                            for j in range(vals["lengthscales"].shape[-1])],
+            "frequency": [_split_rhat(vals["frequency"][..., j])
+                          for j in range(vals["frequency"].shape[-1])]}
+    steps = (kw["num_warmup"] + kw["num_samples"]) * kw["num_leapfrog"]
+    rec = {"workload": "run_hmc on the synthetic C4 note (12 component-kernel raws)",
+           "N": int(x.shape[0]), "M": int(model.za.raw.shape[1]), **kw,
+           "fit_steps": HMC_MODGP["fit_steps"], "fit_s": fit_s, "seconds": seconds,
+           "ms_per_leapfrog_step": seconds * 1e3 / steps, "rates": rates.tolist(),
+           "finite": bool(all(np.isfinite(v).all() for v in s.values())),
+           "rhat_identified": rhat,
+           "rhat_identified_max": max(max(v) for v in rhat.values())}
+    return rec, (logprob, init)
+
+
+def _hmc_bank(dev, bank) -> dict:
+    """HMC over every window's trainable kernel leaves of a trained bank
+    (the noise fixed), the chains folded into the window axis.  The folded
+    log density and gradient against one chain at a time, and both against
+    the same evaluation in f64 (the unfused route: the pair is f32 only)."""
+    from gpitch_tpu_torch import config
+    from gpitch_tpu_torch.core.params import Param, map_params, named_params, with_raw
+    from gpitch_tpu_torch.models import hmc_sample, model_logprob_fn
+    paths = [k for k, p in named_params(bank) if p.trainable and k.startswith(".kern.")]
+    init = {k: p.raw.detach().clone() for k, p in named_params(bank) if k in paths}
+    logprob = model_logprob_fn(bank, with_raw, prior_scale=1e3)
+    c = HMC_BANK["num_chains"]
+    gen = torch.Generator(device=dev).manual_seed(4)
+    # the sampler's own start: init + 0.1 N(0, 1) per chain
+    chains = {k: v[None] + 0.1 * torch.randn((c,) + tuple(v.shape), generator=gen,
+                                             device=dev) for k, v in init.items()}
+
+    def value_and_grad(fn, leaves):
+        ls = {k: v.clone().requires_grad_(True) for k, v in leaves.items()}
+        lp = fn(ls)
+        grads = torch.autograd.grad(lp.sum(), list(ls.values()))
+        return lp.detach().double(), [g.double() for g in grads]
+
+    def flat(grads, i):
+        return torch.cat([g[i].reshape(-1) for g in grads])
+
+    lp, grads = value_and_grad(logprob, chains)
+    # the arbiter: the same function in f64, with the f32 jitters (1e-4
+    # absolute, the M-aware 8e-7 M relative: linalg.ops.add_jitter)
+    bank64 = map_params(bank, lambda p: Param(p.raw.detach().double(), p.transform,
+                                              p.trainable))
+    m = bank.Z.raw.shape[1]
+    config.set_jitter(config.default_jitter(torch.float32))
+    config.set_jitter_rel(max(config.default_jitter_rel(torch.float32), 8e-7 * m))
+    try:
+        lp64, grads64 = value_and_grad(model_logprob_fn(bank64, with_raw, prior_scale=1e3),
+                                       {k: v.double() for k, v in chains.items()})
+    finally:
+        config.set_jitter(None)
+        config.set_jitter_rel(None)
+    check = {"value_rel": 0.0, "grad_rel_norm": 0.0, "grad_rel_per_leaf": {},
+             "f64_value_rel_folded": 0.0, "f64_value_rel_one": 0.0,
+             "f64_grad_rel_norm_folded": 0.0, "f64_grad_rel_norm_one": 0.0}
+    for i in range(c):
+        lp1, g1 = value_and_grad(logprob, {k: v[i:i + 1] for k, v in chains.items()})
+        check["value_rel"] = max(check["value_rel"], float(abs(lp[i] / lp1[0] - 1)))
+        ref, one, f64 = flat(g1, 0), flat(grads, i), flat(grads64, i)
+        check["grad_rel_norm"] = max(check["grad_rel_norm"],
+                                     float((one - ref).norm() / ref.norm()))
+        for k, g, h in zip(paths, grads, g1):
+            check["grad_rel_per_leaf"][k] = max(
+                check["grad_rel_per_leaf"].get(k, 0.0),
+                float((g[i] - h[0]).abs().max() / h[0].abs().max()))
+        for key, val, gv in (("folded", lp[i], one), ("one", lp1[0], ref)):
+            check[f"f64_value_rel_{key}"] = max(check[f"f64_value_rel_{key}"],
+                                                float(abs(val / lp64[i] - 1)))
+            check[f"f64_grad_rel_norm_{key}"] = max(check[f"f64_grad_rel_norm_{key}"],
+                                                    float((gv - f64).norm() / f64.norm()))
+    _zero_all()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    samples, rates = hmc_sample(logprob, init, torch.Generator(device=dev).manual_seed(5),
+                                **HMC_BANK)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    steps = (HMC_BANK["num_warmup"] + HMC_BANK["num_samples"]) * HMC_BANK["num_leapfrog"]
+    return {"windows": int(bank.X.raw.shape[0]), "folded_windows": c * int(bank.X.raw.shape[0]),
+            "leaves": paths, "dims_per_chain": int(sum(v.numel() for v in init.values())),
+            **HMC_BANK, "folded_vs_one_chain": check, "seconds": seconds,
+            "ms_per_leapfrog_step": seconds * 1e3 / steps, "rates": rates.tolist(),
+            "finite": bool(all(torch.isfinite(v).all() for v in samples.values())),
+            "launches": _all_launches()}
+
+
+def phase_hmc(dev, bank):
+    """HMC on the card: (a) the JAX package's two Gaussian targets in f32 at
+    its thresholds; (b) ModGP: run_hmc's 12 component-kernel raws of the
+    Adam-fitted synthetic C4 note, 4 chains, 8 leapfrog steps, 100 + 100
+    iterations (every sample finite, every rate > 0.2; split R-hat of the
+    identified quantities); (c) the 16 trained sosp-4s windows of lbfgs (a):
+    every window's kernel leaves, 4 chains folded into the window axis (64
+    windows through the Cholesky kernel and kernels A and B), 8 leapfrog
+    steps, 20 + 20 iterations (every sample finite; at the chains' start the
+    folded log density within 1e-5 of one chain at a time, and its gradient
+    no further from the same evaluation in f64, with the f32 jitters, than
+    twice one chain's).  Returns (the
+    records, (b)'s log density and init for the profile)."""
+    out = {"phase": "hmc", "targets": _hmc_targets(dev)}
+    out["modgp"], modgp = _hmc_modgp(dev)
+    out["bank"] = _hmc_bank(dev, bank)
+    emit(out)
+    for name, rec in out["targets"].items():
+        assert rec["ok"], f"HMC missed the {name} target: {rec}"
+    m, b = out["modgp"], out["bank"]
+    assert m["finite"] and min(m["rates"]) > 0.2, m
+    assert b["finite"], b
+    chk = b["folded_vs_one_chain"]
+    assert chk["value_rel"] <= 1e-5, b
+    # the gradients of a trained bank in f32 differ by the kernels' plans
+    # (the splits follow the window count) far above 1e-5: the folded one
+    # is held to the f64 arbiter as closely as one chain alone is
+    assert chk["f64_grad_rel_norm_folded"] <= 2 * chk["f64_grad_rel_norm_one"] + 1e-5, b
+    assert all(b["launches"][k] > 0 for k in _PATH), f"a kernel never ran: {b['launches']}"
+    return out, modgp
+
+
+def _hmc_window(logprob, init, iterations: int):
+    """``iterations`` HMC iterations of run_hmc's ModGP (no warmup): the
+    profile's window."""
+    from gpitch_tpu_torch.models import hmc_sample
+    hmc_sample(logprob, init, torch.Generator(device=init[next(iter(init))].device).manual_seed(9),
+               num_samples=iterations, num_warmup=0, num_leapfrog=HMC_MODGP["num_leapfrog"],
+               num_chains=HMC_MODGP["num_chains"], jitter_init=0.05)
+    return {"iterations": iterations, "leapfrog_steps": iterations * HMC_MODGP["num_leapfrog"]}
+
+
+# ---------------------------------------------------------- distribution
+DIST_TIMEOUT_S = 300
+
+
+def _run_workers(kind: str, world: int, extra=()) -> list[dict]:
+    """``world`` worker processes of this script (``--worker``), joined
+    through a file store in a fresh temporary directory; each prints one
+    JSON line.  Any failure or timeout raises."""
+    import tempfile
+    d = tempfile.mkdtemp(prefix="gpitch_dist_")
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--worker", kind,
+                               str(rank), str(world), os.path.join(d, "store"), *extra],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                              cwd=ROOT) for rank in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=DIST_TIMEOUT_S))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, (so, se) in zip(procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"worker {kind} failed ({p.returncode}):\n{se[-4000:]}")
+    return [json.loads(so.strip().splitlines()[-1]) for so, _ in outs]
+
+
+def _rows_of(bank) -> np.ndarray:
+    from gpitch_tpu_torch.core.params import trainable_tensors
+    leaves = trainable_tensors(bank)
+    nw = leaves[0].shape[0]
+    return torch.cat([t.detach().reshape(nw, -1) for t in leaves], 1).double().cpu().numpy()
+
+
+def _worker(kind: str, rank: int, world: int, store: str, *extra) -> dict:
+    """One rank of the distributed or resume phase (see there)."""
+    from gpitch_tpu_torch.linalg import _cuda
+    from gpitch_tpu_torch.parallel import (init_multihost, make_bank_loss_shard_map,
+                                           make_mesh)
+    from gpitch_tpu_torch.pipelines.windowed_sgpr import bank_loss, optimize_bank
+    dev = torch.device("cuda")
+    rebuilt = _cuda.build()                    # the parent built them: nothing to do
+    out = {"rank": rank, "rebuilt": rebuilt}
+    if kind == "resume":
+        from gpitch_tpu_torch.pipelines import optimize_bank_resumable
+        model, _ = make_sosp(4.0, dev, torch.float32)
+        _zero_all()
+        bank, losses, start = optimize_bank_resumable(model.bank, 30, extra[0], 10)
+        torch.cuda.synchronize()
+        np.savez(extra[1], losses=losses, rows=_rows_of(bank))
+        return {**out, "start": start, "launches": _all_launches()}
+    backend = "nccl" if kind == "nccl" else "gloo"
+    assert init_multihost(f"file://{store}", world, rank, backend=backend, timeout_s=120)
+    mesh = make_mesh(world)
+    if kind == "nccl":
+        from gpitch_tpu_torch.core.params import named_params
+        model, _ = make_sosp(4.0, dev, torch.float32)
+        leaves = [p.raw for _, p in named_params(model.bank) if p.trainable]
+        loss = make_bank_loss_shard_map(mesh)(model.bank)
+        g = torch.autograd.grad(loss, leaves, allow_unused=True)
+        ref = bank_loss(model.bank)
+        r = torch.autograd.grad(ref, leaves, allow_unused=True)
+        out["loss_rel"] = float(abs(loss.item() / ref.item() - 1))
+        out["grad_rel"] = max(float((a - b).abs().max() / b.abs().max())
+                              for a, b in zip(g, r) if b is not None)
+        mb, ml = optimize_bank(model.bank, 5, 0.01, mesh=mesh)
+        lb, ll = optimize_bank(model.bank, 5, 0.01)
+        out["steps_loss_rel"] = float(np.max(np.abs(ml / ll - 1)))
+        out["steps_leaf_max_diff"] = float(np.abs(_rows_of(mb) - _rows_of(lb)).max())
+    else:
+        model, _ = _sosp14s(dev)
+        model.optimize(maxiter=2, learning_rate=0.01, mesh=mesh)       # the full phase's warm-up
+        _zero_all()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = model.optimize(maxiter=20, learning_rate=0.01, mesh=mesh)
+        torch.cuda.synchronize()
+        out["ms_per_bank_step"] = (time.perf_counter() - t0) / 20 * 1e3
+        out["launches"] = _all_launches()
+        out["rank_windows"] = list(model.opt_info["rank_windows"])
+        np.savez(extra[0] + f".{rank}.npz", losses=losses, rows=_rows_of(model.bank))
+        from gpitch_tpu_torch.core.params import take_windows
+        sub, _ = make_sosp(4.0, dev, torch.float32)
+        sub = take_windows(sub.bank, slice(0, 16))
+        t0 = time.perf_counter()
+        _, lb_losses = optimize_bank(sub, 10, method="lbfgs", mesh=mesh)
+        torch.cuda.synchronize()
+        out["lbfgs_s"] = time.perf_counter() - t0
+        out["lbfgs_losses"] = lb_losses.tolist()
+    import torch.distributed as dist
+    dist.destroy_process_group()
+    return out
+
+
+def phase_distributed(dev, full_losses, full_rows) -> dict:
+    """Window-parallel distribution on the card: (a) a one-rank NCCL group
+    in a fresh process: on the sosp-4s bank, make_bank_loss_shard_map
+    against bank_loss (value and gradient) and optimize_bank(mesh=, 5
+    steps) against no mesh; (b) two processes on the one card (gloo, which
+    NCCL refuses): sosp-14s (222 windows, 111 a rank), SoSp.optimize(
+    maxiter=2, then 20, mesh=) against the full phase's single-process 2 +
+    20 steps: the per-step totals within 1e-5 relative, the largest
+    per-window leaf difference, ms a step, each rank's launches; (c) per-
+    window L-BFGS on the 16 sosp-4s windows, 10 iterations, the two ranks
+    against one process in chunks of a rank's 8 windows within 1e-5 (and,
+    reported, unchunked: the kernels' split plans follow the window count,
+    and L-BFGS's linesearch turns f32 rounding into other trial steps).
+    The workers load the kernels the parent built (no nvcc run)."""
+    import tempfile
+
+    from gpitch_tpu_torch.core.params import take_windows
+    from gpitch_tpu_torch.pipelines.windowed_sgpr import optimize_bank
+    t0 = time.perf_counter()
+    (one,) = _run_workers("nccl", 1)
+    one_s = time.perf_counter() - t0
+    prefix = os.path.join(tempfile.mkdtemp(prefix="gpitch_dist_out_"), "rank")
+    t0 = time.perf_counter()
+    ranks = _run_workers("gloo", 2, (prefix,))
+    two_s = time.perf_counter() - t0
+    got = [np.load(prefix + f".{r}.npz") for r in range(2)]
+    loss_rel = max(float(np.max(np.abs(g["losses"] / full_losses - 1))) for g in got)
+    rows = _rows_of_dict(full_rows)
+    leaf_diff = max(float(np.abs(g["rows"] - rows).max()) for g in got)
+    model, _ = make_sosp(4.0, dev, torch.float32)
+    sub = take_windows(model.bank, slice(0, 16))
+    del model
+    # one process in chunks of a rank's 8 windows: the batches the ranks run,
+    # so the kernels' plans (splits of a window's tiles over blocks, which
+    # follow the window count) are theirs; and unchunked
+    _, ref = optimize_bank(sub, 10, method="lbfgs", window_chunk=8)
+    _, whole = optimize_bank(sub, 10, method="lbfgs")
+    got = np.asarray(ranks[0]["lbfgs_losses"])
+    lbfgs_rel = float(np.max(np.abs(got / ref - 1)))
+    whole_rel = float(np.max(np.abs(got / whole - 1)))
+    out = {"phase": "distributed",
+           "a_one_rank_nccl": {**one, "process_s": one_s},
+           "b_two_ranks_gloo_sosp14s": {
+               "windows": ranks[-1]["rank_windows"][1], "loss_rel_vs_one_process": loss_rel,
+               "leaf_max_abs_diff_vs_one_process": leaf_diff,
+               "ms_per_bank_step": [r["ms_per_bank_step"] for r in ranks],
+               "launches_per_rank": [r["launches"] for r in ranks],
+               "rank_windows": [r["rank_windows"] for r in ranks],
+               "rebuilt": [r["rebuilt"] for r in ranks], "processes_s": two_s},
+           "c_lbfgs_two_ranks": {"windows": 16, "iterations": 10,
+                                 "loss_rel_vs_one_process_chunks_of_8": lbfgs_rel,
+                                 "loss_rel_vs_one_process_unchunked": whole_rel,
+                                 "ranks_equal": bool(all(r["lbfgs_losses"] == ranks[0][
+                                     "lbfgs_losses"] for r in ranks)),
+                                 "seconds": [r["lbfgs_s"] for r in ranks]}}
+    emit(out)
+    assert not one["rebuilt"] and not any(r["rebuilt"] for r in ranks), "a worker ran nvcc"
+    assert one["loss_rel"] <= 1e-6 and one["grad_rel"] <= 1e-5, one
+    assert one["steps_loss_rel"] <= 1e-6, one
+    assert loss_rel <= 1e-5, out["b_two_ranks_gloo_sosp14s"]
+    assert all(r["launches"][k] > 0 for r in ranks for k in _PATH), "a kernel never ran"
+    assert lbfgs_rel <= 1e-5 and out["c_lbfgs_two_ranks"]["ranks_equal"], \
+        out["c_lbfgs_two_ranks"]
+    return out
+
+
+def _rows_of_dict(rows: dict) -> np.ndarray:
+    nw = next(iter(rows.values())).shape[0]
+    return np.concatenate([v.reshape(nw, -1).astype(np.float64) for v in rows.values()], 1)
+
+
+# ------------------------------------------------------------- resume
+def _resume_pair(bank, tmp: str) -> dict:
+    """optimize_bank_resumable: 30 steps in one call, against 20 and then a
+    resumed call to 30 in this process; the largest differences."""
+    from gpitch_tpu_torch.pipelines import optimize_bank_resumable
+    b_full, l_full, _ = optimize_bank_resumable(bank, 30, os.path.join(tmp, "full"), 10)
+    _, l_a, _ = optimize_bank_resumable(bank, 20, os.path.join(tmp, "part"), 10)
+    b_res, l_b, start = optimize_bank_resumable(bank, 30, os.path.join(tmp, "part"), 10)
+    return {"start": start,
+            "loss_max_abs_diff": float(np.abs(np.concatenate([l_a, l_b]) - l_full).max()),
+            "leaf_max_abs_diff": float(np.abs(_rows_of(b_res) - _rows_of(b_full)).max())}
+
+
+def phase_resume(dev, table_bank) -> dict:
+    """optimize_bank_resumable on the card: the sosp-4s bank (the fused
+    route) 30 steps in one call, against 20 steps and a resume to 30 in a
+    fresh process: losses and every raw leaf bit for bit.  Reported: the
+    same comparison on the first 64 windows of amt-10s's lag-table bank
+    (its gather's backward is a scatter-add with atomics) in this process,
+    and the (bank, Adam state) checkpoint's size and write/read ms."""
+    import tempfile
+
+    from gpitch_tpu_torch.core.params import take_windows, trainable_tensors
+    from gpitch_tpu_torch.pipelines import optimize_bank_resumable
+    from gpitch_tpu_torch.utils.checkpoint import load_model, save_model
+    tmp = tempfile.mkdtemp(prefix="gpitch_resume_")
+    model, _ = make_sosp(4.0, dev, torch.float32)
+    _zero_all()
+    b_full, l_full, _ = optimize_bank_resumable(model.bank, 30, os.path.join(tmp, "full"), 10)
+    part = os.path.join(tmp, "part")
+    _, l_a, _ = optimize_bank_resumable(model.bank, 20, part, 10)
+    torch.cuda.synchronize()
+    launches = _all_launches()
+    (w,) = _run_workers("resume", 1, (part, os.path.join(tmp, "resumed.npz")))
+    got = np.load(os.path.join(tmp, "resumed.npz"))
+    launches = {k: v + w["launches"][k] for k, v in launches.items()}
+    fused = {"start": w["start"],
+             "losses_equal": bool(np.array_equal(np.concatenate([l_a, got["losses"]]), l_full)),
+             "leaves_equal": bool(np.array_equal(got["rows"], _rows_of(b_full))),
+             "launches": launches}
+    table = _resume_pair(take_windows(table_bank, slice(0, 64)), os.path.join(tmp, "table"))
+    state = (b_full, {"m": tuple(torch.zeros_like(t) for t in trainable_tensors(b_full)),
+                      "v": tuple(torch.zeros_like(t) for t in trainable_tensors(b_full)),
+                      "t": 30})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_model(os.path.join(tmp, "timed"), state, step=1)
+    write_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    load_model(os.path.join(tmp, "timed"), state, step=1)
+    torch.cuda.synchronize()
+    read_ms = (time.perf_counter() - t0) * 1e3
+    out = {"phase": "resume", "a_sosp4s_fused": fused,
+           "b_amt10s_table_64": {**table, "windows": 64},
+           "checkpoint": {"bytes": os.path.getsize(os.path.join(tmp, "timed", "1.npz")),
+                          "write_ms": write_ms, "read_ms": read_ms, "windows": 62}}
+    emit(out)
+    assert fused["start"] == 20 and fused["losses_equal"] and fused["leaves_equal"], fused
+    assert all(launches[k] > 0 for k in _PATH), f"a kernel never ran: {launches}"
+    assert table["start"] == 20
+    return out
+
+
+# --------------------------------------------------------------- demos
+DEMOS = {
+    "modgp": (["--steps", "1000"], r"source recovery RMSE: ([0-9.]+)"),
+    "modgp_real_audio": (["--steps", "1000"], r"reconstruction RMSE: ([0-9.]+)"),
+    "separation": ([], r"mean per-source RMSE: ([0-9.]+)"),
+    "transcription": ([], r"F-measure ([0-9.]+)"),
+}
+
+
+def phase_demos() -> dict:
+    """The four demos as users run them, ``python -m
+    gpitch_tpu_torch.demos.<name>`` (no --plot), each in its own process,
+    all four at once: each prints its result line and exits 0 (its
+    threshold met)."""
+    import re
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen([sys.executable, "-m", f"gpitch_tpu_torch.demos.{name}",
+                                     *args], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                    text=True, cwd=ROOT)
+             for name, (args, _) in DEMOS.items()}
+    res = {}
+    try:
+        for name, p in procs.items():
+            so, se = p.communicate(timeout=DIST_TIMEOUT_S)
+            match = re.search(DEMOS[name][1], so)
+            steps = re.search(r"\(([0-9.]+) steps/s", so)
+            res[name] = {"rc": p.returncode, "args": DEMOS[name][0],
+                         "result": float(match.group(1)) if match else None,
+                         "steps_per_s": float(steps.group(1)) if steps else None,
+                         "lines": so.strip().splitlines()[-4:], "stderr": se[-600:]}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    out = {"phase": "demos", "seconds": time.perf_counter() - t0, **res}
+    emit(out)
+    for name, r in res.items():
+        assert r["rc"] == 0 and r["result"] is not None, f"demo {name} failed: {r}"
+    return out
+
+
 def _device_us(evt) -> float:
     for name in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(evt, name):
@@ -1834,7 +2395,7 @@ def main() -> int:
     sosp, sosp_model = phase_sosp(dev)
     phase_small(dev)
     phase_first_use()
-    full_model = phase_full(dev)
+    full_model, full_losses, full_rows = phase_full(dev)
     whiten = phase_fused_whiten(dev, sosp_model, full_model)
     del sosp_model
     torch.cuda.empty_cache()
@@ -1845,9 +2406,14 @@ def main() -> int:
     del piano
     torch.cuda.empty_cache()
     _, (svgp, x, y) = phase_modgp(dev)
-    lbfgs, lbfgs_model = phase_lbfgs(dev)
+    lbfgs, lbfgs_model, lbfgs_sub = phase_lbfgs(dev)
+    hmc, (hmc_logprob, hmc_init) = phase_hmc(dev, lbfgs_sub)
+    del lbfgs_sub
     phase_natgrad(dev)
     train = phase_kernel_train(dev)
+    dist = phase_distributed(dev, full_losses, full_rows)
+    resume = phase_resume(dev, table_bank)
+    phase_demos()
     # last: the profiler's tracing may stay attached to the process
     phase_profile([("5 bank steps", lambda: full_model.optimize(maxiter=5)),
                    ("predict_s", lambda: full_model.predict_s()),
@@ -1857,7 +2423,9 @@ def main() -> int:
                   + [("5 lag-table bank steps (amt-10s, 439 windows)",
                       lambda: _table_steps(table_bank, 5, 64)),
                      ("1 lag-table bank step (amt88-2s, 87 windows)",
-                      lambda: _table_steps(table88, 1, 16))])
+                      lambda: _table_steps(table88, 1, 16)),
+                     ("10 HMC iterations (ModGP, 4 chains, 8 leapfrog steps)",
+                      lambda: _hmc_window(hmc_logprob, hmc_init, 10))])
 
     main_chol = next(r for r in chol["cases"] if r["kind"] == "spd"
                      and r["shape"] == [sosp["windows"], 112, 112]
@@ -1874,6 +2442,10 @@ def main() -> int:
          "launches_lbfgs": lbfgs["b"]["launches"]["cholesky_batched"],
          "launches_train": train["sosp14s"]["learned"]["launches"]["cholesky_batched"],
          "launches_lag": lag["launches"]["cholesky_batched"],
+         "launches_hmc": hmc["bank"]["launches"]["cholesky_batched"],
+         "launches_dist": [r["cholesky_batched"] for r in
+                           dist["b_two_ranks_gloo_sosp14s"]["launches_per_rank"]],
+         "launches_resume": resume["a_sosp4s_fused"]["launches"]["cholesky_batched"],
          "shape": main_chol["shape"],
          "max_abs_err": main_chol["max_abs_err_plain"], "ms": main_chol["kernel_ms"],
          "plain_ms": main_chol["plain_ms"], "bound_ms": main_chol["bound_ms"],
@@ -1885,6 +2457,10 @@ def main() -> int:
          "launches": sosp["launches"]["specmix_matrix"],
          "launches_train": train["sosp14s"]["learned"]["launches"]["specmix_matrix"],
          "launches_lag": lag["launches"]["specmix_matrix"],
+         "launches_hmc": hmc["bank"]["launches"]["specmix_matrix"],
+         "launches_dist": [r["specmix_matrix"] for r in
+                           dist["b_two_ranks_gloo_sosp14s"]["launches_per_rank"]],
+         "launches_resume": resume["a_sosp4s_fused"]["launches"]["specmix_matrix"],
          "shape": main_spec["shape"],
          "max_abs_err": main_spec["max_abs_err"], "ms": main_spec["kernel_ms"],
          "plain_ms": main_spec["plain_ms"], "bound_ms": main_spec["bound_ms"],
@@ -1918,6 +2494,10 @@ def main() -> int:
                         "launches_lbfgs": lbfgs["b"]["launches"][counter],
                         "launches_train": train["sosp14s"]["learned"]["launches"][counter],
                         "launches_lag": lag["launches"][counter],
+                        "launches_hmc": hmc["bank"]["launches"][counter],
+                        "launches_dist": [r[counter] for r in
+                                          dist["b_two_ranks_gloo_sosp14s"]["launches_per_rank"]],
+                        "launches_resume": resume["a_sosp4s_fused"]["launches"][counter],
                         "entry_launches_in_d": whiten["launches"][name],
                         "shape": case_a["shape"], "max_abs_err": err, "ms": ms,
                         "plain_ms": plain, "bound_ms": tm[f"bound_{k}_ms"],
@@ -1933,4 +2513,12 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--worker"]:
+        # one rank of the distributed or resume phase: prints one JSON line
+        if not torch.cuda.is_available():
+            sys.exit(2)
+        sys.path.insert(0, ROOT)
+        kind, rank, world, store, *extra = sys.argv[2:]
+        emit(_worker(kind, int(rank), int(world), store, *extra))
+        sys.exit(0)
     sys.exit(main())

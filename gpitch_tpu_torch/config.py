@@ -14,23 +14,67 @@ import dataclasses
 import numpy as np
 import torch
 
-__all__ = ["default_jitter", "default_jitter_rel", "NumericsConfig",
-           "resolve_device", "numpy_dtype", "DEFAULT_DEVICE"]
+# the JAX package's names, less those that choose its compiler's behaviour
+# (tests/test_torch_tooling.py lists them with the reason); resolve_device,
+# numpy_dtype and DEFAULT_DEVICE are the port's own
+__all__ = ["default_float", "default_jitter", "default_jitter_rel", "set_jitter",
+           "set_jitter_rel", "NumericsConfig", "init_settings"]
 
 DEFAULT_DEVICE = "cuda"
+
+# process-wide overrides of the dtype defaults (None: the dtype's default)
+_JITTER = {"value": None}
+_JITTER_REL = {"value": None}
+
+
+def default_float() -> torch.dtype:
+    """The active float dtype: torch's default dtype (the JAX package reads
+    its x64 flag)."""
+    return torch.get_default_dtype()
 
 
 def default_jitter(dtype: torch.dtype) -> float:
     """Absolute diagonal jitter added before a Cholesky: 1e-6 in float64,
-    1e-4 in float32."""
+    1e-4 in float32, unless ``set_jitter`` overrides it."""
+    if _JITTER["value"] is not None:
+        return _JITTER["value"]
     return 1e-6 if dtype == torch.float64 else 1e-4
+
+
+def set_jitter(value: float | None) -> None:
+    """Override the absolute jitter of every dtype (``None`` restores the
+    dtype defaults)."""
+    _JITTER["value"] = value
 
 
 def default_jitter_rel(dtype: torch.dtype) -> float:
     """Relative jitter (fraction of mean(diag(K))): 0 in float64, 1e-5 in
-    float32.  ``linalg.ops.add_jitter`` raises the float32 value to
-    ``8e-7 * M`` for large M."""
+    float32, unless ``set_jitter_rel`` overrides it.
+    ``linalg.ops.add_jitter`` raises the float32 value to ``8e-7 * M`` for
+    large M."""
+    if _JITTER_REL["value"] is not None:
+        return _JITTER_REL["value"]
     return 0.0 if dtype == torch.float64 else 1e-5
+
+
+def set_jitter_rel(value: float | None) -> None:
+    """Override the relative jitter of every dtype (``None`` restores the
+    dtype defaults)."""
+    _JITTER_REL["value"] = value
+
+
+def init_settings(visible_device: str | None = None, interactive: bool = False,
+                  run_on_server: bool = True, allow_growth: bool = True):
+    """The reference's session bootstrap (it set CUDA_VISIBLE_DEVICES and
+    built a TF1 session): returns the visible devices (the CUDA cards, or
+    the CPU when there is none) and the dataset root the reference derives
+    from ``run_on_server`` ('/import/' or '/').  The other arguments are
+    accepted for the same signature and ignored, as the JAX package does."""
+    del visible_device, interactive, allow_growth
+    path = "/import/" if run_on_server else "/"
+    if torch.cuda.is_available():
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())], path
+    return [torch.device("cpu")], path
 
 
 @dataclasses.dataclass(frozen=True)

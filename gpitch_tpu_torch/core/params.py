@@ -18,10 +18,12 @@ import numpy as np
 import torch
 
 from ..config import numpy_dtype
-from .transforms import Identity, Transform
+from .transforms import Identity, Positive, Transform
 
 __all__ = ["Param", "named_params", "map_params", "map_named_params", "static_field", "trainable_tensors",
-           "copy_params", "to_device", "take_windows", "cat_windows", "load_raw"]
+           "copy_params", "to_device", "take_windows", "cat_windows", "load_raw",
+           "with_raw", "load_adam_state", "param", "positive_param", "module",
+           "constrained", "n_params"]
 
 
 class Param:
@@ -103,9 +105,53 @@ def map_named_params(obj, fn: Callable[[str, Param], Param], prefix: str = ""):
     return obj
 
 
+def with_raw(obj, leaves: dict):
+    """A copy of the tree whose Params at the paths of ``leaves`` (as
+    ``named_params`` gives them) take those tensors as their raws, not
+    detached (``Param.wrap``): a gradient flows back to ``leaves``.  Raises
+    on a path that names no Param."""
+    unknown = set(leaves) - {name for name, _ in named_params(obj)}
+    if unknown:
+        raise KeyError(f"{sorted(unknown)} name no Param of the model")
+    return map_named_params(obj, lambda name, p: Param.wrap(
+        leaves[name], p.transform, p.trainable) if name in leaves else p)
+
+
 def map_params(obj, fn: Callable[[Param], Param]):
     """A copy of the tree with ``fn`` applied to every Param."""
     return map_named_params(obj, lambda _, p: fn(p), "")
+
+
+def param(value, trainable: bool = True, dtype: torch.dtype = torch.float32,
+          device="cpu") -> Param:
+    """An unconstrained Param from a host value."""
+    return Param.create(value, Identity(), trainable, dtype, device)
+
+
+def positive_param(value, trainable: bool = True, lower: float = 1e-6,
+                   dtype: torch.dtype = torch.float32, device="cpu") -> Param:
+    """A Param constrained above ``lower`` by a softplus."""
+    return Param.create(value, Positive(lower=lower), trainable, dtype, device)
+
+
+def module(cls):
+    """Class decorator: a dataclass with a ``replace`` method, the form of
+    every model of the port (fields made by ``static_field`` hold
+    metadata, the others Params, sub-modules or tuples of them)."""
+    cls = dataclasses.dataclass(cls)
+    cls.replace = dataclasses.replace
+    return cls
+
+
+def constrained(obj):
+    """The tree with every Param replaced by its constrained value (for
+    inspection)."""
+    return map_named_params(obj, lambda _, p: p.value.detach())
+
+
+def n_params(obj) -> int:
+    """The number of scalars in the tree's Params."""
+    return int(sum(p.raw.numel() for _, p in named_params(obj)))
 
 
 def static_field(default=None, **kw):
@@ -171,3 +217,18 @@ def load_raw(model, leaves: dict) -> int:
             obj.raw.copy_(src.to(obj.raw.device))
         n += 1
     return n
+
+
+def load_adam_state(optimizer, model, mu: dict, nu: dict, count) -> None:
+    """Carry a JAX ``optax.adam`` state into the port's ``models.fit.Adam``
+    over ``model``'s trainable leaves: ``mu`` -> m, ``nu`` -> v, ``count``
+    -> t.  ``mu`` and ``nu`` are keyed as ``load_raw``'s leaves (the
+    moments have the model's own tree), so a run started in one package
+    continues in the other from the same mid-run state."""
+    moments = []
+    for tree in (mu, nu):
+        target = copy_params(model)
+        load_raw(target, tree)
+        moments.append([t.detach().clone() for t in trainable_tensors(target)])
+    optimizer.m, optimizer.v = moments
+    optimizer.t = int(np.asarray(count))

@@ -41,13 +41,18 @@ def exp_value_closed_form(mean, var, b):
     return torch.sqrt(b / (var + b)) * torch.exp(-0.5 * mean.square() / (var + b))
 
 
-def log_lik_exp(y, mean_f, var_f, e1, e2, noise_var):
+def log_lik_exp(y, mean_f, var_f, e1, e2, noise_var, reduce=None):
     """E_q[log N(y | sum_i phi(g_i) f_i, sigma^2)] with the cross terms.
-    y (N, 1); mean_f, var_f, e1, e2 (N, S).  Returns (N, 1)."""
+    y (N, 1); mean_f, var_f, e1, e2 (N, S).  Returns (N, 1).  ``reduce``
+    takes the (N, 3) sums over the sources given here and returns the sums
+    over all sources (the sources split over ranks: ``parallel.mesh``)."""
     a = e1 * mean_f
     A = a.sum(-1, keepdim=True)
     B = (e2 * (var_f + mean_f.square())).sum(-1, keepdim=True)
-    C = A.square() - a.square().sum(-1, keepdim=True)
+    sq = a.square().sum(-1, keepdim=True)
+    if reduce is not None:
+        A, B, sq = reduce(torch.cat([A, B, sq], -1)).split(1, -1)
+    C = A.square() - sq
     quad = y.square() - 2.0 * y * A + B + C
     return -0.5 * (quad / noise_var + _LOG_2PI + torch.log(noise_var))
 
@@ -91,12 +96,13 @@ class ModulatedLikelihood:
         """log N(y | sum nlin(g_i) f_i, sigma^2), (N, 1)."""
         return gaussian_logdensity(Y, self.mean_function(F), self.variance.value)
 
-    def variational_expectations(self, Fmu, Fvar, Y):
-        """(N, 1) expected log-likelihoods under q(F) = N(Fmu, Fvar)."""
+    def variational_expectations(self, Fmu, Fvar, Y, reduce=None):
+        """(N, 1) expected log-likelihoods under q(F) = N(Fmu, Fvar)
+        (``reduce``: see ``log_lik_exp``)."""
         mean_g, mean_f = self.split(Fmu)
         var_g, var_f = self.split(Fvar)
         e1, e2 = self.moments(mean_g, var_g)
-        return log_lik_exp(Y, mean_f, var_f, e1, e2, self.variance.value)
+        return log_lik_exp(Y, mean_f, var_f, e1, e2, self.variance.value, reduce)
 
 
 MpdLik = ModulatedLikelihood
@@ -117,9 +123,10 @@ class _Interleaved:
     def logp(self, F, Y):
         return super().logp(_swap_fg(F, self.num_sources), Y)
 
-    def variational_expectations(self, Fmu, Fvar, Y):
+    def variational_expectations(self, Fmu, Fvar, Y, reduce=None):
         s = self.num_sources
-        return super().variational_expectations(_swap_fg(Fmu, s), _swap_fg(Fvar, s), Y)
+        return super().variational_expectations(_swap_fg(Fmu, s), _swap_fg(Fvar, s), Y,
+                                                reduce)
 
 
 @dataclasses.dataclass

@@ -6,3 +6,9 @@ from .ops import (add_jitter, base_conditional, base_conditional_inv,  # noqa: F
                   chol_inv, conditional, gauss_kl, safe_chol_inv, safe_cholesky,
                   solve_lower, solve_upper, tri_inv_blocked)
 from .specmix import specmix_matrix, specmix_plain  # noqa: F401
+
+__all__ = [
+    "add_jitter", "safe_cholesky", "solve_lower", "solve_upper", "chol_inv",
+    "safe_chol_inv", "conditional", "base_conditional", "base_conditional_inv",
+    "gauss_kl",
+]

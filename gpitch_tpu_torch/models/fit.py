@@ -34,7 +34,7 @@ import torch
 from ..core.params import Param, copy_params, map_params, trainable_tensors
 from ._lbfgs import lbfgs_run
 
-__all__ = ["Adam", "minibatch_fn", "adam_segments", "first_segment_excess",
+__all__ = ["Adam", "adam_step_fn", "minibatch_fn", "adam_segments", "first_segment_excess",
            "fit_adam", "fit_adam_segmented", "fit_adam_timed", "ParamRows",
            "lbfgs_solve", "fit_lbfgs", "fit_modgp"]
 
@@ -85,6 +85,24 @@ class Adam:
         torch._foreach_copy_(self.params, params)
         self.m, self.v = m, v
         self.t += 1
+
+
+def adam_step_fn(loss_fn: Callable, optimizer: Adam) -> Callable:
+    """step((model, optimizer), batch) -> ((model, optimizer), loss): one
+    step of ``optimizer`` (an ``Adam`` over ``trainable_tensors(model)``,
+    which holds the moments and the count and updates the leaves in place)
+    on ``loss_fn(model, *batch)``; the loss is the value before the
+    update."""
+
+    def step(carry, batch=()):
+        model, _ = carry
+        optimizer.zero_grad()
+        loss = loss_fn(model, *batch)
+        loss.backward()
+        optimizer.step()
+        return (model, optimizer), loss.detach()
+
+    return step
 
 
 def minibatch_fn(x: torch.Tensor, y: torch.Tensor, size: int,

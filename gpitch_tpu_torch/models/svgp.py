@@ -82,6 +82,9 @@ class ModGP:
     stacked_com: bool = static_field(True)
     join_banks: bool = static_field(True)
     numerics: NumericsConfig = static_field(NumericsConfig())
+    # the process group over which the sources are split
+    # (parallel.mesh.shard_modgp_sources), or None
+    source_group: Any = static_field(None)
 
     @classmethod
     def create(cls, z, kern, nlinfun=logistic, whiten=True, noise_variance=1.0,
@@ -203,9 +206,16 @@ class ModGP:
             mean_c, var_c = self._bank("com", x)
             fmu = torch.cat([mean_a, mean_c], dim=1)
             fvar = torch.cat([var_a, var_c], dim=1)
-        var_exp = self.likelihood.variational_expectations(fmu, fvar, y)
+        reduce = None
+        if self.source_group is not None:
+            from ..parallel.mesh import sum_over_ranks
+
+            def reduce(t):
+                return sum_over_ranks(t, self.source_group)
+        var_exp = self.likelihood.variational_expectations(fmu, fvar, y, reduce=reduce)
         scale = 1.0 if num_data is None else num_data / x.shape[0]
-        return var_exp.sum() * scale - self.prior_kl()
+        kl = self.prior_kl()
+        return var_exp.sum() * scale - (kl if reduce is None else reduce(kl))
 
     def loss(self, x, y, num_data: int | None = None):
         return -self.elbo(x, y, num_data)

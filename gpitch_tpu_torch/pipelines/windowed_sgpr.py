@@ -222,32 +222,85 @@ def optimize_bank(bank, num_steps: int = 500, learning_rate: float = 0.01,
     no compile step, so first_s is the first segment's excess over the
     median of all later segments (of every chunk), and run_s the rest of
     the wall time, the split the JAX package makes for its chunked runs.
-    ``mesh``/``mesh_axis``: window-parallel distribution, not yet ported.
+
+    ``mesh`` (a DeviceMesh of ``parallel.make_mesh``): the windows split
+    over the ranks of its ``mesh_axis``, each rank training its own
+    contiguous slice (with ``window_chunk`` and ``segment`` as above) and
+    no collective inside a step; the window axis is padded to a multiple
+    of the rank count by copies of the last window, whose losses are
+    excluded exactly.  At the end one all-reduce sums the per-step loss
+    totals and one all-gather brings every rank the whole trained bank
+    (with L-BFGS also every window's losses; the solver's counts are this
+    rank's).
     """
     if method not in ("adam", "lbfgs"):
         raise ValueError(f"unknown method {method!r}")
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh=: window-parallel distribution is ROADMAP item 16, a later "
-            "slice of the PyTorch port; run on one device")
-    if method == "lbfgs":
-        bank, losses, seconds, info = _optimize_bank_lbfgs(
-            bank, num_steps, window_chunk=window_chunk)
+        bank, losses, seconds, info = _optimize_bank_mesh(
+            bank, num_steps, learning_rate, method, segment, window_chunk, mesh, mesh_axis)
     else:
-        nw = bank.X.raw.shape[0]
-        chunk = nw if window_chunk is None else max(1, window_chunk)
-        banks, losses, seconds = [], np.zeros(num_steps), []
-        for c0 in range(0, nw, chunk):
-            part = bank if chunk >= nw else take_windows(bank, slice(c0, c0 + chunk))
-            part, ls, secs = adam_segments(part, bank_loss, num_steps, learning_rate,
-                                           segment=segment or num_steps)
-            banks.append(part)
-            losses += ls
-            seconds += secs
-        bank = banks[0] if len(banks) == 1 else cat_windows(banks)
-        info = {"syncs": len(seconds)}
+        bank, losses, seconds, info = _optimize_windows(
+            bank, num_steps, learning_rate, method, segment, window_chunk)
     out = (bank, losses) + ((first_segment_excess(seconds),) if timed else ())
     return out + (info,) if return_info else out
+
+
+def _optimize_windows(bank, num_steps: int, learning_rate: float, method: str,
+                      segment: int | None, window_chunk: int | None, weights=None):
+    """One process's run of ``optimize_bank``: (bank, losses, the wall
+    seconds of each segment, info).  ``weights`` ((nw,) of 1 and 0) leaves
+    the windows of weight 0 out of the Adam losses and gradients."""
+    if method == "lbfgs":
+        return _optimize_bank_lbfgs(bank, num_steps, window_chunk=window_chunk)
+    nw = bank.X.raw.shape[0]
+    chunk = nw if window_chunk is None else max(1, window_chunk)
+    banks, losses, seconds = [], np.zeros(num_steps), []
+    for c0 in range(0, nw, chunk):
+        part = bank if chunk >= nw else take_windows(bank, slice(c0, c0 + chunk))
+        loss_fn = bank_loss
+        if weights is not None:
+            w = weights[c0:c0 + chunk]
+
+            def loss_fn(b, w=w):
+                return (b.loss() * w).sum()
+        part, ls, secs = adam_segments(part, loss_fn, num_steps, learning_rate,
+                                       segment=segment or num_steps)
+        banks.append(part)
+        losses += ls
+        seconds += secs
+    bank = banks[0] if len(banks) == 1 else cat_windows(banks)
+    return bank, losses, seconds, {"syncs": len(seconds)}
+
+
+def _optimize_bank_mesh(bank, num_steps: int, learning_rate: float, method: str,
+                        segment: int | None, window_chunk: int | None, mesh,
+                        mesh_axis: str):
+    """``optimize_bank`` over the ranks of ``mesh`` (see there)."""
+    import torch.distributed as dist
+
+    from ..parallel.mesh import (axis_info, comm_device, gather_rows, gather_windows,
+                                 repeat_last_window)
+    group, size, rank = axis_info(mesh, mesh_axis)
+    nw = bank.X.raw.shape[0]
+    per = -(-nw // size)
+    pad = per * size - nw
+    padded = repeat_last_window(bank, pad) if pad else bank
+    local = take_windows(padded, slice(rank * per, (rank + 1) * per))
+    real = min(per, max(nw - rank * per, 0))
+    weights = None
+    if real < per:
+        weights = torch.zeros(per, dtype=bank.X.raw.dtype, device=bank.X.raw.device)
+        weights[:real] = 1.0
+    local, losses, seconds, info = _optimize_windows(
+        local, num_steps, learning_rate, method, segment, window_chunk, weights)
+    if method == "lbfgs":
+        lw = info["window_losses"]
+        losses = lw[:real].astype(np.float64).sum(0)
+        info["window_losses"] = gather_rows(torch.as_tensor(lw), group)[:nw].numpy()
+    total = torch.as_tensor(losses, dtype=torch.float64, device=comm_device(group))
+    dist.all_reduce(total, group=group)
+    info.update(ranks=size, rank_windows=(rank * per, rank * per + real))
+    return gather_windows(bank, local, nw, group), total.cpu().numpy(), seconds, info
 
 
 def _optimize_bank_lbfgs(bank, num_steps: int, window_chunk: int | None = None,

@@ -443,3 +443,70 @@ def test_cuda_masked_bank_goes_through_the_cholesky_kernel(cuda):
     assert _rel(loss.double(), ref.double()) <= 1e-5
     for k, g in ref_grads.items():
         assert _rel(grads[k].double(), g.double()) <= 1e-3, k
+
+
+def test_cuda_chain_folded_bank_log_density_through_the_fused_pair(cuda, monkeypatch):
+    """HMC's chain-folded bank log density (3 chains x 4 windows in one
+    evaluation) on the card: through the Cholesky kernel and kernels A and
+    B, within 1e-5 relative of its unfused composition (values, and the
+    chains' gradients within 1e-3 of max|ref|), and each chain within 1e-5
+    of that chain alone."""
+    from gpitch_tpu_torch.core.params import named_params, with_raw
+    from gpitch_tpu_torch.linalg.chol import cholesky_batched
+    from gpitch_tpu_torch.linalg.fused_whiten import fused_whiten, fused_whiten_bwd
+    from gpitch_tpu_torch.models import model_logprob_fn
+    from gpitch_tpu_torch.models.sgpr import SGPRSS
+    bank = _lbfgs_bank(cuda, torch.float32, nw=4)
+    paths = [".kern.stacked.variance", ".kern.stacked.energy", ".kern.stacked.frequency"]
+    raws = dict(named_params(bank))
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    leaves = {p: raws[p].raw.detach()[None] * (1 + 0.01 * torch.randn(
+        (3,) + tuple(raws[p].raw.shape), generator=gen, device=cuda)) for p in paths}
+
+    def run(chains):
+        fn = model_logprob_fn(bank, with_raw)
+        ls = {k: v[chains].clone().requires_grad_(True) for k, v in leaves.items()}
+        lp = fn(ls)
+        grads = torch.autograd.grad(lp.sum(), list(ls.values()))
+        torch.cuda.synchronize()
+        return lp.detach().double(), [g.double() for g in grads]
+
+    counters = (cholesky_batched, fused_whiten, fused_whiten_bwd)
+    before = [c.launches for c in counters]
+    lp, grads = run(slice(None))
+    assert all(c.launches > b for c, b in zip(counters, before))
+    for c in range(3):
+        one, _ = run(slice(c, c + 1))
+        assert _rel(lp[c], one[0]) <= 1e-5
+    monkeypatch.setattr(SGPRSS, "fused_eligible", lambda self: False)
+    ref, ref_grads = run(slice(None))
+    assert _rel(lp, ref) <= 1e-5
+    for g, r in zip(grads, ref_grads):
+        assert _rel(g, r) <= 1e-3
+
+
+def test_cuda_one_rank_nccl_shard_map_bank_loss(cuda, tmp_path):
+    """A one-rank NCCL group: make_bank_loss_shard_map gives bank_loss's
+    value and gradients on the card (1e-6 relative)."""
+    import torch.distributed as dist
+
+    from gpitch_tpu_torch.core.params import named_params
+    from gpitch_tpu_torch.parallel import init_multihost, make_bank_loss_shard_map, make_mesh
+    from gpitch_tpu_torch.pipelines.windowed_sgpr import bank_loss
+    if dist.is_initialized():
+        pytest.skip("a process group already exists in this process")
+    assert init_multihost(f"file://{tmp_path / 'store'}", 1, 0, backend="nccl", timeout_s=60)
+    try:
+        mesh = make_mesh(1)
+        bank = _lbfgs_bank(cuda, torch.float32)
+        leaves = [p.raw for _, p in named_params(bank) if p.trainable]
+        loss = make_bank_loss_shard_map(mesh)(bank)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        ref = bank_loss(bank)
+        ref_grads = torch.autograd.grad(ref, leaves, allow_unused=True)
+        assert _rel(loss.detach().double(), ref.detach().double()) <= 1e-6
+        for g, r in zip(grads, ref_grads):
+            if r is not None:
+                assert _rel(g.double(), r.double()) <= 1e-6
+    finally:
+        dist.destroy_process_group()

@@ -234,7 +234,7 @@ def test_optimize_bank_window_chunks_are_exact(rng):
     assert np.isfinite(best) and best <= ll.min() + 1e-9 * abs(ll.min())
     with pytest.raises(ValueError, match="unknown method"):
         tws.optimize_bank(tb, num_steps=1, method="sgd")
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tws.optimize_bank(tb, num_steps=1, mesh=object())
 
 

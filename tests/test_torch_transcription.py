@@ -156,14 +156,15 @@ def test_small_amt_scoring_matches(small, tmp_path):
 def test_small_amt_timed_segments_and_chunks_are_exact(small):
     """timed=True with a fence every 2 steps and windows in chunks of 3:
     the same losses as the plain run (1e-12), and (first_s, run_s) >= 0;
-    mesh= names the ROADMAP item that ports it."""
+    a mesh= that is not a DeviceMesh raises (tests/test_torch_parallel.py
+    runs real ones)."""
     kw, _, _, _, tl = small
     tm = TAMT(**kw, device="cpu", dtype=torch.float64)
     losses, (first_s, run_s) = tm.optimize(maxiter=5, learning_rate=0.01, timed=True,
                                            window_chunk=3, segment=2)
     np.testing.assert_allclose(losses, tl, rtol=1e-12)
     assert first_s >= 0.0 and run_s > 0.0
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tm.optimize(maxiter=1, mesh=object())
 
 
