@@ -35,8 +35,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               (b) the AMT width, (c) an 88-pitch dictionary, (d) the trained
               62- and 222-window banks' own bound (AAT, Aerr and every raw
               leaf's gradient; the pair's launch counts are read over (d)),
-              (e) times at (a) and (b), and at each split of a window's
-              tiles over blocks;
+              (e) 16 sosp-4s windows at an f64 L-BFGS state
+              (tests/torch_fused_whiten_trained_state.npz): the f32
+              gradient through the pair within 2e-4 of f64; times at (a)
+              and (b), and at each split of a window's tiles over blocks;
  10. amt      transcription end to end (tests_tpu/workloads.make_amt: 1 s
               at 44.1 kHz, 43 windows, M 160, 8 pitches x 10 partials,
               y x 20): 100 Adam steps in windows of 16 held against the
@@ -110,6 +112,7 @@ Exits non-zero without printing a result when there is no CUDA device.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -1446,16 +1449,13 @@ def _whiten_bound(nw, m, n, s, p, backward):
     lower triangular in every input here (np.tril, chol_inv), so A = Linv
     Kuf is M (M + 1) N flops, and U = A A^T, symmetric, M (M + 1) N; v is
     2 M N and the build (4P + 4) S M N (a multiply-add pair per partial,
-    the envelope, the variance and the sum).  Kernel B, the fewer of two
-    associations, plus the build and the per-source sums 8 P S M N: A
-    again, dA = (dU + dU^T) A and the dense dLinv (every entry is an
-    output) 2 M^2 N each, dv err^T 2 M N and dK = Linv^T dA M (M + 1) N;
-    or, as the kernel takes it, G = dU + dU^T M^2, W = G Linv and C =
-    Linv^T W M^2 (M + 1) each, h = Linv^T dv M (M + 1), per sample dK = C
-    Kuf + h err^T 2 M^2 + 2 M, Q = Kuf Kuf^T (symmetric) M (M + 1) and r =
-    Kuf err 2 M, then Y = Linv Q M^2 (M + 1) and dLinv = G Y + dv r^T
-    2 M^3 + M^2.  Bytes: each input read once (Linv's lower triangle),
-    each output written once.
+    the envelope, the variance and the sum).  Kernel B, in the association
+    it takes (the prototype's): G = dU + dU^T M^2 per window, then per
+    sample A = Linv Kuf again M (M + 1), dA = G A + dv err^T 2 M^2 + 2 M,
+    the dense dLinv = dA Kuf^T (every entry is an output) 2 M^2 and dK =
+    Linv^T dA M (M + 1), plus the build and the per-source sums 8 P S M N.
+    Bytes: each input read once (Linv's lower triangle), each output
+    written once.
 
     Two readings of the operations.  ``fp32``: all of them at the CUDA
     cores' f32 rate.  The least time (the bound): the products (everything
@@ -1469,10 +1469,8 @@ def _whiten_bound(nw, m, n, s, p, backward):
     params = 2 * s * p + 2 * s
     linv = m * (m + 1) // 2
     if backward:
-        unfused_order = 2 * tri + 4 * m * m * n + 2 * m * n
-        kernel_order = (m * m + 3 * m * m * (m + 1) + m * (m + 1) + 2 * m * m * n
-                        + 4 * m * n + tri + 2 * m ** 3 + m * m)
-        flops = nw * (min(unfused_order, kernel_order) + build + 8 * p * s * m * n)
+        flops = nw * (m * m + 2 * tri + 4 * m * m * n + 2 * m * n + build
+                      + 8 * p * s * m * n)
         floats = nw * (linv + 2 * m * m + 2 * m + 2 * n + params) + params
     else:
         flops = nw * (2 * tri + 2 * m * n + build)
@@ -1732,6 +1730,113 @@ def _whiten_bank(name, model, dev) -> dict:
     return out
 
 
+TRAINED_STATE = os.path.join(ROOT, "tests", "torch_fused_whiten_trained_state.npz")
+TRAINED_WINDOWS = 16
+
+
+def trained_bank(device, dtype):
+    """The first 16 windows of sosp-4s at the f64 per-window L-BFGS state
+    saved in TRAINED_STATE (30 iterations: written by
+    tests/test_torch_fused_whiten_trained.py), as a bank in ``dtype``."""
+    from gpitch_tpu_torch.core.params import named_params, take_windows
+    model, _ = make_sosp(4.0, device, dtype)
+    bank = take_windows(model.bank, slice(0, TRAINED_WINDOWS))
+    state = np.load(TRAINED_STATE)
+    for key, prm in named_params(bank):
+        if key in state.files:
+            with torch.no_grad():
+                prm.raw.copy_(torch.as_tensor(state[key], dtype=prm.raw.dtype))
+    return bank
+
+
+@contextlib.contextmanager
+def f32_jitters(m: int):
+    """Within it, every dtype takes float32's jitters (1e-4 absolute, the
+    M-aware 8e-7 M relative of linalg.ops.add_jitter): an f64 evaluation
+    then arbitrates an f32 one of the same function."""
+    from gpitch_tpu_torch import config
+    config.set_jitter(config.default_jitter(torch.float32))
+    config.set_jitter_rel(max(config.default_jitter_rel(torch.float32), 8e-7 * m))
+    try:
+        yield
+    finally:
+        config.set_jitter(None)
+        config.set_jitter_rel(None)
+
+
+def bank_grad(bank) -> tuple[float, torch.Tensor]:
+    """(the bank's total loss, the gradient of the total in its trainable
+    raw leaves, flat in f64, in ``named_params`` order)."""
+    from gpitch_tpu_torch.core.params import named_params
+    raws = [p.raw for _, p in named_params(bank) if p.trainable]
+    loss = bank.loss().sum()
+    grads = torch.autograd.grad(loss, raws)
+    return float(loss.detach()), torch.cat([g.double().reshape(-1) for g in grads])
+
+
+def _whiten_trained(dev) -> dict:
+    """(e) The pair at a state that per-window L-BFGS reaches, where the
+    bound is ill-conditioned (|G| ~ 4e7): the f32 bank of TRAINED_STATE's
+    16 sosp-4s windows through its own bound (kernels A and B), its
+    gradient in the trainable raws within 2e-4 (relative norm,
+    docs/F32_ACCURACY.md) of the same bound in f64 with the f32 jitters,
+    on the card by the unfused route; and kernel B's outputs at the bound's
+    own cotangent against the f64 plain version on the same inputs, output
+    by output (reported)."""
+    import importlib
+    from gpitch_tpu_torch.core.params import Param, map_params
+    from gpitch_tpu_torch.models import sgpr
+    fw = importlib.import_module("gpitch_tpu_torch.linalg.fused_whiten")
+    bank64 = trained_bank(dev, torch.float64)
+    bank = map_params(bank64, lambda p: Param(p.raw.detach().float(), p.transform,
+                                              p.trainable))
+    m = int(bank.Z.raw.shape[-2])
+    with f32_jitters(m):
+        loss64, grad64 = bank_grad(bank64)
+    seen = {}
+
+    def spy(*args):
+        """fused_whiten, keeping its inputs and the cotangents of (U, v)."""
+        u, v = fw.fused_whiten(*args)
+        seen["args"] = [a.detach() for a in args]
+        u.register_hook(lambda g: seen.__setitem__("du", g))
+        v.register_hook(lambda g: seen.__setitem__("dv", g))
+        return u, v
+
+    fw.fused_whiten.launches = fw.fused_whiten_bwd.launches = 0
+    sgpr.fused_whiten = spy
+    try:
+        loss, grad = bank_grad(bank)
+    finally:
+        sgpr.fused_whiten = fw.fused_whiten
+    torch.cuda.synchronize()
+    out = {"phase": "fused_whiten", "case": "e_trained", "windows": TRAINED_WINDOWS, "M": m,
+           "loss": loss, "loss_f64": loss64, "value_rel": abs(loss / loss64 - 1),
+           "grad_rel_norm": float((grad - grad64).norm() / grad64.norm()), "tol": 2e-4,
+           "launches": {"fused_whiten": fw.fused_whiten.launches,
+                        "fused_whiten_bwd": fw.fused_whiten_bwd.launches}}
+    chain, du, dv = seen["args"], seen["du"].contiguous(), seen["dv"].contiguous()
+    out["max_abs_G"] = float((du + du.mT).abs().max())
+    out["max_abs_linv"] = float(chain[3].abs().max())
+    with torch.no_grad():
+        got = fw.fused_whiten_bwd(*chain[:4], du, dv, *chain[4:])
+        c64 = [a.double() for a in chain]
+        ref = fw.fused_whiten_bwd_plain(*c64[:4], du.double(), dv.double(), *c64[4:])
+        p32 = fw.fused_whiten_bwd_plain(*chain[:4], du, dv, *chain[4:])
+    out["backward"] = {}
+    for what, g, r, q in zip(("dlinv", "dvar", "dinvl", "de", "df"), got, ref, p32):
+        scale = float(r.abs().max())
+        out["backward"][what] = {
+            "max_rel_err": float((g.double() - r).abs().max()) / scale,
+            "plain_f32_max_rel_err": float((q.double() - r).abs().max()) / scale,
+            "finite": bool(torch.isfinite(g).all())}
+    out["ok"] = (out["grad_rel_norm"] <= out["tol"] and out["value_rel"] <= 1e-5
+                 and all(n > 0 for n in out["launches"].values()))
+    emit(out)
+    assert out["ok"], f"the f32 gradient at the trained state misses f64: {out}"
+    return out
+
+
 def phase_fused_whiten(dev, sosp_model, full_model) -> dict:
     """Kernels A and B: (a) the prototypes' inputs at the SoSp width (222
     windows, N 2001, M 112, S 3, P 5, 16 kHz); (b) the AMT width (43
@@ -1739,9 +1844,10 @@ def phase_fused_whiten(dev, sosp_model, full_model) -> dict:
     88-pitch dictionary (8 windows, M 160, S 88, P 20) against the f32
     plain version (and kernel A also against the f64 one); (d) the trained
     62- and 222-window SoSp banks' own bound, the launches counted over (d)
-    alone; (e) times at (a) and (b), and both
-    kernels at each split of a window's tiles over blocks at (a), at 62
-    windows of (a)'s width, and at (b)."""
+    alone; (e) the 16 windows of TRAINED_STATE, the f32 gradient against
+    f64 (``_whiten_trained``); times at (a) and (b), and both kernels at
+    each split of a window's tiles over blocks at (a), at 62 windows of
+    (a)'s width, and at (b)."""
     from gpitch_tpu_torch.linalg.fused_whiten import (fused_whiten, fused_whiten_bwd,
                                                       fused_whiten_flat)
     sosp_f0 = 261.6 * 2 ** (np.array([0, 4, 7]) / 12)
@@ -1767,6 +1873,7 @@ def phase_fused_whiten(dev, sosp_model, full_model) -> dict:
                 "fused_whiten_bwd": fused_whiten_bwd.launches}
     emit({"phase": "fused_whiten", "case": "launches_in_d", "launches": launches})
     assert all(n > 0 for n in launches.values()), f"a kernel never ran: {launches}"
+    cases["e_trained"] = _whiten_trained(dev)
     return {"cases": cases, "launches": launches}
 
 
@@ -1915,7 +2022,6 @@ def _hmc_bank(dev, bank) -> dict:
     (the noise fixed), the chains folded into the window axis.  The folded
     log density and gradient against one chain at a time, and both against
     the same evaluation in f64 (the unfused route: the pair is f32 only)."""
-    from gpitch_tpu_torch import config
     from gpitch_tpu_torch.core.params import Param, map_params, named_params, with_raw
     from gpitch_tpu_torch.models import hmc_sample, model_logprob_fn
     paths = [k for k, p in named_params(bank) if p.trainable and k.startswith(".kern.")]
@@ -1941,15 +2047,9 @@ def _hmc_bank(dev, bank) -> dict:
     # absolute, the M-aware 8e-7 M relative: linalg.ops.add_jitter)
     bank64 = map_params(bank, lambda p: Param(p.raw.detach().double(), p.transform,
                                               p.trainable))
-    m = bank.Z.raw.shape[1]
-    config.set_jitter(config.default_jitter(torch.float32))
-    config.set_jitter_rel(max(config.default_jitter_rel(torch.float32), 8e-7 * m))
-    try:
+    with f32_jitters(bank.Z.raw.shape[1]):
         lp64, grads64 = value_and_grad(model_logprob_fn(bank64, with_raw, prior_scale=1e3),
                                        {k: v.double() for k, v in chains.items()})
-    finally:
-        config.set_jitter(None)
-        config.set_jitter_rel(None)
     check = {"value_rel": 0.0, "grad_rel_norm": 0.0, "grad_rel_per_leaf": {},
              "f64_value_rel_folded": 0.0, "f64_value_rel_one": 0.0,
              "f64_grad_rel_norm_folded": 0.0, "f64_grad_rel_norm_one": 0.0}
@@ -2474,16 +2574,17 @@ def main() -> int:
     # ``launches_sosp``) and the amt phase's; kernel A's flat entry point is
     # called by no path, so row 4 counts kernel A's launches there and its
     # own entry's in run (d) of the fused_whiten phase.
+    # (``ms_b`` and ``bound*_b``: the same kernel at the AMT width, case b)
     case_a = whiten["cases"]["a_sosp"]
-    tm = case_a["times"]
-    for name, replaces, ms, err, plain, lib, k, counter in (
-            ("fused_whiten", "scripts/proto_fused_whiten.py:151", tm["kernel_A_ms"],
+    tm, tb = case_a["times"], whiten["cases"]["b_amt"]["times"]
+    for name, replaces, timed, err, plain, lib, k, counter in (
+            ("fused_whiten", "scripts/proto_fused_whiten.py:151", "kernel_A_ms",
              case_a["forward"]["fused_whiten.U"]["max_abs_err"], tm["plain_fwd_ms"],
              tm["plain_fwd_ms"], "A", "fused_whiten"),
-            ("fused_whiten_flat", "scripts/proto_fused_whiten.py:208", tm["kernel_A_flat_ms"],
+            ("fused_whiten_flat", "scripts/proto_fused_whiten.py:208", "kernel_A_flat_ms",
              case_a["forward"]["fused_whiten_flat.U"]["max_abs_err"], tm["plain_fwd_ms"],
              tm["plain_fwd_ms"], "A", "fused_whiten"),
-            ("fused_whiten_bwd", "scripts/proto_fused_whiten_bwd.py:157", tm["kernel_B_ms"],
+            ("fused_whiten_bwd", "scripts/proto_fused_whiten_bwd.py:157", "kernel_B_ms",
              max(r["max_abs_err"] for r in case_a["backward"].values()), tm["plain_bwd_ms"],
              tm["unfused_bwd_ms"], "B", "fused_whiten_bwd")):
         kernels.append({"name": name, "route": "cuda",
@@ -2499,11 +2600,14 @@ def main() -> int:
                                           dist["b_two_ranks_gloo_sosp14s"]["launches_per_rank"]],
                         "launches_resume": resume["a_sosp4s_fused"]["launches"][counter],
                         "entry_launches_in_d": whiten["launches"][name],
-                        "shape": case_a["shape"], "max_abs_err": err, "ms": ms,
+                        "shape": case_a["shape"], "max_abs_err": err, "ms": tm[timed],
                         "plain_ms": plain, "bound_ms": tm[f"bound_{k}_ms"],
                         "bound_by": tm[f"bound_{k}_by"],
                         "bound_fp32_ms": tm[f"bound_{k}_fp32_ms"],
-                        "library_ms": lib, "timed_by": "python_calls"})
+                        "library_ms": lib, "timed_by": "python_calls",
+                        "shape_b": whiten["cases"]["b_amt"]["shape"], "ms_b": tb[timed],
+                        "bound_ms_b": tb[f"bound_{k}_ms"],
+                        "bound_fp32_ms_b": tb[f"bound_{k}_fp32_ms"]})
     emit({"kernels": kernels})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(device["nvidia_smi"], flush=True)

@@ -64,6 +64,22 @@ class Param:
     def value(self) -> torch.Tensor:
         return self.transform.forward(self.raw)
 
+    def with_value(self, value) -> "Param":
+        """This Param (transform, trainability, the raw's dtype and device)
+        holding the constrained ``value``.  A tensor goes through the
+        transform's inverse in torch into a computed raw (``wrap``), which a
+        gradient flows back through, as the JAX package's inverse in jnp
+        inside a traced function; a host value becomes a leaf of its own."""
+        if isinstance(value, torch.Tensor):
+            raw = self.transform.inverse_tensor(value.to(self.raw.dtype))
+            return Param.wrap(raw, self.transform, self.trainable)
+        return Param.create(value, self.transform, self.trainable, dtype=self.raw.dtype,
+                            device=self.raw.device)
+
+    def with_trainable(self, trainable: bool) -> "Param":
+        """This Param's raw (the same storage) with ``trainable`` set."""
+        return Param(self.raw, self.transform, trainable)
+
     def __repr__(self):
         return (f"Param(shape={tuple(self.raw.shape)}, transform={self.transform},"
                 f" trainable={self.trainable})")

@@ -12,7 +12,8 @@ import dataclasses
 import numpy as np
 import torch
 
-__all__ = ["Transform", "Identity", "Positive", "Logistic", "FillTriangular"]
+__all__ = ["Transform", "Identity", "Positive", "Logistic", "FillTriangular", "positive",
+           "identity"]
 
 _SOFTPLUS_CLIP = 30.0
 
@@ -26,6 +27,10 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
 def _softplus_inv(y: np.ndarray) -> np.ndarray:
     # log(e^y - 1), stable for large y
     return np.where(y > _SOFTPLUS_CLIP, y, np.log(-np.expm1(-y)) + y)
+
+
+def _softplus_inv_tensor(y: torch.Tensor) -> torch.Tensor:
+    return torch.where(y > _SOFTPLUS_CLIP, y, torch.log(-torch.expm1(-y)) + y)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,6 +74,9 @@ class Positive(Transform):
         y = np.asarray(y)
         return _softplus_inv(np.maximum(y - self.lower, 1e-20).astype(y.dtype))
 
+    def inverse_tensor(self, y):
+        return _softplus_inv_tensor(torch.clamp(y - self.lower, min=1e-20))
+
 
 @dataclasses.dataclass(frozen=True)
 class Logistic(Transform):
@@ -85,6 +93,10 @@ class Logistic(Transform):
         t = (y - self.a) / (self.b - self.a)
         t = np.clip(t, 1e-12, 1.0 - 1e-12)
         return np.log(t) - np.log1p(-t)
+
+    def inverse_tensor(self, y):
+        t = torch.clamp((y - self.a) / (self.b - self.a), 1e-12, 1.0 - 1e-12)
+        return torch.log(t) - torch.log1p(-t)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,3 +131,7 @@ class FillTriangular(Transform):
         ii, jj = self._index()
         return y[..., torch.as_tensor(ii, device=y.device),
                  torch.as_tensor(jj, device=y.device)]
+
+
+positive = Positive()
+identity = Identity()

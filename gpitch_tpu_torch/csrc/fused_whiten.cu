@@ -77,41 +77,49 @@
 // Later work for A: wider register tiles (64-sample tiles, 4 columns a
 // thread) to halve the loads per FMA; the tensor cores through wgmma.
 //
-// Kernel B (redesigned for Hopper).  Its first form ran at 14-16% of its
-// bound: one 8-warp block per SM (a dense Linv, three (MP, 33) tiles and a
-// staging buffer in shared memory), four dense M x M x 32 products per tile
-// (A = Linv Kuf, dA = G A, dLinv += dA Kuf^T, dK = Linv^T dA) in RU x 2
+// Kernel B (redesigned for Hopper, then put back in the prototype's
+// association).  Its first form ran at 14-16% of its bound: one 8-warp
+// block per SM (a dense Linv, three (MP, 33) tiles and a staging buffer in
+// shared memory), four dense M x M x 32 products per tile in RU x 2
 // register tiles that issued a shared load per FMA, G restaged from device
-// memory at every tile (2 M^2 loads per 32 samples, half strided by M), and
-// the envelope, the mixture and the z and x features computed again in the
-// per-source pass.  The new design, by the same items:
-//   * reassociation: C = Linv^T G Linv and h = Linv^T dv once per window,
-//     then per tile dK = C Kuf + h err^T, Q += Kuf Kuf^T (symmetric, lower
-//     blocks only) and r += Kuf err; dLinv = G (Linv Q) + dv r^T once per
-//     window after the splits' sum (linear in Q and r, so the partial
-//     records still add up).  Two products per tile instead of four, one of
-//     them half; A is never formed, and G is read once per window;
-//   * the per-window products (W = G Linv, [C | h] = Linv^T [W | dv], Y =
-//     Linv Q, dLinv = [G | dv] [Y ; r^T]) are one small tiled kernel
-//     (`bwd_gemm_kernel`, 64 x 64 tiles, 4 x 4 per thread), before and
-//     after the main kernel;
-//   * shared memory holds C (MP x (MP + 4), MP = 16 RU as in kernel A),
-//     the Kuf tile, and the features of a chunk of sources: 89 KB at the
-//     SoSp width (M 112, 3 x 5), so two blocks share an SM; at M 160 one
-//     block (C alone is 105 KB), with as many sources per chunk as fit (6 of
-//     8 at the AMT width);
-//   * register tiles: thread (tid / 16, tid % 16) owns RU x 2 elements (rows
-//     16 r + tid / 16, columns 2 (tid % 16) + c) of the build, of dK and of
-//     the per-source sums, so dK never leaves registers; the C Kuf product
-//     reads 16-byte rows of C and 8-byte pairs of Kuf (RU + 4 loads per 8 RU
-//     FMAs), the Q product 8-byte pairs (2 RU loads per RU (RU + 1) FMAs);
+// memory at every tile, and the envelope, the mixture and the z and x
+// features computed again in the per-source pass.  The design, by the same
+// items:
+//   * association: the prototype's, per tile A = tril(Linv) Kuf, dA = G A +
+//     dv err^T, dLinv += dA Kuf^T and dK = tril(Linv)^T dA.  A form with
+//     C = Linv^T G Linv formed once per window (dK = C Kuf + h err^T, Q +=
+//     Kuf Kuf^T, dLinv = G (Linv Q) + dv r^T after the splits' sum) took
+//     two products a tile instead of four but lost the f32 gradient at
+//     states that L-BFGS reaches: there |G| ~ 4e7 and |Linv| ~ 1e2, C
+//     carries |Linv|^2 |G| and cancels when applied to Kuf, and the
+//     gradient of the bound came 1e-3 from f64 against 1.7e-4 in this
+//     association (tests/test_torch_fused_whiten_trained.py).  A is
+//     bounded, so nothing that large is summed.  G = dU + dU^T is formed
+//     once per block; no per-window product is left outside the kernel;
+//   * shared memory holds Linv's lower triangle as kernel A does (block
+//     rows of 16, 16-byte rows), G (MP x MP), and one space that is either
+//     the Kuf and A / dA tiles (MP x 34 each: the column reads of dLinv's
+//     product are free of bank conflicts) or the features of a chunk of
+//     sources, which serve the build before Kuf's tile is stored and the
+//     per-source sums after dA's tile is last read (so they are copied
+//     again every tile): 111 KB at the SoSp width (M 112, 3 x 5), so two
+//     blocks share an SM; at M 160 one block, with 4 of 8 sources a chunk at
+//     the AMT width;
+//   * register tiles: thread (tid / 16, tid % 16) owns RU x 2 elements
+//     (rows 16 r + tid / 16, columns 2 (tid % 16) + c) of the build, of A,
+//     dA and dK and of the per-source sums, so dK never leaves registers,
+//     and dLinv's RU x RU entries (16 a + tid / 16, 16 b + tid % 16) across
+//     the tiles.  A = tril(Linv) Kuf is kernel A's product (16-byte rows of
+//     the triangle, 8-byte pairs of Kuf); G A reads 16-byte rows of G (RU +
+//     4 loads per 8 RU FMAs); dLinv 8-byte pairs of dA and Kuf (2 RU loads
+//     per 2 RU^2 FMAs); tril(Linv)^T dA reads the triangle's columns one
+//     float at a time (a broadcast within each half warp);
 //   * features once: the z features of every pair are formed once per
-//     window (`bwd_zfeat_kernel`) and copied, not recomputed, per block (or
-//     per chunk); the tile's x features once per tile and chunk; the
-//     per-source pass runs its chunks in reverse so the last chunk's
-//     features are reused; it needs E once per element and source, and
-//     takes the mixture's sums per partial (Sa = <dK E, C_p>) instead of
-//     forming the mixture again: dvar = sum_p e_p Sa_p;
+//     window (`bwd_zfeat_kernel`) and copied, not recomputed, per chunk and
+//     tile; the tile's x features once per tile and chunk in each pass; the
+//     per-source pass needs E once per element and source, and takes the
+//     mixture's sums per partial (Sa = <dK E, C_p>) instead of forming the
+//     mixture again: dvar = sum_p e_p Sa_p;
 //   * per-source sums: each thread sums its elements, a warp adds its lanes
 //     with a butterfly, lane 0 adds into its warp's slots in shared memory,
 //     and one thread per output adds the 8 warps in order into the block's
@@ -127,8 +135,9 @@
 // record that a second kernel adds in a fixed order (no atomics: a run is
 // bit-for-bit reproducible); 256 threads as 16 x 16; M is padded to MP = 16
 // RU (RU in 1, 2, 4, 7, 10: M <= 160) with zeros.
-// Later work for B: Linv's triangle in the per-window products, 3xTF32
-// tensor-core products for C Kuf, Q and the per-source sums.
+// Later work for B: the transposed triangle for tril(Linv)^T dA (16-byte
+// rows instead of single floats), wider register tiles, and the products
+// on the tensor cores in 3xTF32 through wgmma.
 
 #include <cuda_runtime.h>
 
@@ -487,53 +496,55 @@ __global__ void __launch_bounds__(kThreads, RU >= 10 ? 1 : 2) fused_whiten_fwd_k
 }
 
 // ------------------------------------------------------------- kernel B
-constexpr int kKP = kTile + 4;        // pitch of kernel B's Kuf tile (16-byte rows)
-constexpr int kGemmTile = 64;         // output tile of the per-window products
-constexpr int kGemmK = 16;            // their depth step
+constexpr int kBP = kTile + 2;        // pitch of kernel B's Kuf and A / dA tiles
 
 struct BwdArgs {
   const float* zc;      // as in Args
   const float* xc;
   const float* err;
-  const float* linv;
+  const float* linv;    // read below the diagonal and on it only, as in kernel A
   const float* energy;
   const float* freq;
   const float* var;
   const float* inv_l;
   const float* du;      // (nw, M, M)
   const float* dv;      // (nw, M)
-  float* ws;            // (nw, wsz): [W, later Y (M M) | C, h (M, M + 1) | z features]
-  float* part;          // (nw, splits, rec): [Q (M M), r (M), dvar (S), dinvl (S), de, df]
+  float* ws;            // (nw, wsz): the z features
+  float* part;          // (nw, splits, rec): [dLinv (M M), dvar (S), dinvl (S), de, df]
   float* sums;          // (nw, rec): the splits' sum (part itself when splits == 1)
-  float* dl;            // (nw, M, M): dLinv
   int e_stride, v_stride, M, N, S, P, splits, rec, wsz, mp, chunk_sources;
 };
 
-// Floats per window of kernel B's workspace: W then Y (M M), [C | h]
-// (M (M + 1)), and the z features cos, sin (S P, 2, MP).
+// Floats per window of kernel B's workspace: the z features cos, sin
+// (S P, 2, MP).
 __host__ __device__ inline int bwd_workspace(int M, int S, int P) {
-  return 2 * M * M + M + S * P * 2 * padded_m(M);
+  return S * P * 2 * padded_m(M);
 }
 
 struct BwdLayout {
-  int cm, kt, xf, zf, z, h, x, err, pe, pf, pv, pil, red, total;
+  int tri, g, kt, at, xf, zf, z, dv, x, err, pe, pf, pv, pil, red, total;
 };
 
 // Shared memory of the main kernel (floats; every array starts 16-byte
-// aligned): C (MP rows, pitch MP + 4), the Kuf tile (MP, kKP), the x and z
-// features of a chunk of sc sources ([cos | sin] rows per pair), z, h, the
-// tile's x and err, the chunk's parameters, and each warp's partial sums
-// (3 per pair).
-__host__ __device__ inline BwdLayout make_bwd_layout(int mp, int sc, int P) {
-  const int pairs = sc * P;
+// aligned): Linv's triangle (as kernel A holds it), G = dU + dU^T (MP x
+// MP), then one space that holds either the Kuf tile and the A / dA tile
+// (MP x kBP each) or the x and z features of a chunk of sc sources ([cos |
+// sin] rows per pair): the features serve the build, before Kuf's tile is
+// stored, and the per-source sums, after dA's tile is last read.  Then z,
+// dv, the tile's x and err, the chunk's parameters, and each warp's
+// partial sums (3 per pair).
+__host__ __device__ inline BwdLayout make_bwd_layout(int ru, int sc, int P) {
+  const int mp = 16 * ru, pairs = sc * P;
+  const int tiles = 2 * mp * kBP, feats = pairs * 2 * (kTile + mp);
   BwdLayout l;
   int o = 0;
-  l.cm = o;  o += mp * (mp + 4);
-  l.kt = o;  o += mp * kKP;
-  l.xf = o;  o += pairs * 2 * kTile;
-  l.zf = o;  o += pairs * 2 * mp;
+  l.tri = o; o += tri_offset(ru);
+  l.g = o;   o += mp * mp;
+  l.kt = o;  l.at = o + mp * kBP;
+  l.xf = o;  l.zf = o + pairs * 2 * kTile;
+  o += tiles > feats ? tiles : feats;
   l.z = o;   o += mp;
-  l.h = o;   o += mp;
+  l.dv = o;  o += mp;
   l.x = o;   o += kTile;
   l.err = o; o += kTile;
   l.pe = o;  o += round4(pairs);
@@ -551,7 +562,7 @@ __global__ void bwd_zfeat_kernel(BwdArgs a) {
   const int w = blockIdx.y, mp = a.mp, n = a.S * a.P * mp;
   const float* z = a.zc + static_cast<int64_t>(w) * a.M;
   const float* f = a.freq + static_cast<int64_t>(w) * a.e_stride;
-  float* zf = a.ws + static_cast<int64_t>(w) * a.wsz + 2 * a.M * a.M + a.M;
+  float* zf = a.ws + static_cast<int64_t>(w) * a.wsz;
   const int first = static_cast<int>(blockIdx.x) * 1024, stop = min(n, first + 1024);
   for (int idx = first + static_cast<int>(threadIdx.x); idx < stop; idx += kThreads) {
     const int q = idx / mp, i = idx - q * mp;
@@ -560,86 +571,6 @@ __global__ void bwd_zfeat_kernel(BwdArgs a) {
     zf[2 * q * mp + i] = cs;
     zf[(2 * q + 1) * mp + i] = sn;
   }
-}
-
-// The per-window products, out = A B over depth K, one 64 x 64 tile per
-// block, 4 x 4 outputs per thread:
-//   kOpW   W = G Linv                        (G = dU + dU^T)
-//   kOpCh  [C | h] = Linv^T [W | dv]          (before the main kernel)
-//   kOpY   Y = Linv Q                         (Q from the splits' sum)
-//   kOpDl  dLinv = [G | dv] [Y ; r^T]         (K = M + 1)
-enum { kOpW, kOpCh, kOpY, kOpDl };
-
-template <int OP>
-__device__ __forceinline__ float gemm_a(const BwdArgs& a, int w, int i, int k) {
-  const int M = a.M;
-  const int64_t mm = static_cast<int64_t>(w) * M * M;
-  if (OP == kOpW || OP == kOpDl) {
-    if (k == M) return a.dv[static_cast<int64_t>(w) * M + i];
-    return a.du[mm + i * M + k] + a.du[mm + k * M + i];
-  }
-  if (OP == kOpCh) return a.linv[mm + k * M + i];
-  return a.linv[mm + i * M + k];
-}
-
-template <int OP>
-__device__ __forceinline__ float gemm_b(const BwdArgs& a, int w, int k, int j) {
-  const int M = a.M;
-  const float* ws = a.ws + static_cast<int64_t>(w) * a.wsz;
-  if (OP == kOpW) return a.linv[static_cast<int64_t>(w) * M * M + k * M + j];
-  if (OP == kOpCh) return j == M ? a.dv[static_cast<int64_t>(w) * M + k] : ws[k * M + j];
-  const float* sums = a.sums + static_cast<int64_t>(w) * a.rec;
-  if (OP == kOpY) return sums[k * M + j];
-  return k == M ? sums[M * M + j] : ws[k * M + j];
-}
-
-template <int OP>
-__global__ void __launch_bounds__(kThreads) bwd_gemm_kernel(BwdArgs a) {
-  __shared__ float as[kGemmK][kGemmTile + 1];
-  __shared__ float bs[kGemmK][kGemmTile];
-  const int M = a.M, K = OP == kOpDl ? M + 1 : M, ncol = OP == kOpCh ? M + 1 : M;
-  const int w = blockIdx.z, i0 = blockIdx.y * kGemmTile, j0 = blockIdx.x * kGemmTile;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  float acc[4][4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
-  for (int k0 = 0; k0 < K; k0 += kGemmK) {
-    for (int e = tid; e < kGemmK * kGemmTile; e += kThreads) {
-      // A is read along its rows (k fastest) except Linv^T (i fastest)
-      const int kk = OP == kOpCh ? e / kGemmTile : e % kGemmK;
-      const int ii = OP == kOpCh ? e % kGemmTile : e / kGemmK;
-      as[kk][ii] = (i0 + ii < M && k0 + kk < K) ? gemm_a<OP>(a, w, i0 + ii, k0 + kk) : 0.f;
-      const int kb = e / kGemmTile, jj = e % kGemmTile;
-      bs[kb][jj] = (j0 + jj < ncol && k0 + kb < K) ? gemm_b<OP>(a, w, k0 + kb, j0 + jj) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kGemmK; ++kk) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) av[r] = as[kk][ty + 16 * r];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) bv[c] = bs[kk][tx + 16 * c];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[r][c] += av[r] * bv[c];
-    }
-    __syncthreads();
-  }
-  float* out;
-  if (OP == kOpW || OP == kOpY) out = a.ws + static_cast<int64_t>(w) * a.wsz;
-  else if (OP == kOpCh) out = a.ws + static_cast<int64_t>(w) * a.wsz + M * M;
-  else out = a.dl + static_cast<int64_t>(w) * M * M;
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int i = i0 + ty + 16 * r, j = j0 + tx + 16 * c;
-      if (i < M && j < ncol) out[i * ncol + j] = acc[r][c];
-    }
 }
 
 // Sources s0 .. s0 + ns - 1 of window w: parameters, and their z features
@@ -658,9 +589,10 @@ __device__ void bwd_chunk(const BwdArgs& a, float* sm, const BwdLayout& l, int w
     sm[l.pv + q] = a.var[vb + q];
     sm[l.pil + q] = a.inv_l[vb + q];
   }
-  const float* src = a.ws + static_cast<int64_t>(w) * a.wsz + 2 * a.M * a.M + a.M +
-                     static_cast<int64_t>(s0) * P * 2 * mp;
-  for (int q = threadIdx.x; q < np * 2 * mp; q += kThreads) sm[l.zf + q] = src[q];
+  const float4* src = reinterpret_cast<const float4*>(
+      a.ws + static_cast<int64_t>(w) * a.wsz + static_cast<int64_t>(s0) * P * 2 * mp);
+  float4* dst = reinterpret_cast<float4*>(sm + l.zf);
+  for (int q = threadIdx.x; q < np * mp / 2; q += kThreads) dst[q] = src[q];
 }
 
 // The tile's x features cos, sin(2 pi f_q x_t) of the chunk's np pairs.
@@ -717,68 +649,80 @@ __device__ void bwd_flush(const BwdArgs& a, float* sm, const BwdLayout& l, float
   __syncthreads();
 }
 
-// The main kernel: per tile of 32 samples, Kuf's tile into shared memory,
-// dK = C Kuf + h err^T in registers, Q += Kuf Kuf^T and r += Kuf err, then
-// the per-source sums of dK E against the features.  Thread (ty, tx) =
-// (tid / 16, tid % 16) owns the elements (ty + 16 r, 2 tx + c) of the
-// build, of dK and of the sums, and Q's entries (16 a + ty, 16 b + tx),
-// b <= a, in registers across the tiles.  M is padded to MP = 16 RU.
+// The main kernel: per tile of 32 samples, Kuf's tile, A = tril(Linv) Kuf,
+// dA = G A + dv err^T, dLinv += dA Kuf^T, dK = tril(Linv)^T dA, then the
+// per-source sums of dK E against the features.  Thread (ty, tx) = (tid /
+// 16, tid % 16) owns the elements (ty + 16 r, 2 tx + c) of the build, of
+// A, dA and dK and of the sums, and dLinv's entries (16 a + ty, 16 b + tx)
+// in registers across the tiles.  M is padded to MP = 16 RU.
 template <int RU>
 __global__ void __launch_bounds__(kThreads, RU >= 10 ? 1 : 2) fused_whiten_bwd_kernel(BwdArgs a) {
-  constexpr int MP = 16 * RU, CP = MP + 4, NQ = RU * (RU + 1) / 2;
+  constexpr int MP = 16 * RU;
   extern __shared__ __align__(16) float sm[];
-  const int M = a.M, P = a.P, S = a.S, sc = a.chunk_sources, cpairs = sc * P;
-  const BwdLayout l = make_bwd_layout(MP, sc, P);
+  const int M = a.M, N = a.N, P = a.P, S = a.S, sc = a.chunk_sources, cpairs = sc * P;
+  const BwdLayout l = make_bwd_layout(RU, sc, P);
   const int w = blockIdx.y, tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int ty = tid / 16, tx = tid % 16;
   const int nchunks = (S + sc - 1) / sc;
-  const float* ch = a.ws + static_cast<int64_t>(w) * a.wsz + M * M;
+  const int64_t mm = static_cast<int64_t>(w) * M * M;
   float* rec = a.part + (static_cast<int64_t>(w) * a.splits + blockIdx.x) * a.rec;
-  float* rsrc = rec + M * M + M;
+  float* rsrc = rec + M * M;
   for (int q = tid; q < 2 * S + 2 * S * P; q += kThreads) rsrc[q] = 0.f;
-  const int m4 = round4(M);
-  for (int idx = tid; idx < MP * m4; idx += kThreads) {
-    const int i = idx / m4, k = idx - i * m4;
-    sm[l.cm + i * CP + k] = (i < M && k < M) ? ch[i * (M + 1) + k] : 0.f;
+#pragma unroll
+  for (int r = 0; r < RU; ++r) {
+    const int cols = 16 * (r + 1);
+    float* dst = sm + l.tri + tri_offset(r);
+    for (int idx = tid; idx < 16 * cols; idx += kThreads) {
+      const int ii = idx / cols, k = idx - ii * cols, i = 16 * r + ii;
+      dst[ii * tri_pitch(r) + k] = (k <= i && i < M) ? a.linv[mm + i * M + k] : 0.f;
+    }
+  }
+  for (int idx = tid; idx < MP * MP; idx += kThreads) {
+    const int i = idx / MP, k = idx - i * MP;
+    sm[l.g + idx] = (i < M && k < M) ? a.du[mm + i * M + k] + a.du[mm + k * M + i] : 0.f;
   }
   for (int i = tid; i < MP; i += kThreads) {
-    sm[l.h + i] = i < M ? ch[i * (M + 1) + M] : 0.f;
     sm[l.z + i] = i < M ? a.zc[static_cast<int64_t>(w) * M + i] : 0.f;
+    sm[l.dv + i] = i < M ? a.dv[static_cast<int64_t>(w) * M + i] : 0.f;
   }
   for (int q = tid; q < kWarps * cpairs * 3; q += kThreads) sm[l.red + q] = 0.f;
-  if (nchunks == 1) bwd_chunk(a, sm, l, w, 0, S);
   __syncthreads();
   float zr[RU];
 #pragma unroll
   for (int r = 0; r < RU; ++r) zr[r] = sm[l.z + ty + 16 * r];
-  float qacc[NQ];
+  float dl[RU][RU];
 #pragma unroll
-  for (int q = 0; q < NQ; ++q) qacc[q] = 0.f;
-  float racc = 0.f;
+  for (int u = 0; u < RU; ++u)
+#pragma unroll
+    for (int b = 0; b < RU; ++b) dl[u][b] = 0.f;
+  float* kt = sm + l.kt;
+  float* at = sm + l.at;
   int begin, end;
-  tile_range(a.N, a.splits, &begin, &end);
+  tile_range(N, a.splits, &begin, &end);
   for (int tile = begin; tile < end; ++tile) {
     const int t0 = tile * kTile;
-    __syncthreads();    // the last tile's readers of x, err, Kuf and features are done
+    __syncthreads();    // the last tile's readers of x, err and the features are done
     if (tid < kTile) {
       const int t = t0 + tid;
-      const int64_t g = static_cast<int64_t>(w) * a.N + t;
-      sm[l.x + tid] = t < a.N ? a.xc[g] : 0.f;
-      sm[l.err + tid] = t < a.N ? a.err[g] : 0.f;
+      const int64_t g = static_cast<int64_t>(w) * N + t;
+      sm[l.x + tid] = t < N ? a.xc[g] : 0.f;
+      sm[l.err + tid] = t < N ? a.err[g] : 0.f;
     }
-    __syncthreads();
-    const float xt[2] = {sm[l.x + 2 * tx], sm[l.x + 2 * tx + 1]};
+    float xt[2];
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int t = t0 + 2 * tx + c;
+      xt[c] = t < N ? a.xc[static_cast<int64_t>(w) * N + t] : 0.f;
+    }
     // ---- the build: Kuf = sum_s var_s E_s mix_s
     float kacc[RU][2];
 #pragma unroll
     for (int r = 0; r < RU; ++r) kacc[r][0] = kacc[r][1] = 0.f;
     for (int ck = 0; ck < nchunks; ++ck) {
       const int s0 = ck * sc, ns = min(sc, S - s0);
-      if (nchunks > 1) {
-        if (ck > 0) __syncthreads();
-        bwd_chunk(a, sm, l, w, s0, ns);
-        __syncthreads();
-      }
+      if (ck > 0) __syncthreads();
+      bwd_chunk(a, sm, l, w, s0, ns);
+      __syncthreads();
       bwd_xfeat(sm, l, ns * P);
       __syncthreads();
       for (int sl = 0; sl < ns; ++sl) {
@@ -807,72 +751,133 @@ __global__ void __launch_bounds__(kThreads, RU >= 10 ? 1 : 2) fused_whiten_bwd_k
             kacc[r][c] += vs * expf(-fabsf(zr[r] - xt[c]) * il) * mix[r][c];
       }
     }
+    __syncthreads();    // every reader of the features is done: Kuf's tile takes their place
 #pragma unroll
     for (int r = 0; r < RU; ++r) {
       const int i = ty + 16 * r, t = t0 + 2 * tx;
       float2 v;
-      v.x = (i < M && t < a.N) ? kacc[r][0] : 0.f;
-      v.y = (i < M && t + 1 < a.N) ? kacc[r][1] : 0.f;
-      *reinterpret_cast<float2*>(sm + l.kt + i * kKP + 2 * tx) = v;
+      v.x = (i < M && t < N) ? kacc[r][0] : 0.f;
+      v.y = (i < M && t + 1 < N) ? kacc[r][1] : 0.f;
+      *reinterpret_cast<float2*>(kt + i * kBP + 2 * tx) = v;
     }
     __syncthreads();
-    // ---- dK = C Kuf + h err^T (registers)
-    float dk[RU][2];
+    // ---- A = tril(Linv) Kuf (kernel A's product): for each 16-block kb of
+    // k, the block rows r >= kb
+    float acc[RU][2];
+#pragma unroll
+    for (int r = 0; r < RU; ++r) acc[r][0] = acc[r][1] = 0.f;
+#pragma unroll 1
+    for (int kb = 0; kb < RU; ++kb) {
+      float2 kv[16];
+#pragma unroll
+      for (int kk = 0; kk < 16; ++kk)
+        kv[kk] = *reinterpret_cast<const float2*>(kt + (16 * kb + kk) * kBP + 2 * tx);
+#pragma unroll
+      for (int r = 0; r < RU; ++r) {
+        if (r < kb) continue;
+        const float* row = sm + l.tri + tri_offset(r) + ty * tri_pitch(r) + 16 * kb;
+#pragma unroll
+        for (int k4 = 0; k4 < 16; k4 += 4) {
+          const float4 lv = *reinterpret_cast<const float4*>(row + k4);
+          const float lk[4] = {lv.x, lv.y, lv.z, lv.w};
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            acc[r][0] += lk[kk] * kv[k4 + kk].x;
+            acc[r][1] += lk[kk] * kv[k4 + kk].y;
+          }
+        }
+      }
+    }
+    // A's tile lies over the features, whose readers passed the last barrier
+#pragma unroll
+    for (int r = 0; r < RU; ++r)
+      *reinterpret_cast<float2*>(at + (ty + 16 * r) * kBP + 2 * tx) =
+          make_float2(acc[r][0], acc[r][1]);
+    __syncthreads();
+    // ---- dA = G A + dv err^T (registers; acc holds it)
     {
       const float e0 = sm[l.err + 2 * tx], e1 = sm[l.err + 2 * tx + 1];
 #pragma unroll
       for (int r = 0; r < RU; ++r) {
-        const float hv = sm[l.h + ty + 16 * r];
-        dk[r][0] = hv * e0;
-        dk[r][1] = hv * e1;
+        const float dvr = sm[l.dv + ty + 16 * r];
+        acc[r][0] = dvr * e0;
+        acc[r][1] = dvr * e1;
       }
     }
-    for (int k = 0; k < m4; k += 4) {
-      float4 cv[RU];
-      float2 kv[4];
+    for (int k = 0; k < MP; k += 4) {
+      float4 gv[RU];
+      float2 av[4];
 #pragma unroll
       for (int r = 0; r < RU; ++r)
-        cv[r] = *reinterpret_cast<const float4*>(sm + l.cm + (ty + 16 * r) * CP + k);
+        gv[r] = *reinterpret_cast<const float4*>(sm + l.g + (ty + 16 * r) * MP + k);
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        kv[kk] = *reinterpret_cast<const float2*>(sm + l.kt + (k + kk) * kKP + 2 * tx);
+        av[kk] = *reinterpret_cast<const float2*>(at + (k + kk) * kBP + 2 * tx);
 #pragma unroll
       for (int r = 0; r < RU; ++r) {
-        const float cr[4] = {cv[r].x, cv[r].y, cv[r].z, cv[r].w};
+        const float gr[4] = {gv[r].x, gv[r].y, gv[r].z, gv[r].w};
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) {
-          dk[r][0] += cr[kk] * kv[kk].x;
-          dk[r][1] += cr[kk] * kv[kk].y;
+          acc[r][0] += gr[kk] * av[kk].x;
+          acc[r][1] += gr[kk] * av[kk].y;
         }
       }
     }
-    // ---- Q += Kuf Kuf^T (lower blocks), r += Kuf err
+    __syncthreads();    // every reader of A is done: dA takes its place
+#pragma unroll
+    for (int r = 0; r < RU; ++r)
+      *reinterpret_cast<float2*>(at + (ty + 16 * r) * kBP + 2 * tx) =
+          make_float2(acc[r][0], acc[r][1]);
+    __syncthreads();
+    // ---- dLinv += dA Kuf^T (dense: every entry is an output)
 #pragma unroll 2
     for (int t = 0; t < kTile; t += 2) {
       float2 rv[RU], cv[RU];
 #pragma unroll
       for (int u = 0; u < RU; ++u) {
-        rv[u] = *reinterpret_cast<const float2*>(sm + l.kt + (16 * u + ty) * kKP + t);
-        cv[u] = *reinterpret_cast<const float2*>(sm + l.kt + (16 * u + tx) * kKP + t);
+        rv[u] = *reinterpret_cast<const float2*>(at + (16 * u + ty) * kBP + t);
+        cv[u] = *reinterpret_cast<const float2*>(kt + (16 * u + tx) * kBP + t);
       }
-      int q = 0;
 #pragma unroll
       for (int u = 0; u < RU; ++u)
 #pragma unroll
-        for (int b = 0; b <= u; ++b, ++q) qacc[q] += rv[u].x * cv[b].x + rv[u].y * cv[b].y;
+        for (int b = 0; b < RU; ++b) {
+          dl[u][b] += rv[u].x * cv[b].x;
+          dl[u][b] += rv[u].y * cv[b].y;
+        }
     }
-    if (tid < M)
-      for (int t = 0; t < kTile; ++t) racc += sm[l.kt + tid * kKP + t] * sm[l.err + t];
-    // ---- per-source sums; the last chunk's features are still loaded
-    for (int ck = nchunks - 1; ck >= 0; --ck) {
-      const int s0 = ck * sc, ns = min(sc, S - s0);
-      if (ck != nchunks - 1) {
-        __syncthreads();
-        bwd_chunk(a, sm, l, w, s0, ns);
-        __syncthreads();
-        bwd_xfeat(sm, l, ns * P);
-        __syncthreads();
+    // ---- dK = tril(Linv)^T dA: for each 16-block kb of k, the block rows
+    // r <= kb, Linv's columns read down the triangle's block row kb
+    float dk[RU][2];
+#pragma unroll
+    for (int r = 0; r < RU; ++r) dk[r][0] = dk[r][1] = 0.f;
+#pragma unroll 1
+    for (int kb = 0; kb < RU; ++kb) {
+      float2 dak[16];
+#pragma unroll
+      for (int kk = 0; kk < 16; ++kk)
+        dak[kk] = *reinterpret_cast<const float2*>(at + (16 * kb + kk) * kBP + 2 * tx);
+      const float* blk = sm + l.tri + tri_offset(kb) + ty;
+      const int pitch = tri_pitch(kb);
+#pragma unroll
+      for (int r = 0; r < RU; ++r) {
+        if (r > kb) continue;
+#pragma unroll
+        for (int kk = 0; kk < 16; ++kk) {
+          const float lv = blk[kk * pitch + 16 * r];
+          dk[r][0] += lv * dak[kk].x;
+          dk[r][1] += lv * dak[kk].y;
+        }
       }
+    }
+    // ---- per-source sums; the features take the tiles' place again
+    for (int ck = 0; ck < nchunks; ++ck) {
+      const int s0 = ck * sc, ns = min(sc, S - s0);
+      __syncthreads();    // the tiles' readers (or the last flush) are done
+      bwd_chunk(a, sm, l, w, s0, ns);
+      __syncthreads();
+      bwd_xfeat(sm, l, ns * P);
+      __syncthreads();
       for (int sl = 0; sl < ns; ++sl) {
         const float il = sm[l.pil + sl];
         // dK E, dK E |z - x| and dK E (z - x) of the thread's elements
@@ -908,19 +913,15 @@ __global__ void __launch_bounds__(kThreads, RU >= 10 ? 1 : 2) fused_whiten_bwd_k
       if (nchunks > 1) bwd_flush(a, sm, l, rsrc, s0, ns, cpairs);
     }
   }
-  if (nchunks == 1) bwd_flush(a, sm, l, rsrc, 0, S, cpairs);
-  int q = 0;
+  // (a block without a tile has no chunk's parameters loaded, and nothing to add)
+  if (nchunks == 1 && begin < end) bwd_flush(a, sm, l, rsrc, 0, S, cpairs);
 #pragma unroll
   for (int u = 0; u < RU; ++u)
 #pragma unroll
-    for (int b = 0; b <= u; ++b, ++q) {
+    for (int b = 0; b < RU; ++b) {
       const int i = 16 * u + ty, j = 16 * b + tx;
-      if (i < M && j < M) {
-        rec[i * M + j] = qacc[q];
-        if (b != u) rec[j * M + i] = qacc[q];
-      }
+      if (i < M && j < M) rec[i * M + j] = dl[u][b];
     }
-  if (tid < M) rec[M * M + tid] = racc;
 }
 
 // out[w][e] = sum over splits of part[w][split][e], splits in order.
@@ -1028,38 +1029,25 @@ int fwd_dispatch(Args a, int nw, void* out, void* stream, int* splits_out = null
   return static_cast<int>(err);
 }
 
-template <int OP>
-cudaError_t gemm(const BwdArgs& a, int nw, cudaStream_t stream) {
-  const int ncol = OP == kOpCh ? a.M + 1 : a.M;
-  const dim3 grid((ncol + kGemmTile - 1) / kGemmTile, (a.M + kGemmTile - 1) / kGemmTile, nw);
-  bwd_gemm_kernel<OP><<<grid, kThreads, 0, stream>>>(a);
-  return cudaGetLastError();
-}
-
-// Kernel B: the z features and [C | h] per window, the main kernel, the
-// splits' sum, then Y and dLinv per window; or, with `splits_out`, only
-// the split that `plan_splits` picks for the main kernel.
+// Kernel B: the z features per window, the main kernel and the splits'
+// sum; or, with `splits_out`, only the split that `plan_splits` picks for
+// the main kernel.
 template <int RU>
 cudaError_t bwd_run(BwdArgs a, int nw, cudaStream_t stream, int* splits_out) {
   static std::atomic<int> allowed[kMaxDevices];
   const void* fn = reinterpret_cast<const void*>(&fused_whiten_bwd_kernel<RU>);
-  const int smem = static_cast<int>(sizeof(float) * make_bwd_layout(16 * RU, a.chunk_sources, a.P).total);
+  const int smem = static_cast<int>(sizeof(float) * make_bwd_layout(RU, a.chunk_sources, a.P).total);
   cudaError_t err = allow_shared(fn, smem, allowed);
   if (err != cudaSuccess) return err;
   if (splits_out) return plan_splits(fn, smem, a.N, nw, splits_out);
   const int zblocks = (a.S * a.P * a.mp + 1023) / 1024;
   bwd_zfeat_kernel<<<dim3(zblocks, nw), kThreads, 0, stream>>>(a);
   err = cudaGetLastError();
-  if (err == cudaSuccess) err = gemm<kOpW>(a, nw, stream);
-  if (err == cudaSuccess) err = gemm<kOpCh>(a, nw, stream);
   if (err != cudaSuccess) return err;
   fused_whiten_bwd_kernel<RU><<<dim3(a.splits, nw), kThreads, smem, stream>>>(a);
   err = cudaGetLastError();
-  if (err == cudaSuccess && a.splits > 1)
-    err = reduce_splits(a.part, a.sums, nw, a.rec, a.splits, stream);
-  if (err == cudaSuccess) err = gemm<kOpY>(a, nw, stream);
-  if (err == cudaSuccess) err = gemm<kOpDl>(a, nw, stream);
-  return err;
+  if (err != cudaSuccess || a.splits == 1) return err;
+  return reduce_splits(a.part, a.sums, nw, a.rec, a.splits, stream);
 }
 
 int bwd_dispatch(BwdArgs a, int nw, void* stream, int* splits_out = nullptr) {
@@ -1067,9 +1055,9 @@ int bwd_dispatch(BwdArgs a, int nw, void* stream, int* splits_out = nullptr) {
   if (nw == 0 || a.M == 0) return 0;
   a.mp = padded_m(a.M);
   a.chunk_sources =
-      chunk_sources(a.S, [&](int sc) { return 4 * make_bwd_layout(a.mp, sc, a.P).total; });
+      chunk_sources(a.S, [&](int sc) { return 4 * make_bwd_layout(a.mp / 16, sc, a.P).total; });
   if (a.chunk_sources == 0) return static_cast<int>(cudaErrorInvalidValue);
-  a.rec = a.M * a.M + a.M + 2 * a.S + 2 * a.S * a.P;
+  a.rec = a.M * a.M + 2 * a.S + 2 * a.S * a.P;
   a.wsz = bwd_workspace(a.M, a.S, a.P);
   if (a.splits == 1) a.sums = a.part;
   auto* s = static_cast<cudaStream_t>(stream);
@@ -1110,8 +1098,8 @@ Args make_args(const void* zc, const void* xc, const void* err, const void* linv
 BwdArgs make_bwd_args(const void* zc, const void* xc, const void* err, const void* linv,
                       const void* energy, const void* freq, const void* var,
                       const void* inv_l, const void* du, const void* dv, void* part,
-                      void* sums, void* ws, void* dl, int e_stride, int v_stride, int M,
-                      int N, int S, int P, int splits) {
+                      void* sums, void* ws, int e_stride, int v_stride, int M, int N, int S,
+                      int P, int splits) {
   BwdArgs a{};
   a.zc = static_cast<const float*>(zc);
   a.xc = static_cast<const float*>(xc);
@@ -1126,7 +1114,6 @@ BwdArgs make_bwd_args(const void* zc, const void* xc, const void* err, const voi
   a.part = static_cast<float*>(part);
   a.sums = static_cast<float*>(sums);
   a.ws = static_cast<float*>(ws);
-  a.dl = static_cast<float*>(dl);
   a.e_stride = e_stride;
   a.v_stride = v_stride;
   a.M = M;
@@ -1162,19 +1149,18 @@ int gpitch_fused_whiten_fwd(const void* zc, const void* xc, const void* err, con
 // Floats per window of kernel A's scratch `ws`.
 int gpitch_fused_whiten_fwd_workspace(int M, int S, int P) { return fwd_workspace(M, S, P); }
 
-// Kernel B.  As kernel A, plus du (nw, M, M) and dv (nw, M, 1).  part
-// (nw, splits, rec) receives each block's [Q (M M), r (M), dvar (S),
-// dinvl (S), de (S P), df (S P)] and sums (nw, rec) their sum (unused when
-// splits == 1); ws (nw, gpitch_fused_whiten_bwd_workspace(M, S, P)) is
-// scratch; dl (nw, M, M) receives dLinv.  The gradients in the parameters
-// are the last 2 S + 2 S P entries of the summed record.
+// Kernel B.  As kernel A (Linv's lower triangle only), plus du (nw, M, M)
+// and dv (nw, M, 1).  part (nw, splits, rec) receives each block's
+// [dLinv (M M), dvar (S), dinvl (S), de (S P), df (S P)] and sums (nw, rec)
+// their sum (unused when splits == 1); ws (nw,
+// gpitch_fused_whiten_bwd_workspace(M, S, P)) is scratch.
 int gpitch_fused_whiten_bwd(const void* zc, const void* xc, const void* err, const void* linv,
                             const void* energy, const void* freq, const void* var,
                             const void* inv_l, const void* du, const void* dv, void* part,
-                            void* sums, void* ws, void* dl, int e_stride, int v_stride, int nw,
-                            int M, int N, int S, int P, int splits, void* stream) {
+                            void* sums, void* ws, int e_stride, int v_stride, int nw, int M,
+                            int N, int S, int P, int splits, void* stream) {
   return bwd_dispatch(make_bwd_args(zc, xc, err, linv, energy, freq, var, inv_l, du, dv, part,
-                                    sums, ws, dl, e_stride, v_stride, M, N, S, P, splits),
+                                    sums, ws, e_stride, v_stride, M, N, S, P, splits),
                       nw, stream);
 }
 
@@ -1187,7 +1173,7 @@ int gpitch_fused_whiten_splits(int bwd, int nw, int M, int N, int S, int P, int*
   if (bwd)
     return bwd_dispatch(make_bwd_args(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
                                       nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                                      nullptr, nullptr, 0, 0, M, N, S, P, 1),
+                                      nullptr, 0, 0, M, N, S, P, 1),
                         nw, nullptr, splits);
   return fwd_dispatch(make_args(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
                                 nullptr, nullptr, nullptr, 0, 0, M, N, S, P, 1),

@@ -32,12 +32,12 @@ SIGNATURES = {
                 "gpitch_specmix_f64": [_P] * 8 + [_L, _I, _I, _I, _I, _I, _I, _P],
                 "gpitch_specmix_workspace": [_I, _I, _I]},
     # inputs, partial sums, output, scratch (the backward: partial records,
-    # their sum, scratch, dLinv); window strides of (S, P) and (S,)
+    # their sum, scratch); window strides of (S, P) and (S,)
     # parameters; nw, M, N, S, P, splits; stream.  The split plan: backward?,
     # nw, M, N, S, P -> splits; each kernel's scratch floats per window: M, S, P
     "fused_whiten": {"gpitch_fused_whiten_fwd": [_P] * 11 + [_I] * 8 + [_P],
                      "gpitch_fused_whiten_fwd_workspace": [_I] * 3,
-                     "gpitch_fused_whiten_bwd": [_P] * 14 + [_I] * 8 + [_P],
+                     "gpitch_fused_whiten_bwd": [_P] * 13 + [_I] * 8 + [_P],
                      "gpitch_fused_whiten_bwd_workspace": [_I] * 3,
                      "gpitch_fused_whiten_splits": [_I] * 6 + [ctypes.POINTER(_I)]},
 }

@@ -101,17 +101,23 @@ def fused_whiten_plain(zc, xc, err, linv, energy, freq, var, inv_l):
 def fused_whiten_bwd_plain(zc, xc, err, linv, du, dv, energy, freq, var, inv_l):
     """Given the cotangents (du, dv) of (U, v): (dlinv (nw, M, M),
     dvar (nw, 1, S), dinvl (nw, 1, S), de (nw, S, P), df (nw, S, P)) per
-    window, by the backward kernel's own formulas (not autograd).  With
-    G = dU + dU^T, dA = G A + dv err^T, dLinv = dA Kuf^T and dK = Linv^T dA,
-    taken in the kernel's association:
+    window, by the backward kernel's own formulas (not autograd), in its
+    association, which is scripts/proto_fused_whiten_bwd.py's: with
+    G = dU + dU^T, the whitened A is formed again,
 
-        C = Linv^T G Linv,  h = Linv^T dv,   dK = C Kuf + h err^T
-        Q = Kuf Kuf^T,      r = Kuf err^T,   dLinv = G (Linv Q) + dv r^T
+        A = Linv Kuf,  dA = G A + dv err^T,
+        dK = Linv^T dA,  dLinv = dA Kuf^T,
         per source s, with E = exp(-|z - x| inv_l), C_p = cos(w_p (z - x)),
         S_p = sin(w_p (z - x)), mix = sum_p e_p C_p, dM = var E . dK:
         dvar = <dK, E mix>,  dinvl = -var <dK, E mix |z - x|>,
         de_p = <dM, C_p>,    df_p = -2 pi e_p <dM, (z - x) S_p>
-    """
+
+    The kernel takes these products per tile of samples and sums dLinv
+    over the tiles.  A is bounded where Linv is large: at a state trained by
+    L-BFGS (|G| ~ 1e7, |Linv| ~ 5e2) the reassociated C = Linv^T G Linv,
+    applied to Kuf, cancelled: the f32 gradient of the bound came 9.3e-4
+    from f64 in that association and 1.7e-4 in this one, on the CPU
+    (tests/test_torch_fused_whiten_trained.py)."""
     _check(zc, xc, err, linv, energy, freq, var, inv_l, du, dv)
     e, f, v, il = _per_window(energy, freq, var, inv_l)
     dsig = (zc - xc)[:, None]                              # (nw, 1, M, N)
@@ -123,9 +129,9 @@ def fused_whiten_bwd_plain(zc, xc, err, linv, du, dv, energy, freq, var, inv_l):
     mix = (cz * ez) @ cx.mT + (sz * ez) @ sx.mT            # (nw, S, M, N)
     env = torch.exp(-d * il[..., None, None])
     kuf = (v[..., None, None] * env * mix).sum(1)
-    g = du + du.mT
-    dk = (linv.mT @ g @ linv) @ kuf + (linv.mT @ dv) @ err
-    dlinv = g @ (linv @ (kuf @ kuf.mT)) + dv @ (kuf @ err.mT).mT
+    da = (du + du.mT) @ (linv @ kuf) + dv @ err
+    dk = linv.mT @ da
+    dlinv = da @ kuf.mT
     pm = dk[:, None] * env * mix
     dvar = pm.sum((-2, -1))                                # (nw, S)
     dinvl = -v * (pm * d).sum((-2, -1))
@@ -207,28 +213,29 @@ def _forward_kernel(zc, xc, err, linv, energy, freq, var, inv_l, splits=None):
 def _backward_kernel(zc, xc, err, linv, du, dv, energy, freq, var, inv_l,
                      splits=None):
     """Kernel B on CUDA tensors; ``splits`` overrides the plan of its main
-    kernel.  The record of a block is [Q (M M), r (M), dvar (S), dinvl (S),
-    de (S P), df (S P)]; dLinv comes in its own tensor."""
+    kernel.  The record of a block is [dLinv (M M), dvar (S), dinvl (S),
+    de (S P), df (S P)].  Like kernel A it reads Linv's lower triangle
+    only."""
     sizes, tensors, strides = _prepare(zc, xc, err, linv, energy, freq, var,
                                        inv_l, du, dv)
     nw, m, _, s, p = sizes
     dev = zc.device
     lib = _cuda.load("fused_whiten")
     splits = splits or _splits(True, sizes, dev.index)
-    rec = m * m + m + 2 * s + 2 * s * p
+    rec = m * m + 2 * s + 2 * s * p
     part, sums = _records(nw, splits, rec, dev)
     ws = torch.empty((nw, lib.gpitch_fused_whiten_bwd_workspace(m, s, p)),
                      dtype=torch.float32, device=dev)
-    dl = torch.empty((nw, m, m), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         rc = lib.gpitch_fused_whiten_bwd(
             *(t.data_ptr() for t in tensors), part.data_ptr(), sums.data_ptr(),
-            ws.data_ptr(), dl.data_ptr(), *strides, *sizes, splits,
+            ws.data_ptr(), *strides, *sizes, splits,
             torch.cuda.current_stream(dev).cuda_stream)
     _cuda.check(rc, "fused_whiten_bwd")
     buf = sums.view(nw, rec)
-    o = m * m + m
-    return (dl, buf[:, o:o + s].view(nw, 1, s), buf[:, o + s:o + 2 * s].view(nw, 1, s),
+    o = m * m
+    return (buf[:, :o].view(nw, m, m), buf[:, o:o + s].view(nw, 1, s),
+            buf[:, o + s:o + 2 * s].view(nw, 1, s),
             buf[:, o + 2 * s:o + 2 * s + s * p].view(nw, s, p),
             buf[:, o + 2 * s + s * p:].view(nw, s, p))
 
@@ -289,8 +296,8 @@ def fused_whiten(zc, xc, err, linv, energy, freq, var, inv_l):
     """(U (nw, M, M), v (nw, M, 1)) of ``fused_whiten_plain`` through kernel
     A (``make_fused_mxu``'s arguments), differentiable in linv, energy,
     freq, var and inv_l through kernel B.  Linv must be lower triangular:
-    on the card kernel A reads its lower triangle only (the plain version
-    and kernel B take it whole; chol_inv's Linv is exactly lower).  Raises
+    on the card kernels A and B read its lower triangle only (the plain
+    versions take it whole; chol_inv's Linv is exactly lower).  Raises
     if grad mode is on and zc, xc or err requires grad."""
     _refuse_data_grads(zc, xc, err)
     return _FusedWhiten.apply(fused_whiten, zc, xc, err, linv, energy, freq,

@@ -314,8 +314,14 @@ class SGPR:
     def _finish(AAT, Aerr, sigma2):
         """(AAT, (LB, LB_inv), c, sigma2) from AAT and Aerr."""
         B = AAT + _eye(AAT.shape[-1], AAT)
-        # B = I + AAT has eigenvalues >= 1: no jitter of either kind
-        LB, LB_inv = safe_chol_inv(B, 0.0, jitter_rel=0.0)
+        # B = I + AAT has eigenvalues >= 1: no jitter of either kind.  At a
+        # small noise variance its condition number nears 1 / eps of
+        # float32, and float32 factors of it put the gradient at a state
+        # that L-BFGS reaches 1.7e-4 to 3.0e-4 from f64, the largest error
+        # left there (tests/test_torch_fused_whiten_trained.py): B is
+        # factored in float64 and its factors rounded once.
+        LB, LB_inv = safe_chol_inv(B.double(), 0.0, jitter_rel=0.0)
+        LB, LB_inv = LB.to(B.dtype), LB_inv.to(B.dtype)
         c = (LB_inv @ Aerr) / sigma2
         return AAT, (LB, LB_inv), c, sigma2
 
@@ -343,6 +349,10 @@ class SGPR:
                 pen = torch.where(num_data > 0, pen, torch.zeros_like(pen))
             bound = bound - pen
         return bound
+
+    def build_likelihood(self):
+        """The reference's name for the collapsed bound (``elbo``)."""
+        return self.elbo()
 
     def _l1_variances(self):
         """L1 penalty over the per-pitch kernel variances."""

@@ -217,6 +217,14 @@ class ModGP:
         kl = self.prior_kl()
         return var_exp.sum() * scale - (kl if reduce is None else reduce(kl))
 
+    def build_prior_kl(self):
+        """The reference's name for ``prior_kl``."""
+        return self.prior_kl()
+
+    def build_likelihood(self, x, y, num_data: int | None = None):
+        """The reference's name for the ELBO (``elbo``)."""
+        return self.elbo(x, y, num_data)
+
     def loss(self, x, y, num_data: int | None = None):
         return -self.elbo(x, y, num_data)
 

@@ -16,7 +16,7 @@ import subprocess
 
 import numpy as np
 
-__all__ = ["available", "enabled", "wav_read", "frame_windows", "find_extrema",
+__all__ = ["available", "wav_read", "frame_windows", "overlap_add_native", "find_extrema",
            "load_library"]
 
 _LIB = {"handle": None, "tried": False}
@@ -51,6 +51,9 @@ def load_library():
     lib.frame_windows.argtypes = [c_double_p, ctypes.c_int64, ctypes.c_int64,
                                   c_double_p]
     lib.frame_windows.restype = ctypes.c_int64
+    lib.overlap_add.argtypes = [c_double_p, ctypes.c_int64, ctypes.c_int64,
+                                ctypes.c_int, c_double_p, ctypes.c_int64]
+    lib.overlap_add.restype = None
     lib.find_extrema.argtypes = [c_double_p, ctypes.c_int64, ctypes.c_int64,
                                  ctypes.c_int64, ctypes.c_double,
                                  ctypes.c_int64, c_int64_p]
@@ -106,6 +109,22 @@ def frame_windows(y, ws: int):
     out = np.empty((nw, ws), dtype=np.float64)
     got = lib.frame_windows(_dp(y), n, ws, _dp(out))
     return out[:got]
+
+
+def overlap_add_native(windows, n: int, squared: bool = False):
+    """Hann overlap-add merge (n,) of (nw, ws) windows with hop (ws - 1) // 2
+    and flat boundary windows (squared weights with ``squared``), by the
+    library, or by audio.windowing's numpy version when it is unavailable."""
+    lib = load_library()
+    windows = np.ascontiguousarray(np.asarray(windows, dtype=np.float64))
+    if lib is None:
+        from ..audio.windowing import ola_weights, overlap_add
+        w = ola_weights(windows.shape[0], windows.shape[1], squared=squared)
+        return overlap_add(windows, n, w)
+    out = np.empty(n, dtype=np.float64)
+    lib.overlap_add(_dp(windows), windows.shape[0], windows.shape[1], int(squared),
+                    _dp(out), n)
+    return out
 
 
 def find_extrema(y, smooth_win: int = 9, energy_win: int = 1600,

@@ -273,6 +273,25 @@ def test_cuda_fused_whiten_bwd_kernel_matches_plain(cuda, shape):
         assert _rel(leaf.grad, b) <= 1e-3
 
 
+@pytest.mark.parametrize("shape", _WHITEN_SHAPES[:2])
+def test_cuda_fused_whiten_bwd_reads_the_lower_triangle_of_linv_only(cuda, shape):
+    """Kernel B on a Linv whose strict upper triangle is noise gives the f64
+    plain backward on torch.tril of it, within 1e-3 of max|ref|."""
+    from gpitch_tpu_torch.linalg.fused_whiten import fused_whiten_bwd, fused_whiten_bwd_plain
+    args = _whiten_args(cuda, *shape)
+    nw, m = shape[:2]
+    gen = torch.Generator().manual_seed(2)
+    noisy = args[3] + torch.triu(torch.randn(args[3].shape, generator=gen), 1).to(cuda)
+    du = (torch.randn(nw, m, m, generator=gen) * 0.01).to(cuda)
+    dv = (torch.randn(nw, m, 1, generator=gen) * 0.01).to(cuda)
+    got = fused_whiten_bwd(*args[:3], noisy, du, dv, *args[4:])
+    want = fused_whiten_bwd_plain(*[a.double() for a in args[:3]], torch.tril(noisy).double(),
+                                  du.double(), dv.double(), *[a.double() for a in args[4:]])
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and _rel(a, b) <= 1e-3
+
+
 def test_cuda_fused_whiten_refuses_what_the_kernels_do_not_take(cuda):
     from gpitch_tpu_torch.linalg.fused_whiten import fused_whiten
     args = _whiten_args(cuda, 2, 16, 64, 2, 3)

@@ -27,8 +27,7 @@ from gpitch_tpu.core.params import Param as JParam
 from gpitch_tpu.models.hmc import hmc_sample as j_hmc_sample
 from gpitch_tpu.models.hmc import model_logprob_fn as j_model_logprob_fn
 from gpitch_tpu.pipelines.windowed_sgpr import bank_loss as j_bank_loss
-from gpitch_tpu_torch.core.params import Param, load_raw, named_params, with_raw
-from gpitch_tpu_torch.core.transforms import Identity
+from gpitch_tpu_torch.core.params import load_raw, named_params, with_raw
 from gpitch_tpu_torch.kernels import Matern32 as TMatern32
 from gpitch_tpu_torch.kernels import MercerMatern12sm as TMercer
 from gpitch_tpu_torch.models import ModGP, hmc_sample, model_logprob_fn
@@ -124,12 +123,11 @@ def _j_log_ls(m, leaves):
 
 
 def _t_sub(m, leaves):
-    """The lengthscale set to exp(log_ls) (an identity-transformed Param
-    holding the value, where JAX's ``with_value`` goes through the raw)."""
+    """The port's ``_j_log_ls``: the lengthscale set to exp(log_ls)."""
     import dataclasses
     kc = m.kern_com
     return dataclasses.replace(m, kern_com=dataclasses.replace(
-        kc, lengthscales=Param.wrap(torch.exp(leaves["log_ls"]), Identity())))
+        kc, lengthscales=kc.lengthscales.with_value(torch.exp(leaves["log_ls"]))))
 
 
 def _replay_case(name):

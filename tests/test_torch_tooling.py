@@ -51,8 +51,9 @@ JAX_ONLY = {
     "core": {"zero_untrainable_grads"},
     "": {"zero_untrainable_grads"},
 }
+# the subpackages, and the modules that carry an __all__ of their own
 SUBPACKAGES = ["", "config", "core", "models", "utils", "pipelines", "kernels", "linalg",
-               "audio", "likelihoods", "parallel", "viz"]
+               "audio", "likelihoods", "parallel", "viz", "native", "core.transforms"]
 
 
 def _jax_top_level_names():
