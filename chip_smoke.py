@@ -38,7 +38,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               (e) 16 sosp-4s windows at an f64 L-BFGS state
               (tests/torch_fused_whiten_trained_state.npz): the f32
               gradient through the pair within 2e-4 of f64; times at (a)
-              and (b), and at each split of a window's tiles over blocks;
+              and (b) with each kernel's share of both bounds (kernel B's
+              beside the parent tree's, KERNEL_B_PARENT_MS), and at each
+              split of a window's tiles over blocks;
  10. amt      transcription end to end (tests_tpu/workloads.make_amt: 1 s
               at 44.1 kHz, 43 windows, M 160, 8 pitches x 10 partials,
               y x 20): 100 Adam steps in windows of 16 held against the
@@ -85,7 +87,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               trained windows of 13(a), every window's kernel leaves, 4
               chains folded into the window axis (the Cholesky kernel, A
               and B launched): the value against one chain at a time
-              (1e-5), the gradient against f64 as one chain's is;
+              (1e-5), the gradient against f64 as one chain's is and
+              within 2e-4 both ways, and each f32 part's share of it;
  18. distributed  (a) a one-rank NCCL group in a fresh process: the
               shard-map bank loss and optimize_bank(mesh=) on sosp-4s; (b)
               two processes on the one card (gloo): sosp-14s
@@ -107,6 +110,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 then the kernels line, the nvidia-smi line and the result line.
 ``python3 chip_smoke.py --worker <kind> <rank> <world> <store> ...`` runs
 one rank of 18 or the fresh process of 19 (the phases start them).
+``python3 chip_smoke.py --write-hmc-state [PATH]`` writes 17(c)'s state
+(13(a)'s trained windows and the chains' start) for the CPU tests
+(tests/torch_hmc_bank_state.npz); ``--check-hmc-state`` prints the check
+and the f32 parts' shares at that saved state on the card.
 Exits non-zero without printing a result when there is no CUDA device.
 """
 
@@ -1605,12 +1612,25 @@ def _whiten_case(name, d, dev, arbiter=True, timing=False) -> dict:
         for k, backward in (("A", False), ("B", True)):
             (tm[f"bound_{k}_ms"], tm[f"bound_{k}_by"], tm[f"bound_{k}_fp32_ms"],
              tm[f"bound_{k}_fp32_by"]) = _whiten_bound(nw, m, n, s, p, backward)
+            # the share of each bound that the kernel reaches
+            tm[f"kernel_{k}_of_bound"] = tm[f"bound_{k}_ms"] / tm[f"kernel_{k}_ms"]
+            tm[f"kernel_{k}_of_fp32_bound"] = tm[f"bound_{k}_fp32_ms"] / tm[f"kernel_{k}_ms"]
+        if name in KERNEL_B_PARENT_MS:
+            tm["kernel_B_parent_ms"] = KERNEL_B_PARENT_MS[name]
+            tm["kernel_B_vs_parent"] = tm["kernel_B_ms"] / KERNEL_B_PARENT_MS[name]
         out["times"] = tm
     out["ok"] = ok
     emit(out)
     assert ok, f"fused-whiten kernels disagree in case {name}"
     return out
 
+
+# kernel B's earlier design (the prototype's association in RU x 2
+# register tiles on 256 threads) at cases a and b, on an NVIDIA H100 80GB
+# HBM3 at 700 W: the medians of its turns beside this design in
+# ``ab_step.py --whiten`` (PERF.md section 6); a reference, not a
+# measurement of this run
+KERNEL_B_PARENT_MS = {"a_sosp": 2.67, "b_amt": 1.71}
 
 _SPLITS = (1, 2, 3, 4, 5, 6, 7, 8, 9, 11, 13, 16, 21, 32, 63)
 
@@ -1774,6 +1794,28 @@ def bank_grad(bank) -> tuple[float, torch.Tensor]:
     return float(loss.detach()), torch.cat([g.double().reshape(-1) for g in grads])
 
 
+def pair_cotangents(bank):
+    """(``bank_grad(bank)``, the fused pair's inputs in the bank's bound,
+    and the cotangents du, dv of its (U, v) in that gradient), by a spy on
+    the bound's call of fused_whiten."""
+    from gpitch_tpu_torch.models import sgpr
+    inner, seen = sgpr.fused_whiten, {}
+
+    def spy(*args):
+        u, v = inner(*args)
+        seen["args"] = [a.detach() for a in args]
+        u.register_hook(lambda g: seen.__setitem__("du", g.contiguous()))
+        v.register_hook(lambda g: seen.__setitem__("dv", g.contiguous()))
+        return u, v
+
+    sgpr.fused_whiten = spy
+    try:
+        out = bank_grad(bank)
+    finally:
+        sgpr.fused_whiten = inner
+    return out, seen["args"], seen["du"], seen["dv"]
+
+
 def _whiten_trained(dev) -> dict:
     """(e) The pair at a state that per-window L-BFGS reaches, where the
     bound is ill-conditioned (|G| ~ 4e7): the f32 bank of TRAINED_STATE's
@@ -1783,39 +1825,22 @@ def _whiten_trained(dev) -> dict:
     on the card by the unfused route; and kernel B's outputs at the bound's
     own cotangent against the f64 plain version on the same inputs, output
     by output (reported)."""
-    import importlib
     from gpitch_tpu_torch.core.params import Param, map_params
-    from gpitch_tpu_torch.models import sgpr
-    fw = importlib.import_module("gpitch_tpu_torch.linalg.fused_whiten")
+    fw = _fused_whiten_module()
     bank64 = trained_bank(dev, torch.float64)
     bank = map_params(bank64, lambda p: Param(p.raw.detach().float(), p.transform,
                                               p.trainable))
     m = int(bank.Z.raw.shape[-2])
     with f32_jitters(m):
         loss64, grad64 = bank_grad(bank64)
-    seen = {}
-
-    def spy(*args):
-        """fused_whiten, keeping its inputs and the cotangents of (U, v)."""
-        u, v = fw.fused_whiten(*args)
-        seen["args"] = [a.detach() for a in args]
-        u.register_hook(lambda g: seen.__setitem__("du", g))
-        v.register_hook(lambda g: seen.__setitem__("dv", g))
-        return u, v
-
     fw.fused_whiten.launches = fw.fused_whiten_bwd.launches = 0
-    sgpr.fused_whiten = spy
-    try:
-        loss, grad = bank_grad(bank)
-    finally:
-        sgpr.fused_whiten = fw.fused_whiten
+    (loss, grad), chain, du, dv = pair_cotangents(bank)
     torch.cuda.synchronize()
     out = {"phase": "fused_whiten", "case": "e_trained", "windows": TRAINED_WINDOWS, "M": m,
            "loss": loss, "loss_f64": loss64, "value_rel": abs(loss / loss64 - 1),
            "grad_rel_norm": float((grad - grad64).norm() / grad64.norm()), "tol": 2e-4,
            "launches": {"fused_whiten": fw.fused_whiten.launches,
                         "fused_whiten_bwd": fw.fused_whiten_bwd.launches}}
-    chain, du, dv = seen["args"], seen["du"].contiguous(), seen["dv"].contiguous()
     out["max_abs_G"] = float((du + du.mT).abs().max())
     out["max_abs_linv"] = float(chain[3].abs().max())
     with torch.no_grad():
@@ -2017,46 +2042,68 @@ def _hmc_modgp(dev) -> tuple[dict, tuple]:
     return rec, (logprob, init)
 
 
-def _hmc_bank(dev, bank) -> dict:
-    """HMC over every window's trainable kernel leaves of a trained bank
-    (the noise fixed), the chains folded into the window axis.  The folded
-    log density and gradient against one chain at a time, and both against
-    the same evaluation in f64 (the unfused route: the pair is f32 only)."""
-    from gpitch_tpu_torch.core.params import Param, map_params, named_params, with_raw
-    from gpitch_tpu_torch.models import hmc_sample, model_logprob_fn
+HMC_BANK_STATE = os.path.join(ROOT, "tests", "torch_hmc_bank_state.npz")
+
+
+def hmc_bank_start(bank):
+    """(paths, init, chains) of HMC over a bank's kernel leaves: every
+    window's trainable kernel leaves, their values, and the sampler's own
+    start, init + 0.1 N(0, 1) per chain (a torch.Generator seeded 4 on the
+    bank's device)."""
+    from gpitch_tpu_torch.core.params import named_params
     paths = [k for k, p in named_params(bank) if p.trainable and k.startswith(".kern.")]
     init = {k: p.raw.detach().clone() for k, p in named_params(bank) if k in paths}
-    logprob = model_logprob_fn(bank, with_raw, prior_scale=1e3)
+    dev = bank.Z.raw.device
     c = HMC_BANK["num_chains"]
     gen = torch.Generator(device=dev).manual_seed(4)
-    # the sampler's own start: init + 0.1 N(0, 1) per chain
     chains = {k: v[None] + 0.1 * torch.randn((c,) + tuple(v.shape), generator=gen,
                                              device=dev) for k, v in init.items()}
+    return paths, init, chains
 
-    def value_and_grad(fn, leaves):
-        ls = {k: v.clone().requires_grad_(True) for k, v in leaves.items()}
-        lp = fn(ls)
-        grads = torch.autograd.grad(lp.sum(), list(ls.values()))
-        return lp.detach().double(), [g.double() for g in grads]
 
-    def flat(grads, i):
-        return torch.cat([g[i].reshape(-1) for g in grads])
+def _chain_value_and_grad(fn, leaves):
+    ls = {k: v.clone().requires_grad_(True) for k, v in leaves.items()}
+    lp = fn(ls)
+    grads = torch.autograd.grad(lp.sum(), list(ls.values()))
+    return lp.detach().double(), [g.double() for g in grads]
 
-    lp, grads = value_and_grad(logprob, chains)
-    # the arbiter: the same function in f64, with the f32 jitters (1e-4
-    # absolute, the M-aware 8e-7 M relative: linalg.ops.add_jitter)
+
+def _chain_flat(grads, i):
+    return torch.cat([g[i].reshape(-1) for g in grads])
+
+
+def hmc_bank_arbiter(bank, chains):
+    """The chains' log density and gradient in f64 with the f32 jitters (1e-4
+    absolute, the M-aware 8e-7 M relative: linalg.ops.add_jitter), the
+    arbiter of an f32 evaluation (on the card the unfused route: the pair
+    is f32 only)."""
+    from gpitch_tpu_torch.core.params import Param, map_params, with_raw
+    from gpitch_tpu_torch.models import model_logprob_fn
     bank64 = map_params(bank, lambda p: Param(p.raw.detach().double(), p.transform,
                                               p.trainable))
     with f32_jitters(bank.Z.raw.shape[1]):
-        lp64, grads64 = value_and_grad(model_logprob_fn(bank64, with_raw, prior_scale=1e3),
-                                       {k: v.double() for k, v in chains.items()})
+        return _chain_value_and_grad(model_logprob_fn(bank64, with_raw, prior_scale=1e3),
+                                     {k: v.double() for k, v in chains.items()})
+
+
+def hmc_bank_check(bank, chains, arbiter=None) -> dict:
+    """At the chains' start: the f32 log density folded (the C chains in the
+    window axis, one evaluation of C nw windows) against one chain at a
+    time, and both against ``hmc_bank_arbiter`` (relative value, relative
+    norm of the gradient, the largest over chains)."""
+    from gpitch_tpu_torch.core.params import with_raw
+    from gpitch_tpu_torch.models import model_logprob_fn
+    paths = list(chains)
+    logprob = model_logprob_fn(bank, with_raw, prior_scale=1e3)
+    lp, grads = _chain_value_and_grad(logprob, chains)
+    lp64, grads64 = arbiter or hmc_bank_arbiter(bank, chains)
     check = {"value_rel": 0.0, "grad_rel_norm": 0.0, "grad_rel_per_leaf": {},
              "f64_value_rel_folded": 0.0, "f64_value_rel_one": 0.0,
              "f64_grad_rel_norm_folded": 0.0, "f64_grad_rel_norm_one": 0.0}
-    for i in range(c):
-        lp1, g1 = value_and_grad(logprob, {k: v[i:i + 1] for k, v in chains.items()})
+    for i in range(next(iter(chains.values())).shape[0]):
+        lp1, g1 = _chain_value_and_grad(logprob, {k: v[i:i + 1] for k, v in chains.items()})
         check["value_rel"] = max(check["value_rel"], float(abs(lp[i] / lp1[0] - 1)))
-        ref, one, f64 = flat(g1, 0), flat(grads, i), flat(grads64, i)
+        ref, one, f64 = _chain_flat(g1, 0), _chain_flat(grads, i), _chain_flat(grads64, i)
         check["grad_rel_norm"] = max(check["grad_rel_norm"],
                                      float((one - ref).norm() / ref.norm()))
         for k, g, h in zip(paths, grads, g1):
@@ -2068,6 +2115,199 @@ def _hmc_bank(dev, bank) -> dict:
                                                 float(abs(val / lp64[i] - 1)))
             check[f"f64_grad_rel_norm_{key}"] = max(check[f"f64_grad_rel_norm_{key}"],
                                                     float((gv - f64).norm() / f64.norm()))
+    return check
+
+
+# the f32 parts of the fused bound, each of which ``f64_parts`` can swap
+F32_PARTS = ("kuu", "chol", "fwd", "bwd", "finish")
+
+
+def _fused_whiten_module():
+    """gpitch_tpu_torch.linalg.fused_whiten, the module (the package exports
+    a function of the same name)."""
+    import importlib
+    return importlib.import_module("gpitch_tpu_torch.linalg.fused_whiten")
+
+
+class _PairInParts(torch.autograd.Function):
+    """fused_whiten with its forward and its backward each in f32 (kernels A
+    and B on the card, their plain versions on the CPU) or in f64 (the plain
+    versions on f64 copies, rounded once to f32)."""
+
+    @staticmethod
+    def forward(ctx, fwd64, bwd64, *args):
+        fw = _fused_whiten_module()
+        ctx.save_for_backward(*args)
+        ctx.bwd64 = bwd64
+        if fwd64:
+            return tuple(t.float() for t in fw.fused_whiten_plain(*(a.double() for a in args)))
+        return fw.fused_whiten(*args)
+
+    @staticmethod
+    def backward(ctx, du, dv):
+        fw = _fused_whiten_module()
+        zc, xc, err, linv, energy, freq, var, inv_l = ctx.saved_tensors
+        args = (zc, xc, err, linv, du.contiguous(), dv.contiguous(), energy, freq, var, inv_l)
+        if ctx.bwd64:
+            outs = [t.float() for t in fw.fused_whiten_bwd_plain(*(a.double() for a in args))]
+        else:
+            outs = fw.fused_whiten_bwd(*args)
+        dlinv, dvar, dinvl, de, df = outs
+        fold = (lambda g: g.sum(0)) if energy.dim() == 2 else (lambda g: g)
+        return (None, None, None, None, None, dlinv, fold(de), fold(df), fold(dvar[:, 0]),
+                fold(dinvl[:, 0]))
+
+
+@contextlib.contextmanager
+def f64_parts(parts):
+    """Within it, the named parts of an f32 bank's fused bound run in f64,
+    their results rounded once to f32 (their gradients flow back in f64;
+    a bank of another dtype is left as it is): ``kuu`` the StackedSum's Kuu, ``chol`` the factor and inverse of the
+    jittered Kuu (linalg.ops.chol_inv), ``fwd`` and ``bwd`` the fused
+    pair's forward (Kuf, U, v) and backward, ``finish`` the bound's tail
+    from AAT and Aerr (SGPR._finish: B's factors and c; the bound is then
+    summed in f64)."""
+    from gpitch_tpu_torch.core.params import Param, map_params
+    from gpitch_tpu_torch.linalg.ops import add_jitter, chol_inv
+    from gpitch_tpu_torch.models import sgpr
+    unknown = set(parts) - set(F32_PARTS)
+    if unknown:
+        raise ValueError(f"unknown parts {sorted(unknown)}")
+    cls = sgpr.SGPR
+    saved = (cls.fused_whiten_args, cls._linv, sgpr.fused_whiten, cls.__dict__["_finish"])
+
+    def args_kuu64(self):
+        args = list(saved[0](self))
+        z = self.Z.value
+        if z.dtype != torch.float32:
+            return tuple(args)
+        m = z.shape[-2]
+        kern64 = map_params(self.kern, lambda p: Param.wrap(p.raw.double(), p.transform,
+                                                            p.trainable))
+        args[3] = self._linv(kern64.K(z.double()).float()).reshape(-1, m, m)
+        return tuple(args)
+
+    def linv64(self, kuu):
+        if kuu.dtype != torch.float32:
+            return saved[1](self, kuu)
+        kj = add_jitter(kuu, self.numerics.jitter_value(kuu.dtype))
+        return chol_inv(kj.double())[1].to(kuu.dtype)
+
+    if "kuu" in parts:
+        cls.fused_whiten_args = args_kuu64
+    if "chol" in parts:
+        cls._linv = linv64
+    if "finish" in parts:
+        cls._finish = staticmethod(lambda aat, aerr, sigma2: saved[3].__func__(
+            aat.double(), aerr.double(), sigma2.double()))
+    if "fwd" in parts or "bwd" in parts:
+        sgpr.fused_whiten = lambda *a: (
+            _PairInParts.apply("fwd" in parts, "bwd" in parts, *a)
+            if a[0].dtype == torch.float32 else saved[2](*a))
+    try:
+        yield
+    finally:
+        cls.fused_whiten_args, cls._linv, sgpr.fused_whiten, cls._finish = saved
+
+
+def hmc_bank_parts(bank, chains) -> dict:
+    """Each f32 part's share of the f32 gradient's error at the chains'
+    start (``hmc_bank_check``'s f64_grad_rel_norm, folded and one chain):
+    every part in f32, each part (and the pair's forward and backward
+    together) alone in f64, each of Kuu, its factor, the pair and the tail
+    alone in f32 (the others in f64), and every part in f64 (what is left:
+    the rest of the bound in f32: the kernel's parameters, Kdiag, the
+    prior)."""
+    arbiter = hmc_bank_arbiter(bank, chains)
+    # the pair's forward and backward share the f32 features (angles of ~6e3
+    # rad) and their errors: each is also swapped with the other
+    units = {"kuu": ("kuu",), "chol": ("chol",), "pair": ("fwd", "bwd"),
+             "finish": ("finish",)}
+    configs = {"all_f32": ()}
+    configs.update({f"{p}_in_f64": (p,) for p in F32_PARTS})
+    configs["pair_in_f64"] = units["pair"]
+    configs.update({f"only_{u}_in_f32": tuple(q for q in F32_PARTS if q not in parts)
+                    for u, parts in units.items()})
+    configs["all_parts_in_f64"] = F32_PARTS
+    out = {}
+    for name, parts in configs.items():
+        with f64_parts(parts):
+            chk = hmc_bank_check(bank, chains, arbiter)
+        out[name] = {"folded": chk["f64_grad_rel_norm_folded"],
+                     "one": chk["f64_grad_rel_norm_one"]}
+    return out
+
+
+def saved_hmc_bank(device, dtype=torch.float32):
+    """(the 16 sosp-4s windows at the state saved in HMC_BANK_STATE, in
+    ``dtype`` on ``device``, the chains' start, the state file)."""
+    from gpitch_tpu_torch.core.params import Param, map_params, named_params, take_windows
+    state = np.load(HMC_BANK_STATE)
+    model, _ = make_sosp(4.0, device, torch.float32)
+    bank = take_windows(model.bank, slice(0, TRAINED_WINDOWS))
+    for key, prm in named_params(bank):
+        if key in state.files:
+            with torch.no_grad():
+                prm.raw.copy_(torch.as_tensor(state[key]))
+    if dtype != torch.float32:
+        bank = map_params(bank, lambda p: Param(p.raw.detach().to(dtype), p.transform,
+                                                p.trainable))
+    chains = {k[len("chain"):]: torch.as_tensor(state[k], dtype=dtype, device=device)
+              for k in state.files if k.startswith("chain")}
+    return bank, chains, state
+
+
+def check_saved_hmc_bank() -> dict:
+    """On the card: ``hmc_bank_check`` and ``hmc_bank_parts`` at the saved
+    state (the parent tree's own L-BFGS state on the card), emitted."""
+    bank, chains, _ = saved_hmc_bank(torch.device("cuda"))
+    rec = {"phase": "hmc_bank_saved_state", "check": hmc_bank_check(bank, chains),
+           "parts": hmc_bank_parts(bank, chains)}
+    emit(rec)
+    return rec
+
+
+def write_hmc_bank_state(path: str) -> dict:
+    """On the card: the 16 sosp-4s windows after lbfgs (a)'s 30 f32 L-BFGS
+    iterations and the 4 chains' start of hmc (c), saved to ``path``: every
+    raw leaf of the bank but X and Y (their sums instead), and the chains
+    (``chain`` + path).  Emits the card's check and part shares there."""
+    from gpitch_tpu_torch.core.params import named_params, take_windows
+    from gpitch_tpu_torch.pipelines.windowed_sgpr import optimize_bank
+    dev = torch.device("cuda")
+    nwin, iters = np.load(LBFGS_GOLDENS)["sosp16_window_losses"].shape
+    model, _ = make_sosp(4.0, dev, torch.float32)
+    sub = take_windows(model.bank, slice(0, nwin))
+    bank, losses, _ = optimize_bank(sub, iters, method="lbfgs", return_info=True)
+    _, _, chains = hmc_bank_start(bank)
+    state = {}
+    for k, p in named_params(bank):
+        raw = p.raw.detach().cpu().numpy()
+        if k in (".X", ".Y"):
+            state[f"sum{k}"] = np.array([raw.astype(np.float64).sum(),
+                                         np.square(raw.astype(np.float64)).sum()])
+        else:
+            state[k] = raw
+    state.update({f"chain{k}": v.cpu().numpy() for k, v in chains.items()})
+    np.savez(path, **state)
+    rec = {"phase": "hmc_bank_state", "path": path, "windows": nwin, "iterations": iters,
+           "loss0": float(losses[0]), "loss_last": float(losses[-1]),
+           "check": hmc_bank_check(bank, chains), "parts": hmc_bank_parts(bank, chains)}
+    emit(rec)
+    return rec
+
+
+def _hmc_bank(dev, bank) -> dict:
+    """HMC over every window's trainable kernel leaves of a trained bank
+    (the noise fixed), the chains folded into the window axis.  The folded
+    log density and gradient against one chain at a time, and both against
+    the same evaluation in f64 (``hmc_bank_check``)."""
+    from gpitch_tpu_torch.core.params import with_raw
+    from gpitch_tpu_torch.models import hmc_sample, model_logprob_fn
+    paths, init, chains = hmc_bank_start(bank)
+    logprob = model_logprob_fn(bank, with_raw, prior_scale=1e3)
+    check = hmc_bank_check(bank, chains)
+    parts = hmc_bank_parts(bank, chains)
     _zero_all()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2076,9 +2316,10 @@ def _hmc_bank(dev, bank) -> dict:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     steps = (HMC_BANK["num_warmup"] + HMC_BANK["num_samples"]) * HMC_BANK["num_leapfrog"]
-    return {"windows": int(bank.X.raw.shape[0]), "folded_windows": c * int(bank.X.raw.shape[0]),
+    return {"windows": int(bank.X.raw.shape[0]),
+            "folded_windows": HMC_BANK["num_chains"] * int(bank.X.raw.shape[0]),
             "leaves": paths, "dims_per_chain": int(sum(v.numel() for v in init.values())),
-            **HMC_BANK, "folded_vs_one_chain": check, "seconds": seconds,
+            **HMC_BANK, "folded_vs_one_chain": check, "parts": parts, "seconds": seconds,
             "ms_per_leapfrog_step": seconds * 1e3 / steps, "rates": rates.tolist(),
             "finite": bool(all(torch.isfinite(v).all() for v in samples.values())),
             "launches": _all_launches()}
@@ -2095,7 +2336,8 @@ def phase_hmc(dev, bank):
     steps, 20 + 20 iterations (every sample finite; at the chains' start the
     folded log density within 1e-5 of one chain at a time, and its gradient
     no further from the same evaluation in f64, with the f32 jitters, than
-    twice one chain's).  Returns (the
+    twice one chain's, and within 2e-4; each f32 part's share of that
+    error, ``hmc_bank_parts``).  Returns (the
     records, (b)'s log density and init for the profile)."""
     out = {"phase": "hmc", "targets": _hmc_targets(dev)}
     out["modgp"], modgp = _hmc_modgp(dev)
@@ -2110,8 +2352,10 @@ def phase_hmc(dev, bank):
     assert chk["value_rel"] <= 1e-5, b
     # the gradients of a trained bank in f32 differ by the kernels' plans
     # (the splits follow the window count) far above 1e-5: the folded one
-    # is held to the f64 arbiter as closely as one chain alone is
+    # is held to the f64 arbiter as closely as one chain alone is, and both
+    # within 2e-4 (docs/F32_ACCURACY.md:57)
     assert chk["f64_grad_rel_norm_folded"] <= 2 * chk["f64_grad_rel_norm_one"] + 1e-5, b
+    assert max(chk["f64_grad_rel_norm_folded"], chk["f64_grad_rel_norm_one"]) <= 2e-4, b
     assert all(b["launches"][k] > 0 for k in _PATH), f"a kernel never ran: {b['launches']}"
     return out, modgp
 
@@ -2624,5 +2868,18 @@ if __name__ == "__main__":
         sys.path.insert(0, ROOT)
         kind, rank, world, store, *extra = sys.argv[2:]
         emit(_worker(kind, int(rank), int(world), store, *extra))
+        sys.exit(0)
+    if sys.argv[1:2] == ["--write-hmc-state"]:
+        # the card's own L-BFGS state of hmc (c), for the CPU tests
+        if not torch.cuda.is_available():
+            sys.exit(2)
+        sys.path.insert(0, ROOT)
+        write_hmc_bank_state(sys.argv[2] if len(sys.argv) > 2 else HMC_BANK_STATE)
+        sys.exit(0)
+    if sys.argv[1:2] == ["--check-hmc-state"]:
+        if not torch.cuda.is_available():
+            sys.exit(2)
+        sys.path.insert(0, ROOT)
+        check_saved_hmc_bank()
         sys.exit(0)
     sys.exit(main())

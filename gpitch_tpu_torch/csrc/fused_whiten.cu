@@ -77,14 +77,14 @@
 // Later work for A: wider register tiles (64-sample tiles, 4 columns a
 // thread) to halve the loads per FMA; the tensor cores through wgmma.
 //
-// Kernel B (redesigned for Hopper, then put back in the prototype's
-// association).  Its first form ran at 14-16% of its bound: one 8-warp
-// block per SM (a dense Linv, three (MP, 33) tiles and a staging buffer in
-// shared memory), four dense M x M x 32 products per tile in RU x 2
-// register tiles that issued a shared load per FMA, G restaged from device
-// memory at every tile, and the envelope, the mixture and the z and x
-// features computed again in the per-source pass.  The design, by the same
-// items:
+// Kernel B (redesigned for Hopper, put back in the prototype's association,
+// then given wider register tiles).  Its first form ran at 14-16% of its
+// bound: one 8-warp block per SM (a dense Linv, three (MP, 33) tiles and a
+// staging buffer in shared memory), four dense M x M x 32 products per tile
+// in RU x 2 register tiles that issued a shared load per FMA, G restaged
+// from device memory at every tile, and the envelope, the mixture and the z
+// and x features computed again in the per-source pass.  The design, by the
+// same items:
 //   * association: the prototype's, per tile A = tril(Linv) Kuf, dA = G A +
 //     dv err^T, dLinv += dA Kuf^T and dK = tril(Linv)^T dA.  A form with
 //     C = Linv^T G Linv formed once per window (dK = C Kuf + h err^T, Q +=
@@ -98,33 +98,46 @@
 //     once per block; no per-window product is left outside the kernel;
 //   * shared memory holds Linv's lower triangle as kernel A does (block
 //     rows of 16, 16-byte rows), G (MP x MP), and one space that is either
-//     the Kuf and A / dA tiles (MP x 34 each: the column reads of dLinv's
-//     product are free of bank conflicts) or the features of a chunk of
-//     sources, which serve the build before Kuf's tile is stored and the
-//     per-source sums after dA's tile is last read (so they are copied
-//     again every tile): 111 KB at the SoSp width (M 112, 3 x 5), so two
-//     blocks share an SM; at M 160 one block, with 4 of 8 sources a chunk at
-//     the AMT width;
-//   * register tiles: thread (tid / 16, tid % 16) owns RU x 2 elements
-//     (rows 16 r + tid / 16, columns 2 (tid % 16) + c) of the build, of A,
-//     dA and dK and of the per-source sums, so dK never leaves registers,
-//     and dLinv's RU x RU entries (16 a + tid / 16, 16 b + tid % 16) across
-//     the tiles.  A = tril(Linv) Kuf is kernel A's product (16-byte rows of
-//     the triangle, 8-byte pairs of Kuf); G A reads 16-byte rows of G (RU +
-//     4 loads per 8 RU FMAs); dLinv 8-byte pairs of dA and Kuf (2 RU loads
-//     per 2 RU^2 FMAs); tril(Linv)^T dA reads the triangle's columns one
-//     float at a time (a broadcast within each half warp);
+//     the Kuf and A / dA tiles (MP x 36 each: 16-byte rows, and the
+//     16-byte column quads of dLinv's product free of bank conflicts) or
+//     the features of a chunk of sources, which serve the build before
+//     Kuf's tile is stored and the per-source sums after dA's tile is last
+//     read (so they are copied again every tile): 112 KB at the SoSp width
+//     (M 112, 3 x 5), so two blocks share an SM; at M 160 one block, with 4
+//     of 8 sources a chunk at the AMT width;
+//   * register tiles: thread (ty, tx) = (tid / TX, tid % TX) owns RU x C
+//     elements (rows 16 r + ty, columns C tx + c) of the build, of A, dA
+//     and dK and of the per-source sums, so dK never leaves registers, and
+//     dLinv's RU x RU C / 2 entries (16 a + ty, TX b + tx) across the
+//     tiles.  C is 4 up to M 112 (128 threads, 16 x 8: up to 255 registers
+//     a thread with two blocks an SM, so dLinv's 98 accumulators at RU 7
+//     do not spill), 2 at M 160 (256 threads: dLinv's RU^2 = 100).  Each
+//     product takes 4 values of k at a time: A = tril(Linv) Kuf reads a
+//     16-byte row quad of the triangle per block row against 4 rows of
+//     Kuf (RU + 4 quads per 16 RU FMAs at C 4, against RU + 4 loads per 8
+//     RU FMAs in RU x 2 tiles), G A 16-byte quads of G against 4 rows of
+//     A, dLinv 16-byte sample quads of dA and Kuf (RU + RU C / 2 quads per
+//     2 RU^2 C FMAs), and tril(Linv)^T dA the triangle's columns one float
+//     at a time, each float feeding C products;
 //   * features once: the z features of every pair are formed once per
 //     window (`bwd_zfeat_kernel`) and copied, not recomputed, per chunk and
-//     tile; the tile's x features once per tile and chunk in each pass; the
-//     per-source pass needs E once per element and source, and takes the
-//     mixture's sums per partial (Sa = <dK E, C_p>) instead of forming the
-//     mixture again: dvar = sum_p e_p Sa_p;
+//     tile; the tile's x features once per tile and chunk in each pass (the
+//     build's with e_q folded in); the per-source pass needs E once per
+//     element and source, and takes the mixture's sums per partial (Sa =
+//     <dK E, C_p>) instead of forming the mixture again: dvar = sum_p e_p
+//     Sa_p;
 //   * per-source sums: each thread sums its elements, a warp adds its lanes
-//     with a butterfly, lane 0 adds into its warp's slots in shared memory,
-//     and one thread per output adds the 8 warps in order into the block's
-//     record once per block (or per chunk and tile when the sources take
-//     several chunks).
+//     with a butterfly, four partials at a time so that their shuffles
+//     overlap, lane 0 adds into its warp's slots in shared memory, and the
+//     warps are added in order into the block's record (one thread per
+//     pair, then one per source) once per block, or per chunk and tile when
+//     the sources take several chunks;
+//   * the tensor cores: not used.  3xTF32 through wgmma needs every operand
+//     in shared memory K-major and split into hi and lo parts, G and Linv
+//     (both its layouts: Linv Kuf and Linv^T dA contract over its two
+//     axes) twice over: 6 x 49 KB at M 112 and 6 x 100 KB at M 160 beside
+//     the tiles, more than a block's 227 KB; splitting them at every
+//     fragment load is what made kernel A's mma.sync form lose (above).
 // Both kernels: every product is an f32 FMA on the CUDA cores, never TF32;
 // cos and sin are the full-precision sincosf (arguments reach ~6e3 rad), exp
 // is expf in kernel B and exp2f in A, an angle is formed as (2 pi z) f like
@@ -133,22 +146,29 @@
 // split a window's tiles over several blocks when the windows alone do not
 // fill the card's resident blocks (`plan_splits`), each writing a partial
 // record that a second kernel adds in a fixed order (no atomics: a run is
-// bit-for-bit reproducible); 256 threads as 16 x 16; M is padded to MP = 16
-// RU (RU in 1, 2, 4, 7, 10: M <= 160) with zeros.
-// Later work for B: the transposed triangle for tril(Linv)^T dA (16-byte
-// rows instead of single floats), wider register tiles, and the products
-// on the tensor cores in 3xTF32 through wgmma.
+// bit-for-bit reproducible); M is padded to MP = 16 RU (RU in 1, 2, 4, 7,
+// 10: M <= 160) with zeros.  Kernel A takes 256 threads as 16 x 16.
+// Later work for B: the products on the tensor cores (a plan that keeps G's
+// and Linv's split parts out of shared memory, or streams them), 64-sample
+// tiles, which do not fit beside G at two blocks an SM.
 
 #include <cuda_runtime.h>
 
 #include <atomic>
 #include <cstdint>
 
+// A launch and the dynamic shared memory of a kernel.  The tests' CPU
+// emulation of this file (tests/cuda_emulation/cuda_runtime.h) defines its
+// own.
+#ifndef GPITCH_LAUNCH
+#define GPITCH_LAUNCH(kernel, grid, block, smem, stream) kernel<<<grid, block, smem, stream>>>
+#define GPITCH_DYNAMIC_SHARED(name) extern __shared__ __align__(16) float name[]
+#endif
+
 namespace {
 
 constexpr int kTile = 32;          // samples per tile (linalg/fused_whiten.py TILE_T)
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr int kMaxDevices = 64;
 constexpr int kSmemLimit = 232448;    // dynamic shared memory of one block
 constexpr int kHalfSm = 113 * 1024;   // two blocks on one SM (228 KB, 1 KB each reserved)
@@ -318,7 +338,7 @@ __device__ void fwd_xfeat(const Args& a, float* sm, const FwdLayout& l, int w, i
 template <int RU>
 __global__ void __launch_bounds__(kThreads, RU >= 10 ? 1 : 2) fused_whiten_fwd_kernel(Args a) {
   constexpr int MP = 16 * RU, NQ = RU * (RU + 1) / 2;
-  extern __shared__ __align__(16) float sm[];
+  GPITCH_DYNAMIC_SHARED(sm);
   const int M = a.M, N = a.N, S = a.S, sc = a.chunk_sources, G = a.p2 / 2;
   const FwdLayout l = make_fwd_layout(RU, sc, a.p2);
   const int w = blockIdx.y, tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
@@ -496,7 +516,13 @@ __global__ void __launch_bounds__(kThreads, RU >= 10 ? 1 : 2) fused_whiten_fwd_k
 }
 
 // ------------------------------------------------------------- kernel B
-constexpr int kBP = kTile + 2;        // pitch of kernel B's Kuf and A / dA tiles
+constexpr int kBP = kTile + 4;        // pitch of kernel B's Kuf and A / dA tiles
+
+// Columns of a tile that a thread of kernel B owns, C: 4 up to M 112 (128
+// threads, 16 x 8), 2 at M 160 (256 threads, 16 x 16: dLinv's RU C / 2
+// accumulators a row fit a thread's registers only so).
+__host__ __device__ constexpr int bwd_cols(int ru) { return ru >= 10 ? 2 : 4; }
+__host__ __device__ constexpr int bwd_threads(int ru) { return 16 * kTile / bwd_cols(ru); }
 
 struct BwdArgs {
   const float* zc;      // as in Args
@@ -534,7 +560,7 @@ struct BwdLayout {
 // dv, the tile's x and err, the chunk's parameters, and each warp's
 // partial sums (3 per pair).
 __host__ __device__ inline BwdLayout make_bwd_layout(int ru, int sc, int P) {
-  const int mp = 16 * ru, pairs = sc * P;
+  const int mp = 16 * ru, pairs = sc * P, warps = bwd_threads(ru) / 32;
   const int tiles = 2 * mp * kBP, feats = pairs * 2 * (kTile + mp);
   BwdLayout l;
   int o = 0;
@@ -551,7 +577,7 @@ __host__ __device__ inline BwdLayout make_bwd_layout(int ru, int sc, int P) {
   l.pf = o;  o += round4(pairs);
   l.pv = o;  o += round4(sc);
   l.pil = o; o += round4(sc);
-  l.red = o; o += kWarps * pairs * 3;
+  l.red = o; o += round4(warps * pairs * 3);
   l.total = o;
   return l;
 }
@@ -575,34 +601,38 @@ __global__ void bwd_zfeat_kernel(BwdArgs a) {
 
 // Sources s0 .. s0 + ns - 1 of window w: parameters, and their z features
 // copied from the workspace.
+template <int NT>
 __device__ void bwd_chunk(const BwdArgs& a, float* sm, const BwdLayout& l, int w, int s0,
                           int ns) {
   const int P = a.P, np = ns * P, mp = a.mp;
   const float* e = a.energy + static_cast<int64_t>(w) * a.e_stride + s0 * P;
   const float* f = a.freq + static_cast<int64_t>(w) * a.e_stride + s0 * P;
-  for (int q = threadIdx.x; q < np; q += kThreads) {
+  for (int q = threadIdx.x; q < np; q += NT) {
     sm[l.pe + q] = e[q];
     sm[l.pf + q] = f[q];
   }
   const int64_t vb = static_cast<int64_t>(w) * a.v_stride + s0;
-  for (int q = threadIdx.x; q < ns; q += kThreads) {
+  for (int q = threadIdx.x; q < ns; q += NT) {
     sm[l.pv + q] = a.var[vb + q];
     sm[l.pil + q] = a.inv_l[vb + q];
   }
   const float4* src = reinterpret_cast<const float4*>(
       a.ws + static_cast<int64_t>(w) * a.wsz + static_cast<int64_t>(s0) * P * 2 * mp);
   float4* dst = reinterpret_cast<float4*>(sm + l.zf);
-  for (int q = threadIdx.x; q < np * mp / 2; q += kThreads) dst[q] = src[q];
+  for (int q = threadIdx.x; q < np * mp / 2; q += NT) dst[q] = src[q];
 }
 
-// The tile's x features cos, sin(2 pi f_q x_t) of the chunk's np pairs.
-__device__ void bwd_xfeat(float* sm, const BwdLayout& l, int np) {
-  for (int idx = threadIdx.x; idx < np * kTile; idx += kThreads) {
+// The tile's x features cos, sin(2 pi f_q x_t) of the chunk's np pairs,
+// times e_q where ``energy`` says so (the build's pass).
+template <int NT>
+__device__ void bwd_xfeat(float* sm, const BwdLayout& l, int np, bool energy) {
+  for (int idx = threadIdx.x; idx < np * kTile; idx += NT) {
     const int q = idx / kTile, t = idx - q * kTile;
     float sn, cs;
     sincosf((kTwoPi * sm[l.x + t]) * sm[l.pf + q], &sn, &cs);
-    sm[l.xf + 2 * q * kTile + t] = cs;
-    sm[l.xf + (2 * q + 1) * kTile + t] = sn;
+    const float e = energy ? sm[l.pe + q] : 1.f;
+    sm[l.xf + 2 * q * kTile + t] = e * cs;
+    sm[l.xf + (2 * q + 1) * kTile + t] = e * sn;
   }
 }
 
@@ -611,90 +641,118 @@ __device__ void bwd_xfeat(float* sm, const BwdLayout& l, int np) {
 //   dvar = sum_p e_p Sa_p,  dinvl = -var sum_p e_p Sd_p,
 //   de_p = var Sa_p,        df_p = -2 pi e_p var Sf_p,
 // with Sa = <dK E, C_p>, Sd = <dK E |z - x|, C_p>, Sf = <dK E (z - x), S_p>.
+// First one thread per pair adds the warps' slots (de, df, and e_p Sa_p,
+// e_p Sd_p into warp 0's), then one thread per source adds its pairs.
+template <int NT>
 __device__ void bwd_flush(const BwdArgs& a, float* sm, const BwdLayout& l, float* rsrc,
                           int s0, int ns, int cpairs) {
+  constexpr int NW = NT / 32;
   const int P = a.P, S = a.S;
-  const float* red = sm + l.red;
+  float* red = sm + l.red;
+  float* rde = rsrc + 2 * S;
+  float* rdf = rde + S * P;
   __syncthreads();
-  for (int sl = threadIdx.x; sl < ns; sl += kThreads) {
+  for (int q = threadIdx.x; q < ns * P; q += NT) {
+    float sa = 0.f, sd = 0.f, sf = 0.f;
+    for (int v = 0; v < NW; ++v) {
+      float* r = red + (v * cpairs + q) * 3;
+      sa += r[0];
+      sd += r[1];
+      sf += r[2];
+      r[0] = r[1] = r[2] = 0.f;
+    }
+    const int sl = q / P, p = q - sl * P;
+    const float e = sm[l.pe + q], vs = sm[l.pv + sl];
+    rde[(s0 + sl) * P + p] += vs * sa;
+    rdf[(s0 + sl) * P + p] += -kTwoPi * e * vs * sf;
+    red[q * 3] = e * sa;
+    red[q * 3 + 1] = e * sd;
+  }
+  __syncthreads();
+  for (int sl = threadIdx.x; sl < ns; sl += NT) {
     float sv = 0.f, si = 0.f;
     for (int p = 0; p < P; ++p) {
-      const int q = sl * P + p;
-      float sa = 0.f, sd = 0.f;
-      for (int v = 0; v < kWarps; ++v) {
-        sa += red[(v * cpairs + q) * 3];
-        sd += red[(v * cpairs + q) * 3 + 1];
-      }
-      sv += sm[l.pe + q] * sa;
-      si += sm[l.pe + q] * sd;
+      float* r = red + (sl * P + p) * 3;
+      sv += r[0];
+      si += r[1];
+      r[0] = r[1] = 0.f;
     }
     rsrc[s0 + sl] += sv;
     rsrc[S + s0 + sl] += -sm[l.pv + sl] * si;
   }
   __syncthreads();
-  float* rde = rsrc + 2 * S;
-  float* rdf = rde + S * P;
-  for (int q = threadIdx.x; q < ns * P; q += kThreads) {
-    float sa = 0.f, sf = 0.f;
-    for (int v = 0; v < kWarps; ++v) {
-      float* r = sm + l.red + (v * cpairs + q) * 3;
-      sa += r[0];
-      sf += r[2];
-      r[0] = r[1] = r[2] = 0.f;
-    }
-    const int sl = q / P, p = q - sl * P;
-    rde[(s0 + sl) * P + p] += sm[l.pv + sl] * sa;
-    rdf[(s0 + sl) * P + p] += -kTwoPi * sm[l.pe + q] * sm[l.pv + sl] * sf;
+}
+
+// C consecutive floats of shared memory (8- or 16-byte aligned) into v.
+template <int C>
+__device__ __forceinline__ void load_cols(const float* p, float (&v)[C]) {
+  if constexpr (C == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+  } else {
+    const float2 q = *reinterpret_cast<const float2*>(p);
+    v[0] = q.x; v[1] = q.y;
   }
-  __syncthreads();
+}
+
+template <int C>
+__device__ __forceinline__ void store_cols(float* p, const float (&v)[C]) {
+  if constexpr (C == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  }
 }
 
 // The main kernel: per tile of 32 samples, Kuf's tile, A = tril(Linv) Kuf,
 // dA = G A + dv err^T, dLinv += dA Kuf^T, dK = tril(Linv)^T dA, then the
 // per-source sums of dK E against the features.  Thread (ty, tx) = (tid /
-// 16, tid % 16) owns the elements (ty + 16 r, 2 tx + c) of the build, of
-// A, dA and dK and of the sums, and dLinv's entries (16 a + ty, 16 b + tx)
-// in registers across the tiles.  M is padded to MP = 16 RU.
+// TX, tid % TX), TX = 32 / C, owns the elements (ty + 16 r, C tx + c) of
+// the build, of A, dA and dK and of the sums, and dLinv's entries (16 a +
+// ty, tx + TX b) in registers across the tiles.  M is padded to MP = 16 RU.
 template <int RU>
-__global__ void __launch_bounds__(kThreads, RU >= 10 ? 1 : 2) fused_whiten_bwd_kernel(BwdArgs a) {
-  constexpr int MP = 16 * RU;
-  extern __shared__ __align__(16) float sm[];
+__global__ void __launch_bounds__(bwd_threads(RU), RU >= 10 ? 1 : 2)
+    fused_whiten_bwd_kernel(BwdArgs a) {
+  constexpr int MP = 16 * RU, C = bwd_cols(RU), TX = kTile / C, NT = bwd_threads(RU);
+  constexpr int NB = MP / TX;           // dLinv's columns a thread owns
+  constexpr int KC = C == 2 ? 16 : 8;   // rows of Kuf or dA a product holds at once
+  GPITCH_DYNAMIC_SHARED(sm);
   const int M = a.M, N = a.N, P = a.P, S = a.S, sc = a.chunk_sources, cpairs = sc * P;
   const BwdLayout l = make_bwd_layout(RU, sc, P);
   const int w = blockIdx.y, tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int ty = tid / 16, tx = tid % 16;
+  const int ty = tid / TX, tx = tid % TX;
   const int nchunks = (S + sc - 1) / sc;
   const int64_t mm = static_cast<int64_t>(w) * M * M;
   float* rec = a.part + (static_cast<int64_t>(w) * a.splits + blockIdx.x) * a.rec;
   float* rsrc = rec + M * M;
-  for (int q = tid; q < 2 * S + 2 * S * P; q += kThreads) rsrc[q] = 0.f;
+  for (int q = tid; q < 2 * S + 2 * S * P; q += NT) rsrc[q] = 0.f;
 #pragma unroll
   for (int r = 0; r < RU; ++r) {
     const int cols = 16 * (r + 1);
     float* dst = sm + l.tri + tri_offset(r);
-    for (int idx = tid; idx < 16 * cols; idx += kThreads) {
+    for (int idx = tid; idx < 16 * cols; idx += NT) {
       const int ii = idx / cols, k = idx - ii * cols, i = 16 * r + ii;
       dst[ii * tri_pitch(r) + k] = (k <= i && i < M) ? a.linv[mm + i * M + k] : 0.f;
     }
   }
-  for (int idx = tid; idx < MP * MP; idx += kThreads) {
+  for (int idx = tid; idx < MP * MP; idx += NT) {
     const int i = idx / MP, k = idx - i * MP;
     sm[l.g + idx] = (i < M && k < M) ? a.du[mm + i * M + k] + a.du[mm + k * M + i] : 0.f;
   }
-  for (int i = tid; i < MP; i += kThreads) {
+  for (int i = tid; i < MP; i += NT) {
     sm[l.z + i] = i < M ? a.zc[static_cast<int64_t>(w) * M + i] : 0.f;
     sm[l.dv + i] = i < M ? a.dv[static_cast<int64_t>(w) * M + i] : 0.f;
   }
-  for (int q = tid; q < kWarps * cpairs * 3; q += kThreads) sm[l.red + q] = 0.f;
+  for (int q = tid; q < (NT / 32) * cpairs * 3; q += NT) sm[l.red + q] = 0.f;
   __syncthreads();
   float zr[RU];
 #pragma unroll
   for (int r = 0; r < RU; ++r) zr[r] = sm[l.z + ty + 16 * r];
-  float dl[RU][RU];
+  float dl[RU][NB];
 #pragma unroll
   for (int u = 0; u < RU; ++u)
 #pragma unroll
-    for (int b = 0; b < RU; ++b) dl[u][b] = 0.f;
+    for (int b = 0; b < NB; ++b) dl[u][b] = 0.f;
   float* kt = sm + l.kt;
   float* at = sm + l.at;
   int begin, end;
@@ -708,165 +766,172 @@ __global__ void __launch_bounds__(kThreads, RU >= 10 ? 1 : 2) fused_whiten_bwd_k
       sm[l.x + tid] = t < N ? a.xc[g] : 0.f;
       sm[l.err + tid] = t < N ? a.err[g] : 0.f;
     }
-    float xt[2];
+    float xt[C];
 #pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int t = t0 + 2 * tx + c;
+    for (int c = 0; c < C; ++c) {
+      const int t = t0 + C * tx + c;
       xt[c] = t < N ? a.xc[static_cast<int64_t>(w) * N + t] : 0.f;
     }
     // ---- the build: Kuf = sum_s var_s E_s mix_s
-    float kacc[RU][2];
+    float kacc[RU][C];
 #pragma unroll
-    for (int r = 0; r < RU; ++r) kacc[r][0] = kacc[r][1] = 0.f;
+    for (int r = 0; r < RU; ++r)
+#pragma unroll
+      for (int c = 0; c < C; ++c) kacc[r][c] = 0.f;
     for (int ck = 0; ck < nchunks; ++ck) {
       const int s0 = ck * sc, ns = min(sc, S - s0);
       if (ck > 0) __syncthreads();
-      bwd_chunk(a, sm, l, w, s0, ns);
+      bwd_chunk<NT>(a, sm, l, w, s0, ns);
       __syncthreads();
-      bwd_xfeat(sm, l, ns * P);
+      bwd_xfeat<NT>(sm, l, ns * P, true);
       __syncthreads();
       for (int sl = 0; sl < ns; ++sl) {
-        float mix[RU][2];
+        float mix[RU][C];
 #pragma unroll
-        for (int r = 0; r < RU; ++r) mix[r][0] = mix[r][1] = 0.f;
+        for (int r = 0; r < RU; ++r)
+#pragma unroll
+          for (int c = 0; c < C; ++c) mix[r][c] = 0.f;
         for (int p = 0; p < P; ++p) {
           const int q = sl * P + p;
-          const float e = sm[l.pe + q];
-          const float2 cx = *reinterpret_cast<const float2*>(sm + l.xf + 2 * q * kTile + 2 * tx);
-          const float2 sx =
-              *reinterpret_cast<const float2*>(sm + l.xf + (2 * q + 1) * kTile + 2 * tx);
+          float cx[C], sx[C];      // e_q cos, e_q sin of the tile's x
+          load_cols<C>(sm + l.xf + 2 * q * kTile + C * tx, cx);
+          load_cols<C>(sm + l.xf + (2 * q + 1) * kTile + C * tx, sx);
 #pragma unroll
           for (int r = 0; r < RU; ++r) {
-            const float ecz = e * sm[l.zf + 2 * q * MP + ty + 16 * r];
-            const float esz = e * sm[l.zf + (2 * q + 1) * MP + ty + 16 * r];
-            mix[r][0] += ecz * cx.x + esz * sx.x;
-            mix[r][1] += ecz * cx.y + esz * sx.y;
+            const float cz = sm[l.zf + 2 * q * MP + ty + 16 * r];
+            const float sz = sm[l.zf + (2 * q + 1) * MP + ty + 16 * r];
+#pragma unroll
+            for (int c = 0; c < C; ++c) mix[r][c] += cz * cx[c] + sz * sx[c];
           }
         }
         const float vs = sm[l.pv + sl], il = sm[l.pil + sl];
 #pragma unroll
         for (int r = 0; r < RU; ++r)
 #pragma unroll
-          for (int c = 0; c < 2; ++c)
+          for (int c = 0; c < C; ++c)
             kacc[r][c] += vs * expf(-fabsf(zr[r] - xt[c]) * il) * mix[r][c];
       }
     }
     __syncthreads();    // every reader of the features is done: Kuf's tile takes their place
 #pragma unroll
     for (int r = 0; r < RU; ++r) {
-      const int i = ty + 16 * r, t = t0 + 2 * tx;
-      float2 v;
-      v.x = (i < M && t < N) ? kacc[r][0] : 0.f;
-      v.y = (i < M && t + 1 < N) ? kacc[r][1] : 0.f;
-      *reinterpret_cast<float2*>(kt + i * kBP + 2 * tx) = v;
+      const int i = ty + 16 * r, t = t0 + C * tx;
+      float v[C];
+#pragma unroll
+      for (int c = 0; c < C; ++c) v[c] = (i < M && t + c < N) ? kacc[r][c] : 0.f;
+      store_cols<C>(kt + i * kBP + C * tx, v);
     }
     __syncthreads();
     // ---- A = tril(Linv) Kuf (kernel A's product): for each 16-block kb of
-    // k, the block rows r >= kb
-    float acc[RU][2];
+    // k, KC rows of Kuf at a time in registers against the block rows r >= kb
+    float acc[RU][C];
 #pragma unroll
-    for (int r = 0; r < RU; ++r) acc[r][0] = acc[r][1] = 0.f;
+    for (int r = 0; r < RU; ++r)
+#pragma unroll
+      for (int c = 0; c < C; ++c) acc[r][c] = 0.f;
 #pragma unroll 1
     for (int kb = 0; kb < RU; ++kb) {
-      float2 kv[16];
 #pragma unroll
-      for (int kk = 0; kk < 16; ++kk)
-        kv[kk] = *reinterpret_cast<const float2*>(kt + (16 * kb + kk) * kBP + 2 * tx);
+      for (int k0 = 0; k0 < 16; k0 += KC) {
+        float kv[KC][C];
 #pragma unroll
-      for (int r = 0; r < RU; ++r) {
-        if (r < kb) continue;
-        const float* row = sm + l.tri + tri_offset(r) + ty * tri_pitch(r) + 16 * kb;
+        for (int j = 0; j < KC; ++j) load_cols<C>(kt + (16 * kb + k0 + j) * kBP + C * tx, kv[j]);
 #pragma unroll
-        for (int k4 = 0; k4 < 16; k4 += 4) {
-          const float4 lv = *reinterpret_cast<const float4*>(row + k4);
-          const float lk[4] = {lv.x, lv.y, lv.z, lv.w};
+        for (int r = 0; r < RU; ++r) {
+          if (r < kb) continue;
+          const float* row = sm + l.tri + tri_offset(r) + ty * tri_pitch(r) + 16 * kb + k0;
 #pragma unroll
-          for (int kk = 0; kk < 4; ++kk) {
-            acc[r][0] += lk[kk] * kv[k4 + kk].x;
-            acc[r][1] += lk[kk] * kv[k4 + kk].y;
+          for (int k4 = 0; k4 < KC; k4 += 4) {
+            const float4 lv = *reinterpret_cast<const float4*>(row + k4);
+            const float lk[4] = {lv.x, lv.y, lv.z, lv.w};
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+#pragma unroll
+              for (int c = 0; c < C; ++c) acc[r][c] += lk[j] * kv[k4 + j][c];
           }
         }
       }
     }
     // A's tile lies over the features, whose readers passed the last barrier
 #pragma unroll
-    for (int r = 0; r < RU; ++r)
-      *reinterpret_cast<float2*>(at + (ty + 16 * r) * kBP + 2 * tx) =
-          make_float2(acc[r][0], acc[r][1]);
+    for (int r = 0; r < RU; ++r) store_cols<C>(at + (ty + 16 * r) * kBP + C * tx, acc[r]);
     __syncthreads();
     // ---- dA = G A + dv err^T (registers; acc holds it)
     {
-      const float e0 = sm[l.err + 2 * tx], e1 = sm[l.err + 2 * tx + 1];
+      float e[C];
+      load_cols<C>(sm + l.err + C * tx, e);
 #pragma unroll
       for (int r = 0; r < RU; ++r) {
         const float dvr = sm[l.dv + ty + 16 * r];
-        acc[r][0] = dvr * e0;
-        acc[r][1] = dvr * e1;
+#pragma unroll
+        for (int c = 0; c < C; ++c) acc[r][c] = dvr * e[c];
       }
     }
+#pragma unroll 2
     for (int k = 0; k < MP; k += 4) {
-      float4 gv[RU];
-      float2 av[4];
+      float av[4][C];
 #pragma unroll
-      for (int r = 0; r < RU; ++r)
-        gv[r] = *reinterpret_cast<const float4*>(sm + l.g + (ty + 16 * r) * MP + k);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        av[kk] = *reinterpret_cast<const float2*>(at + (k + kk) * kBP + 2 * tx);
+      for (int j = 0; j < 4; ++j) load_cols<C>(at + (k + j) * kBP + C * tx, av[j]);
 #pragma unroll
       for (int r = 0; r < RU; ++r) {
-        const float gr[4] = {gv[r].x, gv[r].y, gv[r].z, gv[r].w};
+        const float4 gv = *reinterpret_cast<const float4*>(sm + l.g + (ty + 16 * r) * MP + k);
+        const float gr[4] = {gv.x, gv.y, gv.z, gv.w};
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          acc[r][0] += gr[kk] * av[kk].x;
-          acc[r][1] += gr[kk] * av[kk].y;
-        }
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int c = 0; c < C; ++c) acc[r][c] += gr[j] * av[j][c];
       }
     }
     __syncthreads();    // every reader of A is done: dA takes its place
 #pragma unroll
-    for (int r = 0; r < RU; ++r)
-      *reinterpret_cast<float2*>(at + (ty + 16 * r) * kBP + 2 * tx) =
-          make_float2(acc[r][0], acc[r][1]);
+    for (int r = 0; r < RU; ++r) store_cols<C>(at + (ty + 16 * r) * kBP + C * tx, acc[r]);
     __syncthreads();
-    // ---- dLinv += dA Kuf^T (dense: every entry is an output)
-#pragma unroll 2
-    for (int t = 0; t < kTile; t += 2) {
-      float2 rv[RU], cv[RU];
-#pragma unroll
-      for (int u = 0; u < RU; ++u) {
-        rv[u] = *reinterpret_cast<const float2*>(at + (16 * u + ty) * kBP + t);
-        cv[u] = *reinterpret_cast<const float2*>(kt + (16 * u + tx) * kBP + t);
-      }
+    // ---- dLinv += dA Kuf^T (dense: every entry is an output), 4 samples at
+    // a time: rows of dA by 16-byte quads, one quad of Kuf per column
+#pragma unroll 1
+    for (int t = 0; t < kTile; t += 4) {
+      float4 rv[RU];
 #pragma unroll
       for (int u = 0; u < RU; ++u)
+        rv[u] = *reinterpret_cast<const float4*>(at + (16 * u + ty) * kBP + t);
 #pragma unroll
-        for (int b = 0; b < RU; ++b) {
-          dl[u][b] += rv[u].x * cv[b].x;
-          dl[u][b] += rv[u].y * cv[b].y;
+      for (int b = 0; b < NB; ++b) {
+        const float4 cv = *reinterpret_cast<const float4*>(kt + (TX * b + tx) * kBP + t);
+#pragma unroll
+        for (int u = 0; u < RU; ++u) {
+          dl[u][b] += rv[u].x * cv.x;
+          dl[u][b] += rv[u].y * cv.y;
+          dl[u][b] += rv[u].z * cv.z;
+          dl[u][b] += rv[u].w * cv.w;
         }
+      }
     }
-    // ---- dK = tril(Linv)^T dA: for each 16-block kb of k, the block rows
-    // r <= kb, Linv's columns read down the triangle's block row kb
-    float dk[RU][2];
+    // ---- dK = tril(Linv)^T dA: for each 16-block kb of k, KC rows of dA
+    // at a time against the block rows r <= kb, Linv's columns read down the
+    // triangle's block row kb (each float feeds C products)
+    float dk[RU][C];
 #pragma unroll
-    for (int r = 0; r < RU; ++r) dk[r][0] = dk[r][1] = 0.f;
+    for (int r = 0; r < RU; ++r)
+#pragma unroll
+      for (int c = 0; c < C; ++c) dk[r][c] = 0.f;
 #pragma unroll 1
     for (int kb = 0; kb < RU; ++kb) {
-      float2 dak[16];
-#pragma unroll
-      for (int kk = 0; kk < 16; ++kk)
-        dak[kk] = *reinterpret_cast<const float2*>(at + (16 * kb + kk) * kBP + 2 * tx);
       const float* blk = sm + l.tri + tri_offset(kb) + ty;
       const int pitch = tri_pitch(kb);
 #pragma unroll
-      for (int r = 0; r < RU; ++r) {
-        if (r > kb) continue;
+      for (int k0 = 0; k0 < 16; k0 += KC) {
+        float dak[KC][C];
 #pragma unroll
-        for (int kk = 0; kk < 16; ++kk) {
-          const float lv = blk[kk * pitch + 16 * r];
-          dk[r][0] += lv * dak[kk].x;
-          dk[r][1] += lv * dak[kk].y;
+        for (int j = 0; j < KC; ++j) load_cols<C>(at + (16 * kb + k0 + j) * kBP + C * tx, dak[j]);
+#pragma unroll
+        for (int r = 0; r < RU; ++r) {
+          if (r > kb) continue;
+#pragma unroll
+          for (int j = 0; j < KC; ++j) {
+            const float lv = blk[(k0 + j) * pitch + 16 * r];
+#pragma unroll
+            for (int c = 0; c < C; ++c) dk[r][c] += lv * dak[j][c];
+          }
         }
       }
     }
@@ -874,52 +939,65 @@ __global__ void __launch_bounds__(kThreads, RU >= 10 ? 1 : 2) fused_whiten_bwd_k
     for (int ck = 0; ck < nchunks; ++ck) {
       const int s0 = ck * sc, ns = min(sc, S - s0);
       __syncthreads();    // the tiles' readers (or the last flush) are done
-      bwd_chunk(a, sm, l, w, s0, ns);
+      bwd_chunk<NT>(a, sm, l, w, s0, ns);
       __syncthreads();
-      bwd_xfeat(sm, l, ns * P);
+      bwd_xfeat<NT>(sm, l, ns * P, false);
       __syncthreads();
       for (int sl = 0; sl < ns; ++sl) {
         const float il = sm[l.pil + sl];
         // dK E, dK E |z - x| and dK E (z - x) of the thread's elements
-        float av[RU][2], aad[RU][2], ad[RU][2];
+        float av[RU][C], aad[RU][C], ad[RU][C];
 #pragma unroll
         for (int r = 0; r < RU; ++r)
 #pragma unroll
-          for (int c = 0; c < 2; ++c) {
+          for (int c = 0; c < C; ++c) {
             const float d = zr[r] - xt[c];
             av[r][c] = dk[r][c] * expf(-fabsf(d) * il);
             aad[r][c] = av[r][c] * fabsf(d);
             ad[r][c] = av[r][c] * d;
           }
-        for (int p = 0; p < P; ++p) {
-          const int q = sl * P + p;
-          const float2 cx = *reinterpret_cast<const float2*>(sm + l.xf + 2 * q * kTile + 2 * tx);
-          const float2 sx =
-              *reinterpret_cast<const float2*>(sm + l.xf + (2 * q + 1) * kTile + 2 * tx);
-          float sa = 0.f, sd = 0.f, sf = 0.f;
+        // four partials at a time, so that their warp sums overlap
+        for (int p0 = 0; p0 < P; p0 += 4) {
+          float part[4][3];
 #pragma unroll
-          for (int r = 0; r < RU; ++r) {
-            const float cz = sm[l.zf + 2 * q * MP + ty + 16 * r];
-            const float sz = sm[l.zf + (2 * q + 1) * MP + ty + 16 * r];
-            const float c0 = cz * cx.x + sz * sx.x, c1 = cz * cx.y + sz * sx.y;
-            sa += av[r][0] * c0 + av[r][1] * c1;
-            sd += aad[r][0] * c0 + aad[r][1] * c1;
-            sf += ad[r][0] * (sz * cx.x - cz * sx.x) + ad[r][1] * (sz * cx.y - cz * sx.y);
+          for (int j = 0; j < 4; ++j) {
+            part[j][0] = part[j][1] = part[j][2] = 0.f;
+            const int q = sl * P + p0 + j;
+            if (p0 + j >= P) continue;
+            float cx[C], sx[C];
+            load_cols<C>(sm + l.xf + 2 * q * kTile + C * tx, cx);
+            load_cols<C>(sm + l.xf + (2 * q + 1) * kTile + C * tx, sx);
+#pragma unroll
+            for (int r = 0; r < RU; ++r) {
+              const float cz = sm[l.zf + 2 * q * MP + ty + 16 * r];
+              const float sz = sm[l.zf + (2 * q + 1) * MP + ty + 16 * r];
+#pragma unroll
+              for (int c = 0; c < C; ++c) {
+                const float c0 = cz * cx[c] + sz * sx[c];
+                part[j][0] += av[r][c] * c0;
+                part[j][1] += aad[r][c] * c0;
+                part[j][2] += ad[r][c] * (sz * cx[c] - cz * sx[c]);
+              }
+            }
           }
-          const float sum = warp_sum4(sa, sd, sf, 0.f, lane);
-          if (lane % 8 == 0 && lane < 24) sm[l.red + (warp * cpairs + q) * 3 + lane / 8] += sum;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float sum = warp_sum4(part[j][0], part[j][1], part[j][2], 0.f, lane);
+            if (p0 + j < P && lane % 8 == 0 && lane < 24)
+              sm[l.red + (warp * cpairs + sl * P + p0 + j) * 3 + lane / 8] += sum;
+          }
         }
       }
-      if (nchunks > 1) bwd_flush(a, sm, l, rsrc, s0, ns, cpairs);
+      if (nchunks > 1) bwd_flush<NT>(a, sm, l, rsrc, s0, ns, cpairs);
     }
   }
   // (a block without a tile has no chunk's parameters loaded, and nothing to add)
-  if (nchunks == 1 && begin < end) bwd_flush(a, sm, l, rsrc, 0, S, cpairs);
+  if (nchunks == 1 && begin < end) bwd_flush<NT>(a, sm, l, rsrc, 0, S, cpairs);
 #pragma unroll
   for (int u = 0; u < RU; ++u)
 #pragma unroll
-    for (int b = 0; b < RU; ++b) {
-      const int i = 16 * u + ty, j = 16 * b + tx;
+    for (int b = 0; b < NB; ++b) {
+      const int i = 16 * u + ty, j = TX * b + tx;
       if (i < M && j < M) rec[i * M + j] = dl[u][b];
     }
 }
@@ -939,8 +1017,8 @@ __global__ void reduce_splits_kernel(const float* __restrict__ part, float* __re
 cudaError_t reduce_splits(const float* part, float* out, int nw, int rec, int splits,
                           cudaStream_t stream) {
   const int64_t total = static_cast<int64_t>(nw) * rec;
-  reduce_splits_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0, stream>>>(
-      part, out, total, rec, splits);
+  GPITCH_LAUNCH(reduce_splits_kernel, static_cast<unsigned>((total + 255) / 256), 256, 0,
+                stream)(part, out, total, rec, splits);
   return cudaGetLastError();
 }
 
@@ -963,13 +1041,13 @@ cudaError_t allow_shared(const void* fn, int smem, std::atomic<int>* allowed) {
 // minimises waves x (tiles per block + kSetupTiles), where the set-up is a
 // block's loads (Linv or C, the z features) and its record's write.  Splits
 // that would leave a block without a tile are skipped.
-cudaError_t plan_splits(const void* fn, int smem, int N, int nw, int* splits) {
+cudaError_t plan_splits(const void* fn, int threads, int smem, int N, int nw, int* splits) {
   int device = 0, sms = 0, resident = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, fn, kThreads, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, fn, threads, smem);
   if (err != cudaSuccess) return err;
   const int64_t slots = static_cast<int64_t>(sms) * (resident > 0 ? resident : 1);
   const int tiles = (N + kTile - 1) / kTile;
@@ -997,12 +1075,12 @@ cudaError_t fwd_run(Args a, int nw, float* out, cudaStream_t stream, int* splits
   const int smem = static_cast<int>(sizeof(float) * make_fwd_layout(RU, a.chunk_sources, a.p2).total);
   cudaError_t err = allow_shared(fn, smem, allowed);
   if (err != cudaSuccess) return err;
-  if (splits_out) return plan_splits(fn, smem, a.N, nw, splits_out);
+  if (splits_out) return plan_splits(fn, kThreads, smem, a.N, nw, splits_out);
   const int zblocks = (a.S * a.p2 * a.mp + 1023) / 1024;
-  fwd_zfeat_kernel<<<dim3(zblocks, nw), kThreads, 0, stream>>>(a);
+  GPITCH_LAUNCH(fwd_zfeat_kernel, dim3(zblocks, nw), kThreads, 0, stream)(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  fused_whiten_fwd_kernel<RU><<<dim3(a.splits, nw), kThreads, smem, stream>>>(a);
+  GPITCH_LAUNCH(fused_whiten_fwd_kernel<RU>, dim3(a.splits, nw), kThreads, smem, stream)(a);
   err = cudaGetLastError();
   if (err != cudaSuccess || a.splits == 1) return err;
   return reduce_splits(a.part, out, nw, a.rec, a.splits, stream);
@@ -1039,12 +1117,13 @@ cudaError_t bwd_run(BwdArgs a, int nw, cudaStream_t stream, int* splits_out) {
   const int smem = static_cast<int>(sizeof(float) * make_bwd_layout(RU, a.chunk_sources, a.P).total);
   cudaError_t err = allow_shared(fn, smem, allowed);
   if (err != cudaSuccess) return err;
-  if (splits_out) return plan_splits(fn, smem, a.N, nw, splits_out);
+  if (splits_out) return plan_splits(fn, bwd_threads(RU), smem, a.N, nw, splits_out);
   const int zblocks = (a.S * a.P * a.mp + 1023) / 1024;
-  bwd_zfeat_kernel<<<dim3(zblocks, nw), kThreads, 0, stream>>>(a);
+  GPITCH_LAUNCH(bwd_zfeat_kernel, dim3(zblocks, nw), kThreads, 0, stream)(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  fused_whiten_bwd_kernel<RU><<<dim3(a.splits, nw), kThreads, smem, stream>>>(a);
+  GPITCH_LAUNCH(fused_whiten_bwd_kernel<RU>, dim3(a.splits, nw), bwd_threads(RU), smem,
+                stream)(a);
   err = cudaGetLastError();
   if (err != cudaSuccess || a.splits == 1) return err;
   return reduce_splits(a.part, a.sums, nw, a.rec, a.splits, stream);

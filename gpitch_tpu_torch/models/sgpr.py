@@ -319,10 +319,14 @@ class SGPR:
         # float32, and float32 factors of it put the gradient at a state
         # that L-BFGS reaches 1.7e-4 to 3.0e-4 from f64, the largest error
         # left there (tests/test_torch_fused_whiten_trained.py): B is
-        # factored in float64 and its factors rounded once.
+        # factored in float64 and its factors rounded once.  c = LB^-1 Aerr
+        # / sigma2 is formed from the float64 factor and rounded once too:
+        # at the card's own f32 L-BFGS state a float32 c put the gradient
+        # 2.9e-4 from f64 on the CPU, 1.5e-4 with this c, the largest part
+        # (tests/test_torch_hmc_bank_state.py).
         LB, LB_inv = safe_chol_inv(B.double(), 0.0, jitter_rel=0.0)
+        c = ((LB_inv @ Aerr.to(LB_inv.dtype)) / sigma2.to(LB_inv.dtype)).to(B.dtype)
         LB, LB_inv = LB.to(B.dtype), LB_inv.to(B.dtype)
-        c = (LB_inv @ Aerr) / sigma2
         return AAT, (LB, LB_inv), c, sigma2
 
     def elbo(self):

@@ -19,7 +19,18 @@ barriers), then to the U phase (A, its store and their barriers), then to
 the tile's end.  The
 counters overwrite U[w, 0, :6]; nothing is checked.  A block shares its SM
 with another at M 112 (two resident blocks), so the cycles there are those
-of two blocks interleaved.  Needs a CUDA card.
+of two blocks interleaved.
+
+    python3 phase_clocks.py --bwd TREE [TREE ...]
+
+does the same for kernel B, whose tiles take six phases: the build of
+Kuf's tile (``// ---- the build``), A = tril(Linv) Kuf (``// ---- A =
+tril(Linv) Kuf``), dA = G A + dv err^T (``// ---- dA = G A``), dLinv +=
+dA Kuf^T (``// ---- dLinv += dA Kuf^T``), dK = tril(Linv)^T dA (``// ----
+dK = tril(Linv)^T dA``) and the per-source sums (``// ---- per-source
+sums``): the cycles per tile of warps 0 and 2 from each comment to the
+next (the first from the tile's start, the last to its end); the counters
+overwrite dLinv[w, 0, :12].  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -77,6 +88,70 @@ print(json.dumps(out))
 """
 
 
+_BWD_PHASES = ("    // ---- A = tril(Linv) Kuf", "    // ---- dA = G A",
+               "    // ---- dLinv += dA Kuf^T", "    // ---- dK = tril(Linv)^T dA",
+               "    // ---- per-source sums")
+_BWD_LOOP = "  for (int tile = begin; tile < end; ++tile) {\n"
+_BWD_AFTER = "  // (a block without a tile has no chunk's parameters loaded"
+
+_BWD_CHILD = r"""
+import json, sys
+import numpy as np, torch
+sys.path.insert(0, sys.argv[1])
+import importlib
+import chip_smoke as cs
+fw = importlib.import_module("gpitch_tpu_torch.linalg.fused_whiten")
+dev = torch.device("cuda")
+amt_f0 = 261.6 * 2 ** (np.arange(8) / 12)
+sosp_f0 = 261.6 * 2 ** (np.array([0, 4, 7]) / 12)
+cases = {"a_sosp": cs._whiten_inputs(222, 2001, 112, cs._harmonics(sosp_f0, 5, 16000.0),
+                                     16000.0),
+         "b_amt": cs._whiten_inputs(43, 2001, 160, cs._harmonics(amt_f0, 10, 44100.0),
+                                    44100.0)}
+names = ("zc", "xc", "err", "linv", "du", "dv", "energy", "freq", "var", "inv_l")
+phases = ("build", "A", "GA", "dLinv", "dK", "sums")
+out = {}
+for k, d in cases.items():
+    args = [torch.as_tensor(np.array(d[n]), dtype=torch.float32, device=dev) for n in names]
+    for _ in range(2):
+        dl = fw._backward_kernel(*args, splits=1)[0]
+    torch.cuda.synchronize()
+    tiles = -(-args[1].shape[-1] // fw.TILE_T)
+    c = dl[:, 0, :12].double().cpu().numpy() / tiles
+    out[k] = {"warp0": dict(zip(phases, np.median(c[:, :6], 0).round(0).tolist())),
+              "warp2": dict(zip(phases, np.median(c[:, 6:], 0).round(0).tolist()))}
+print(json.dumps(out))
+"""
+
+
+def instrument_bwd(src: str) -> str:
+    """kernel B's source with a counter per phase; raises if an anchor is
+    missing."""
+    start = src.index("// ------------------------------------------------------------- kernel B")
+    end = src.index("// out[w][e] = sum over splits of part[w][split][e]")
+    head, body, tail = src[:start], src[start:end], src[end:]
+    kern = body.index("fused_whiten_bwd_kernel(BwdArgs a) {")
+    pre, body = body[:kern], body[kern:]
+    i = body.index(_BWD_LOOP)
+    body = (body[:i] + "  long long tp[6] = {0, 0, 0, 0, 0, 0}, c0 = 0, c1;\n" + _BWD_LOOP
+            + "    c0 = clock64();\n" + body[i + len(_BWD_LOOP):])
+    for n, anchor in enumerate(_BWD_PHASES):
+        j = body.find(anchor)
+        if j < 0:
+            raise ValueError(f"anchor not found: {anchor.strip()!r}")
+        body = body[:j] + f"    c1 = clock64(); tp[{n}] += c1 - c0; c0 = c1;\n" + body[j:]
+    # the per-source sums end where the tile loop does: before the comment
+    # after it, close the last phase inside the loop's closing brace
+    j = body.index(_BWD_AFTER)
+    k = body.rindex("  }\n", 0, j)
+    body = body[:k] + "    tp[5] += clock64() - c0;\n" + body[k:]
+    k = body.index("\n}\n", body.index(_BWD_AFTER))
+    body = (body[:k] + "\n  __syncthreads();\n  if (threadIdx.x == 0 || threadIdx.x == 64)\n"
+            "    for (int q = 0; q < 6; ++q) rec[(threadIdx.x == 0 ? 0 : 6) + q] = (float)tp[q];"
+            + body[k:])
+    return head + pre + body + tail
+
+
 def instrument(src: str) -> str:
     """kernel A's source with the counters; raises if an anchor is missing."""
     def insert(text, anchor, before):
@@ -98,7 +173,8 @@ def instrument(src: str) -> str:
 
 
 def main() -> int:
-    trees = sys.argv[1:]
+    bwd = sys.argv[1:2] == ["--bwd"]
+    trees = sys.argv[2:] if bwd else sys.argv[1:]
     if not trees:
         print(__doc__, file=sys.stderr)
         return 2
@@ -114,8 +190,9 @@ def main() -> int:
         with open(cu) as fh:
             src = fh.read()
         with open(cu, "w") as fh:
-            fh.write(instrument(src))
-        res = subprocess.run([sys.executable, "-c", _CHILD, dst], capture_output=True,
+            fh.write(instrument_bwd(src) if bwd else instrument(src))
+        res = subprocess.run([sys.executable, "-c", _BWD_CHILD if bwd else _CHILD, dst],
+                             capture_output=True,
                              text=True, timeout=600, cwd=dst)
         if res.returncode != 0:
             print(res.stderr[-4000:], file=sys.stderr)

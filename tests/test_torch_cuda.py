@@ -292,6 +292,63 @@ def test_cuda_fused_whiten_bwd_reads_the_lower_triangle_of_linv_only(cuda, shape
         assert a.shape == b.shape and _rel(a, b) <= 1e-3
 
 
+def _bwd_rows(got, want64, plain32):
+    """Per output: kernel B within the larger of 1e-3 of max|ref| and 4x the
+    f32 plain backward's own error against the f64 one (chip_smoke's
+    ``_whiten_case`` limit)."""
+    for g, w, q in zip(got, want64, plain32):
+        scale = float(w.abs().max())
+        tol = max(1e-3 * scale, 4 * float((q.double() - w).abs().max()))
+        assert g.shape == w.shape and bool(torch.isfinite(g).all())
+        assert float((g.double() - w).abs().max()) <= tol
+
+
+# the bank widths at a ragged N (2001 = 62 x 32 + 17), each at several
+# splits of a window's tiles over blocks
+@pytest.mark.parametrize("shape", [(5, 112, 2001, 3, 5), (4, 160, 2001, 8, 10),
+                                   (3, 112, 1999, 3, 5)])
+@pytest.mark.parametrize("splits", [1, 2, 7, 21])
+def test_cuda_fused_whiten_bwd_kernel_at_splits_matches_f64_and_f32_plain(cuda, shape, splits):
+    """Kernel B with a window's tiles split over ``splits`` blocks against
+    the plain backward in f64 and f32 (``_bwd_rows``); two launches are bit
+    for bit equal."""
+    from gpitch_tpu_torch.linalg.fused_whiten import _backward_kernel, fused_whiten_bwd_plain
+    args = _whiten_args(cuda, *shape, per_window=True)
+    nw, m = shape[:2]
+    gen = torch.Generator().manual_seed(4)
+    du = (torch.randn(nw, m, m, generator=gen) * 0.01).to(cuda)
+    dv = (torch.randn(nw, m, 1, generator=gen) * 0.01).to(cuda)
+    bwd = (*args[:4], du, dv, *args[4:])
+    want = fused_whiten_bwd_plain(*[a.double() for a in bwd])
+    plain32 = fused_whiten_bwd_plain(*bwd)
+    got = _backward_kernel(*bwd, splits=splits)
+    again = _backward_kernel(*bwd, splits=splits)
+    torch.cuda.synchronize()
+    _bwd_rows(got, want, plain32)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("state", ["f64_lbfgs", "card_lbfgs"])
+def test_cuda_fused_whiten_bwd_kernel_at_the_trained_states(cuda, state):
+    """Kernel B at the bound's own cotangent of the two saved L-BFGS states
+    (tests/torch_fused_whiten_trained_state.npz, an f64 run, and
+    tests/torch_hmc_bank_state.npz, the card's own f32 run), where |G|
+    reaches ~4e7, against the plain backward in f64 and f32."""
+    import chip_smoke
+    from gpitch_tpu_torch.linalg.fused_whiten import fused_whiten_bwd, fused_whiten_bwd_plain
+    if state == "f64_lbfgs":
+        bank = chip_smoke.trained_bank(cuda, torch.float32)
+    else:
+        bank = chip_smoke.saved_hmc_bank(cuda)[0]
+    _, a, du, dv = chip_smoke.pair_cotangents(bank)
+    bwd = (*a[:4], du, dv, *a[4:])
+    got = fused_whiten_bwd(*bwd)
+    want = fused_whiten_bwd_plain(*[t.double() for t in bwd])
+    plain32 = fused_whiten_bwd_plain(*bwd)
+    torch.cuda.synchronize()
+    _bwd_rows(got, want, plain32)
+
+
 def test_cuda_fused_whiten_refuses_what_the_kernels_do_not_take(cuda):
     from gpitch_tpu_torch.linalg.fused_whiten import fused_whiten
     args = _whiten_args(cuda, 2, 16, 64, 2, 3)
