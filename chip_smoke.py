@@ -38,8 +38,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               (e) 16 sosp-4s windows at an f64 L-BFGS state
               (tests/torch_fused_whiten_trained_state.npz): the f32
               gradient through the pair within 2e-4 of f64; times at (a)
-              and (b) with each kernel's share of both bounds (kernel B's
-              beside the parent tree's, KERNEL_B_PARENT_MS), and at each
+              and (b) with each kernel's share of both bounds, and at each
               split of a window's tiles over blocks;
  10. amt      transcription end to end (tests_tpu/workloads.make_amt: 1 s
               at 44.1 kHz, 43 windows, M 160, 8 pitches x 10 partials,
@@ -88,7 +87,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               chains folded into the window axis (the Cholesky kernel, A
               and B launched): the value against one chain at a time
               (1e-5), the gradient against f64 as one chain's is and
-              within 2e-4 both ways, and each f32 part's share of it;
+              within 2e-4 both ways (each f32 part's share of that error:
+              ``--check-hmc-state``);
  18. distributed  (a) a one-rank NCCL group in a fresh process: the
               shard-map bank loss and optimize_bank(mesh=) on sosp-4s; (b)
               two processes on the one card (gloo): sosp-14s
@@ -1615,22 +1615,12 @@ def _whiten_case(name, d, dev, arbiter=True, timing=False) -> dict:
             # the share of each bound that the kernel reaches
             tm[f"kernel_{k}_of_bound"] = tm[f"bound_{k}_ms"] / tm[f"kernel_{k}_ms"]
             tm[f"kernel_{k}_of_fp32_bound"] = tm[f"bound_{k}_fp32_ms"] / tm[f"kernel_{k}_ms"]
-        if name in KERNEL_B_PARENT_MS:
-            tm["kernel_B_parent_ms"] = KERNEL_B_PARENT_MS[name]
-            tm["kernel_B_vs_parent"] = tm["kernel_B_ms"] / KERNEL_B_PARENT_MS[name]
         out["times"] = tm
     out["ok"] = ok
     emit(out)
     assert ok, f"fused-whiten kernels disagree in case {name}"
     return out
 
-
-# kernel B's earlier design (the prototype's association in RU x 2
-# register tiles on 256 threads) at cases a and b, on an NVIDIA H100 80GB
-# HBM3 at 700 W: the medians of its turns beside this design in
-# ``ab_step.py --whiten`` (PERF.md section 6); a reference, not a
-# measurement of this run
-KERNEL_B_PARENT_MS = {"a_sosp": 2.67, "b_amt": 1.71}
 
 _SPLITS = (1, 2, 3, 4, 5, 6, 7, 8, 9, 11, 13, 16, 21, 32, 63)
 
@@ -2307,7 +2297,6 @@ def _hmc_bank(dev, bank) -> dict:
     paths, init, chains = hmc_bank_start(bank)
     logprob = model_logprob_fn(bank, with_raw, prior_scale=1e3)
     check = hmc_bank_check(bank, chains)
-    parts = hmc_bank_parts(bank, chains)
     _zero_all()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2319,7 +2308,7 @@ def _hmc_bank(dev, bank) -> dict:
     return {"windows": int(bank.X.raw.shape[0]),
             "folded_windows": HMC_BANK["num_chains"] * int(bank.X.raw.shape[0]),
             "leaves": paths, "dims_per_chain": int(sum(v.numel() for v in init.values())),
-            **HMC_BANK, "folded_vs_one_chain": check, "parts": parts, "seconds": seconds,
+            **HMC_BANK, "folded_vs_one_chain": check, "seconds": seconds,
             "ms_per_leapfrog_step": seconds * 1e3 / steps, "rates": rates.tolist(),
             "finite": bool(all(torch.isfinite(v).all() for v in samples.values())),
             "launches": _all_launches()}
@@ -2336,8 +2325,7 @@ def phase_hmc(dev, bank):
     steps, 20 + 20 iterations (every sample finite; at the chains' start the
     folded log density within 1e-5 of one chain at a time, and its gradient
     no further from the same evaluation in f64, with the f32 jitters, than
-    twice one chain's, and within 2e-4; each f32 part's share of that
-    error, ``hmc_bank_parts``).  Returns (the
+    twice one chain's, and within 2e-4).  Returns (the
     records, (b)'s log density and init for the profile)."""
     out = {"phase": "hmc", "targets": _hmc_targets(dev)}
     out["modgp"], modgp = _hmc_modgp(dev)

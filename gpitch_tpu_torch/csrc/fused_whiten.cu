@@ -111,7 +111,9 @@
 //     dLinv's RU x RU C / 2 entries (16 a + ty, TX b + tx) across the
 //     tiles.  C is 4 up to M 112 (128 threads, 16 x 8: up to 255 registers
 //     a thread with two blocks an SM, so dLinv's 98 accumulators at RU 7
-//     do not spill), 2 at M 160 (256 threads: dLinv's RU^2 = 100).  Each
+//     do not spill), 2 at M 160 (256 threads: dLinv's RU^2 = 100).  At C
+//     4 the per-source pass forms dK E |z - x| from dK E (z - x) with dK
+//     E's sign instead of holding it (RU 7 spilled 20 bytes with it).  Each
 //     product takes 4 values of k at a time: A = tril(Linv) Kuf reads a
 //     16-byte row quad of the triangle per block row against 4 rows of
 //     Kuf (RU + 4 quads per 16 RU FMAs at C 4, against RU + 4 loads per 8
@@ -127,17 +129,34 @@
 //     <dK E, C_p>) instead of forming the mixture again: dvar = sum_p e_p
 //     Sa_p;
 //   * per-source sums: each thread sums its elements, a warp adds its lanes
-//     with a butterfly, four partials at a time so that their shuffles
-//     overlap, lane 0 adds into its warp's slots in shared memory, and the
-//     warps are added in order into the block's record (one thread per
-//     pair, then one per source) once per block, or per chunk and tile when
-//     the sources take several chunks;
-//   * the tensor cores: not used.  3xTF32 through wgmma needs every operand
-//     in shared memory K-major and split into hi and lo parts, G and Linv
-//     (both its layouts: Linv Kuf and Linv^T dA contract over its two
-//     axes) twice over: 6 x 49 KB at M 112 and 6 x 100 KB at M 160 beside
-//     the tiles, more than a block's 227 KB; splitting them at every
-//     fragment load is what made kernel A's mma.sync form lose (above).
+//     with a butterfly, the 12 sums of four partials three butterflies of
+//     four (warp_sum4) so that their shuffles overlap, lane 0 adds into its
+//     warp's slots in shared memory, and the warps are added in order into
+//     the block's record (one thread per pair, then one per source) once
+//     per block, or per chunk and tile when the sources take several
+//     chunks;
+//   * the tensor cores: not used; built and measured, they lost.  dLinv +=
+//     dA Kuf^T in 3xTF32 wgmma (m64nNk8.tf32, A = dA from registers, loaded
+//     from its tile and split into hi and lo there; B = Kuf in K-major core
+//     matrices without swizzle, whose tf32 part the tensor cores read from
+//     the f32 tile that the FP32 products also read, beside its lo part;
+//     dLinv in the accumulators, 2 x 56 registers at M 112 and 3 x 40 on
+//     two warpgroups at M 160, rows past MP padding) matched the f64 plain
+//     version as FP32 does and cut that phase from ~7000 to ~1840 cycles a
+//     tile at M 112 (9144 to 3222 at M 160), but the lo part (+14 KB)
+//     leaves one block per SM at M 112: 3.31 ms against 2.13 (3.55 with 256
+//     threads, C 2); at M 160 the 20 more accumulators spill (255
+//     registers, 124 bytes) and the sums phase slows: 1.65-1.67 ms against
+//     1.51-1.52 (PERF.md section 6).  With A from registers no split
+//     part of G or Linv needs shared memory (their fragments are loaded and
+//     split per tile), but each other product needs its per-tile B operand
+//     transposed for K-major (A = tril(Linv) Kuf: Kuf^T; dA = G A: A^T; dK
+//     = tril(Linv)^T dA: dA^T), hi and lo: 28 KB at M 112, 40 KB at M 160,
+//     one space in turn.  At M 112 that is again one block per SM, where
+//     the four products are ~55% of a tile's cycles: free products would
+//     leave ~29,000 cycles a tile at half the blocks, against ~67,000 for
+//     two tiles now.  At M 160 the 40 KB do not fit beside G, the triangle
+//     and a chunk of 4 sources' features.
 // Both kernels: every product is an f32 FMA on the CUDA cores, never TF32;
 // cos and sin are the full-precision sincosf (arguments reach ~6e3 rad), exp
 // is expf in kernel B and exp2f in A, an angle is formed as (2 pi z) f like
@@ -148,9 +167,13 @@
 // record that a second kernel adds in a fixed order (no atomics: a run is
 // bit-for-bit reproducible); M is padded to MP = 16 RU (RU in 1, 2, 4, 7,
 // 10: M <= 160) with zeros.  Kernel A takes 256 threads as 16 x 16.
-// Later work for B: the products on the tensor cores (a plan that keeps G's
-// and Linv's split parts out of shared memory, or streams them), 64-sample
-// tiles, which do not fit beside G at two blocks an SM.
+// Later work for B: the build and the per-source sums, ~43% of a tile's
+// cycles at M 112 and ~70% at M 160 (the z features copied from device
+// memory twice a tile, because they share the tiles' space; the x
+// features' sincosf; the butterflies); the tensor cores only with a plan
+// that keeps two blocks an SM at M 112.  64-sample tiles do not fit beside
+// G at two blocks an SM (2 x 30 KB more), nor a transposed copy of the
+// triangle for dK (+30 KB; +58 KB at M 160).
 
 #include <cuda_runtime.h>
 
@@ -945,16 +968,18 @@ __global__ void __launch_bounds__(bwd_threads(RU), RU >= 10 ? 1 : 2)
       __syncthreads();
       for (int sl = 0; sl < ns; ++sl) {
         const float il = sm[l.pil + sl];
-        // dK E, dK E |z - x| and dK E (z - x) of the thread's elements
-        float av[RU][C], aad[RU][C], ad[RU][C];
+        // dK E, dK E (z - x) and, at C 2, dK E |z - x| of the thread's
+        // elements; at C 4 (registers full) the third is the second with the
+        // first's sign (exact: rounding is symmetric)
+        float av[RU][C], ad[RU][C], aad[C == 2 ? RU : 1][C];
 #pragma unroll
         for (int r = 0; r < RU; ++r)
 #pragma unroll
           for (int c = 0; c < C; ++c) {
             const float d = zr[r] - xt[c];
             av[r][c] = dk[r][c] * expf(-fabsf(d) * il);
-            aad[r][c] = av[r][c] * fabsf(d);
             ad[r][c] = av[r][c] * d;
+            if constexpr (C == 2) aad[r][c] = av[r][c] * fabsf(d);
           }
         // four partials at a time, so that their warp sums overlap
         for (int p0 = 0; p0 < P; p0 += 4) {
@@ -975,16 +1000,20 @@ __global__ void __launch_bounds__(bwd_threads(RU), RU >= 10 ? 1 : 2)
               for (int c = 0; c < C; ++c) {
                 const float c0 = cz * cx[c] + sz * sx[c];
                 part[j][0] += av[r][c] * c0;
-                part[j][1] += aad[r][c] * c0;
+                if constexpr (C == 2) part[j][1] += aad[r][c] * c0;
+                else part[j][1] += copysignf(ad[r][c], av[r][c]) * c0;
                 part[j][2] += ad[r][c] * (sz * cx[c] - cz * sx[c]);
               }
             }
           }
+          // the 12 sums, (j, k) in order, four to a butterfly
+          const float* pv = &part[0][0];
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const float sum = warp_sum4(part[j][0], part[j][1], part[j][2], 0.f, lane);
-            if (p0 + j < P && lane % 8 == 0 && lane < 24)
-              sm[l.red + (warp * cpairs + sl * P + p0 + j) * 3 + lane / 8] += sum;
+          for (int m = 0; m < 3; ++m) {
+            const float sum = warp_sum4(pv[4 * m], pv[4 * m + 1], pv[4 * m + 2], pv[4 * m + 3], lane);
+            const int f = 4 * m + lane / 8;
+            if (lane % 8 == 0 && p0 + f / 3 < P)
+              sm[l.red + (warp * cpairs + sl * P + p0) * 3 + f] += sum;
           }
         }
       }

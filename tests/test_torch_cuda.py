@@ -292,13 +292,13 @@ def test_cuda_fused_whiten_bwd_reads_the_lower_triangle_of_linv_only(cuda, shape
         assert a.shape == b.shape and _rel(a, b) <= 1e-3
 
 
-def _bwd_rows(got, want64, plain32):
-    """Per output: kernel B within the larger of 1e-3 of max|ref| and 4x the
-    f32 plain backward's own error against the f64 one (chip_smoke's
-    ``_whiten_case`` limit)."""
+def _bwd_rows(got, want64, plain32, rel=1e-3):
+    """Per output: kernel B within the larger of ``rel`` of max|ref| (1e-3:
+    chip_smoke's ``_whiten_case`` limit) and 4x the f32 plain backward's own
+    error against the f64 one."""
     for g, w, q in zip(got, want64, plain32):
         scale = float(w.abs().max())
-        tol = max(1e-3 * scale, 4 * float((q.double() - w).abs().max()))
+        tol = max(rel * scale, 4 * float((q.double() - w).abs().max()))
         assert g.shape == w.shape and bool(torch.isfinite(g).all())
         assert float((g.double() - w).abs().max()) <= tol
 
@@ -310,8 +310,9 @@ def _bwd_rows(got, want64, plain32):
 @pytest.mark.parametrize("splits", [1, 2, 7, 21])
 def test_cuda_fused_whiten_bwd_kernel_at_splits_matches_f64_and_f32_plain(cuda, shape, splits):
     """Kernel B with a window's tiles split over ``splits`` blocks against
-    the plain backward in f64 and f32 (``_bwd_rows``); two launches are bit
-    for bit equal."""
+    the plain backward in f64 and f32 (``_bwd_rows`` at 1e-4 of max|ref|:
+    every product in FP32 or 3xTF32, where one in plain TF32 puts dLinv
+    ~7e-4 off); two launches are bit for bit equal."""
     from gpitch_tpu_torch.linalg.fused_whiten import _backward_kernel, fused_whiten_bwd_plain
     args = _whiten_args(cuda, *shape, per_window=True)
     nw, m = shape[:2]
@@ -324,7 +325,7 @@ def test_cuda_fused_whiten_bwd_kernel_at_splits_matches_f64_and_f32_plain(cuda, 
     got = _backward_kernel(*bwd, splits=splits)
     again = _backward_kernel(*bwd, splits=splits)
     torch.cuda.synchronize()
-    _bwd_rows(got, want, plain32)
+    _bwd_rows(got, want, plain32, rel=1e-4)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
