@@ -114,7 +114,7 @@ import torch
 sys.path.insert(0, sys.argv[1])
 import chip_smoke as cs
 with contextlib.redirect_stdout(io.StringIO()):
-    out, model = cs.phase_amt_full(torch.device("cuda"))
+    out, model, _ = cs.phase_amt_full(torch.device("cuda"))
 res = {k: {"ms_per_step": [v["ms_per_bank_step"]], "peak_gib": v["peak_gib"],
            "loss_last": v["loss_last"]} for k, v in out.items()}
 # then 2 bank steps of the 10 s bank under torch.profiler: device time and

@@ -16,7 +16,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               (or fill_) are each timed as device time (graph_ms), the
               kernel and the library call also from Python (cuda_ms);
   5. sosp     separation end to end (4 s synthetic mix, ws 2001, M 112,
-              3 pitches x 5 partials): 100 Adam steps in f32 held against
+              3 pitches x 5 partials): 100 Adam steps in f32 (every Adam
+              fit of the port replays one captured CUDA graph of a step,
+              models.fit.AdamSteps; launches count each replay) held against
               the CPU-f64 golden trajectory (tests_tpu/goldens.npz), then
               predict_f, predict_s, the overlap-add merge and the RMSE;
               the kernels' launch counts (Cholesky, specmix and the fused
@@ -28,7 +30,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               of three steps' parts, the first predictions, and what
               torch.optim.Adam would add;
   8. full     the 14 s mix (222 windows): 20 Adam steps (the fused pair's
-              launches counted) and predict_s;
+              launches counted: one each a step) and predict_s;
   9. fused_whiten  the fused build -> whiten -> accumulate pair (kernel A
               through fused_whiten and fused_whiten_flat, kernel B) against
               its plain version: (a) the prototypes' inputs at the SoSp width,
@@ -72,6 +74,14 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               memory, launches: the Cholesky kernel only); and a masked
               sosp-4s bank (the last window's trailing half) against that
               window cut to its valid samples (f64 1e-9), 5 Adam steps;
+ 15b. captured_step  (after 15) captured against eager Adam steps in
+              turns, from the same state, on sosp-4s (100 steps: the
+              trajectory within what two eager runs differ by and 1e-5),
+              sosp-14s, amt-10s (chunks of 64), amt88-2s (the Sum route),
+              the two lag-table banks and ModGP's bench (300 minibatch
+              steps, every replay a new batch, equal to the eager draws):
+              ms a step of each, the capture's cost, the kernels' calls
+              held by one captured step;
  16. kernel_train  (after 14) learn_pitch_params(mode="train") on the notes
               of sosp-4s at full width (10000 windows of 441, 5 partials)
               against the JAX package's f64 parameters
@@ -101,12 +111,13 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               the checkpoint's size and write/read ms;
  20. demos    the four ``python -m gpitch_tpu_torch.demos.<name>``, each in
               its own process, all at once, each meeting its threshold;
- 21. profile  torch.profiler over 5 bank steps and one predict_s of 8's
-              222-window bank, 3 L-BFGS iterations of 13(b)'s bank, 5 bank
-              steps of 11's 10 s bank, 50 ModGP steps, 5 and 1 lag-table
-              bank steps of 15's amt-10s and amt88-2s banks (the gather and
-              its scatter-add backward by op), and 10 HMC iterations of
-              17(b), last because its tracing may stay attached;
+ 21. profile  torch.profiler over 15b's captured steps on each path
+              (and eager ones on sosp-14s, amt-10s and ModGP: the device's
+              busy share of each; the lag table's gather and its
+              scatter-add backward by op), one predict_s of 8's 222-window
+              bank, 3 L-BFGS iterations of 13(b)'s bank and 10 HMC
+              iterations of 17(b), last because its tracing may stay
+              attached;
 then the kernels line, the nvidia-smi line and the result line.
 ``python3 chip_smoke.py --worker <kind> <rank> <world> <store> ...`` runs
 one rank of 18 or the fresh process of 19 (the phases start them).
@@ -541,11 +552,8 @@ def phase_specmix(dev) -> dict:
 def phase_sosp(dev):
     """The main path: SoSp built, trained, predicted and scored on the card.
     Returns (the phase's record, the trained model)."""
-    from gpitch_tpu_torch.linalg.chol import cholesky_batched as chol
-    from gpitch_tpu_torch.linalg.specmix import specmix_matrix as spec
     golden = np.load(os.path.join(ROOT, "tests_tpu", "goldens.npz"))["sosp_losses"]
-    chol.launches = spec.launches = 0
-    _zero_fused()
+    _zero_all()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     model, sources = make_sosp(4.0, dev, torch.float32)
@@ -555,7 +563,7 @@ def phase_sosp(dev):
     losses = model.optimize(maxiter=100, learning_rate=0.01)
     torch.cuda.synchronize()
     opt_s = time.perf_counter() - t0
-    chol_opt = chol.launches
+    chol_opt = _all_launches()["cholesky_batched"]
     t0 = time.perf_counter()
     mean, var = model.predict_f()
     torch.cuda.synchronize()
@@ -564,8 +572,7 @@ def phase_sosp(dev):
     est = model.predict_s()
     predict_s_s = time.perf_counter() - t0
     rmse = model.compute_rmse(sources)
-    launches = {"cholesky_batched": chol.launches, "specmix_matrix": spec.launches,
-                **_fused_launches()}
+    launches = _all_launches()
     # steady state, after the main path: 20 more steps of the trained bank
     t0 = time.perf_counter()
     model.optimize(maxiter=20, learning_rate=0.01)
@@ -599,17 +606,39 @@ def phase_sosp(dev):
     return out, model
 
 
-def _zero_fused() -> None:
-    from gpitch_tpu_torch.linalg.fused_whiten import fused_whiten, fused_whiten_bwd
-    fused_whiten.launches = fused_whiten_bwd.launches = 0
+def _zero_all() -> None:
+    """Every kernel wrapper's launch count, and the record of the captured
+    steps' graphs and replays, set to 0."""
+    from gpitch_tpu_torch.linalg import _cuda
+    _cuda.reset_launches()
+
+
+def _launches(*names) -> dict:
+    """The named kernels' launches on the card since ``_zero_all``
+    (``linalg._cuda.device_launches``): a kernel that a captured Adam step
+    holds counts once per replay of the step, and its call during the
+    capture, which launched nothing, not at all."""
+    from gpitch_tpu_torch.linalg import _cuda
+    got = _cuda.device_launches()
+    return {n: got[n] for n in names}
 
 
 def _fused_launches() -> dict:
-    """The fused pair's launches since ``_zero_fused``: the bound of a
+    """The fused pair's launches since ``_zero_all``: the bound of a
     StackedSum bank without a mask at M <= 160 goes through it."""
-    from gpitch_tpu_torch.linalg.fused_whiten import fused_whiten, fused_whiten_bwd
-    return {"fused_whiten": fused_whiten.launches,
-            "fused_whiten_bwd": fused_whiten_bwd.launches}
+    return _launches("fused_whiten", "fused_whiten_bwd")
+
+
+def _path_launches() -> dict:
+    """The Cholesky kernel's and the fused pair's launches since
+    ``_zero_all``."""
+    return _launches(*_PATH)
+
+
+def _all_launches() -> dict:
+    """The Cholesky and specmix kernels' and the fused pair's launches since
+    ``_zero_all``."""
+    return _launches(*_PATH, "specmix_matrix")
 
 
 def _native_path() -> str:
@@ -638,7 +667,8 @@ def phase_small(dev) -> dict:
 
 # A fresh process through the main path (4 s mix, 62 windows): import and
 # context, the model build, three bank steps split into forward, backward
-# and Adam update as fit_adam_segmented runs them, the first predict_f and
+# and Adam update, then the first capture of a step (AdamSteps: its eager
+# warm-up steps, the capture, 10 replays), the first predict_f and
 # predict_s; then whether a heavy module was imported on the way, and last
 # the construction of a torch.optim.Adam over the same leaves, the one-time
 # cost that the port's own Adam avoids.  argv: repository root, device.
@@ -648,8 +678,8 @@ t0 = time.perf_counter()
 import torch
 sys.path.insert(0, sys.argv[1])
 import chip_smoke
-from gpitch_tpu_torch.core.params import trainable_tensors
-from gpitch_tpu_torch.models.fit import Adam
+from gpitch_tpu_torch.core.params import copy_params, trainable_tensors
+from gpitch_tpu_torch.models.fit import Adam, AdamSteps
 from gpitch_tpu_torch.pipelines.windowed_sgpr import bank_loss
 dev = torch.device(sys.argv[2])
 def sync():
@@ -675,6 +705,12 @@ for _ in range(3):
     sync(); t.append(time.perf_counter())
     out["steps"].append({"forward_s": t[1] - t[0], "backward_s": t[2] - t[1],
                          "adam_s": t[3] - t[2]})
+run = AdamSteps(copy_params(model.bank), bank_loss, AdamSteps.WARMUP + 10, 0.01)
+t0 = time.perf_counter()
+run.run(AdamSteps.WARMUP + 10)
+sync()
+out["warmup_capture_10_replays_s"] = time.perf_counter() - t0
+out["capture_s"] = run.capture_s
 for name, run in (("predict_f_s", model.predict_f), ("predict_s_s", model.predict_s)):
     t0 = time.perf_counter()
     run()
@@ -709,9 +745,10 @@ def _leaf_rows(bank) -> dict:
 
 def phase_full(dev):
     """14 s of the mix, the onset pattern repeated every 4 s (222 windows):
-    2 warm-up steps, then 20 Adam steps (the fused pair's launches counted)
-    and predict_s.  Returns (the model, the 20 steps' losses, their trained
-    leaves)."""
+    2 warm-up steps, then 20 Adam steps as a user's ``optimize`` takes them
+    (3 eager steps, the capture, 17 replays; the fused pair's launches on
+    the card counted: one each a step) and predict_s.  Returns (the model,
+    the 20 steps' losses, their trained leaves)."""
     onsets = [(p, on + 4.0 * k) for k in range(4) for p, on in ONSETS
               if on + 4.0 * k < 14.0]
     t0 = time.perf_counter()
@@ -722,7 +759,7 @@ def phase_full(dev):
     model.optimize(maxiter=2, learning_rate=0.01)        # warm-up
     torch.cuda.synchronize()
     warmup_s = time.perf_counter() - t0
-    _zero_fused()
+    _zero_all()
     t0 = time.perf_counter()
     losses = model.optimize(maxiter=20, learning_rate=0.01)
     torch.cuda.synchronize()
@@ -742,7 +779,9 @@ def phase_full(dev):
            "rmse_after_22_steps": rmse, "launches_in_20_steps": launches}
     emit(out)
     assert np.isfinite(losses).all() and np.isfinite(rmse)
-    assert all(n > 0 for n in launches.values()), f"the fused pair never ran: {launches}"
+    # one launch of each a step: 3 eager steps, 17 replays of the captured one
+    assert launches == {"fused_whiten": 20, "fused_whiten_bwd": 20}, \
+        f"the fused pair did not run once a step: {launches}"
     return model, losses, trained
 
 
@@ -754,11 +793,8 @@ def phase_amt(dev) -> dict:
     then the MAD pianoroll scored against the piece's notes.  The Cholesky
     kernel's launches are read over this phase only."""
     from gpitch_tpu_torch.audio.pianoroll import Pianoroll
-    from gpitch_tpu_torch.linalg.chol import cholesky_batched as chol
-    from gpitch_tpu_torch.linalg.specmix import specmix_matrix as spec
     golden = np.load(os.path.join(ROOT, "tests_tpu", "goldens.npz"))["amt_losses"]
-    chol.launches = spec.launches = 0
-    _zero_fused()
+    _zero_all()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     model, events = make_amt(1.0, dev, torch.float32)
@@ -769,8 +805,7 @@ def phase_amt(dev) -> dict:
                                               timed=True, window_chunk=16)
     torch.cuda.synchronize()
     opt_s = time.perf_counter() - t0
-    launches = {"cholesky_batched": chol.launches, "specmix_matrix": spec.launches,
-                **_fused_launches()}
+    launches = _all_launches()
     model.piano_roll = Pianoroll(fs=20, duration=1.0, notes=events)
     p, r, f = model.evaluate(mode="mad")
     mv = model.matrix_var
@@ -783,7 +818,7 @@ def phase_amt(dev) -> dict:
            "build_s": build_s, "optimize_s": opt_s, "timed_first_s": first_s,
            "timed_run_s": run_s, "ms_per_bank_step": opt_s / 100 * 1e3,
            "matrix_var_shape": list(mv.shape), "matrix_var_finite": bool(np.isfinite(mv).all()),
-           "launches": launches, "chol_launches_per_step": chol.launches / 100,
+           "launches": launches, "chol_launches_per_step": launches["cholesky_batched"] / 100,
            "mad_pianoroll": {"precision": float(p), "recall": float(r), "f": float(f)}}
     emit(out)
     assert np.isfinite(losses).all(), "non-finite losses"
@@ -804,7 +839,7 @@ def _amt_bank_steps(name, model, window_chunk) -> dict:
     torch.cuda.synchronize()
     warmup_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
-    _zero_fused()
+    _zero_all()
     t0 = time.perf_counter()
     losses, (first_s, run_s) = model.optimize(maxiter=10, learning_rate=0.01, timed=True,
                                               window_chunk=window_chunk)
@@ -879,15 +914,13 @@ def make_modgp_demo(dev, n=16000, num_inducing=None, noise=1e-6):
     return model, x, y, comp * env
 
 
-def phase_modgp(dev) -> tuple[dict, object]:
+def phase_modgp(dev) -> dict:
     """ModGP on the card: (a) the golden fixture in f64 against
     tests/golden_values.json (rtol 1e-9, atol 1e-12) and in f32 (the ELBO
     at rtol 2e-4); (b) the demo: 1000 minibatch-100 Adam steps at lr 0.005
     by fit_adam_timed, the source recovered on x[::4] (RMSE < 0.05);
     (c) the bench workload (M 128, noise variance 1e-3), 1000 steps.  The
-    Cholesky kernel's launches are read over (b) and (c).  Returns (the
-    record, the trained demo model with its data)."""
-    from gpitch_tpu_torch.linalg.chol import cholesky_batched as chol
+    Cholesky kernel's launches are read over (b) and (c)."""
     from gpitch_tpu_torch.models import fit_adam_timed, minibatch_fn
     with open(os.path.join(ROOT, "tests", "golden_values.json")) as fh:
         golden = json.load(fh)
@@ -905,7 +938,7 @@ def phase_modgp(dev) -> tuple[dict, object]:
     out = {"phase": "modgp", "golden_f64_err_over_tol": ratio, "golden_f64_ok": ok64,
            "golden_f32_elbo": elbo32, "golden_f32_rel": rel32}
 
-    chol.launches = 0
+    _zero_all()
     runs = {}
     for name, steps, kw in (("demo", 1000, {}), ("bench", 1000, {"num_inducing": 128,
                                                                   "noise": 1e-3})):
@@ -923,16 +956,14 @@ def phase_modgp(dev) -> tuple[dict, object]:
                       "elbo_first": -float(losses[0]),
                       "rmse_source": float(np.sqrt(np.mean((src[:, :1] - truth[::4]) ** 2))),
                       "losses_finite": bool(np.isfinite(losses).all())}
-        if name == "demo":
-            demo = (model, xt, yt)
     out.update(runs)
-    out["launches"] = {"cholesky_batched": chol.launches}
+    out["launches"] = _launches("cholesky_batched")
     emit(out)
     assert ok64, f"ModGP f64 off the goldens: {ratio}"
     assert rel32 <= 2e-4, f"ModGP f32 ELBO off the golden: {rel32}"
     assert all(r["losses_finite"] for r in runs.values())
     assert runs["demo"]["rmse_source"] < 0.05, "source recovery failed"
-    return out, demo
+    return out
 
 
 # ------------------------------------------------- kernel learning
@@ -969,19 +1000,6 @@ def learned_deviation(params, golden) -> dict:
         out[name] = max(float(np.max(np.abs(np.asarray(a, float) - g)) / np.max(np.abs(g)))
                         for a, g in zip(params[k], golden[name]))
     return out
-
-
-def _all_launches() -> dict:
-    """The Cholesky and specmix kernels' and the fused pair's launches since
-    the last ``_zero_all``."""
-    from gpitch_tpu_torch.linalg.specmix import specmix_matrix
-    return {**_path_launches(), "specmix_matrix": specmix_matrix.launches}
-
-
-def _zero_all() -> None:
-    from gpitch_tpu_torch.linalg.specmix import specmix_matrix
-    specmix_matrix.launches = 0
-    _zero_path()
 
 
 def _sosp14s(dev, **kw):
@@ -1203,6 +1221,171 @@ MODGP_LBFGS_ITERS = 15
 NATGRAD = dict(num_steps=40, gamma=0.1, learning_rate=0.01, segment=10)
 
 
+# ------------------------------------------ captured Adam steps (CUDA graphs)
+class _BankSteps:
+    """Adam steps of a whole bank as ``optimize_bank`` takes them: the window
+    axis padded to whole chunks of ``chunk`` windows
+    (``windowed_sgpr._chunk_plan``), one ``AdamSteps`` over a chunk's static
+    leaves and weights, each chunk loaded in turn.  ``steps(n, eager)``: n
+    steps of every chunk from the bank's state, replayed from the captured
+    step or, with ``eager``, run eagerly (the plain version of the capture);
+    returns the per-step totals over the chunks (numpy)."""
+
+    def __init__(self, bank, chunk, steps: int, learning_rate: float = 0.01):
+        from gpitch_tpu_torch.core.params import take_windows
+        from gpitch_tpu_torch.models.fit import AdamSteps
+        from gpitch_tpu_torch.pipelines import windowed_sgpr as tws
+        self.size, nc, padded, self.w_all = tws._chunk_plan(bank, chunk)
+        self.chunks = [take_windows(padded, slice(c * self.size, (c + 1) * self.size))
+                       for c in range(nc)]
+        self.w = None if self.w_all is None else self.w_all[:self.size].clone()
+        loss = tws.bank_loss if self.w is None else tws._weighted_loss(self.w)
+        self.run = AdamSteps(take_windows(self.chunks[0], slice(None)), loss, steps,
+                             learning_rate)
+
+    def steps(self, n: int, eager: bool = False) -> np.ndarray:
+        total = np.zeros(n)
+        for c, part in enumerate(self.chunks):
+            self.run.load(part)
+            if self.w is not None:
+                self.w.copy_(self.w_all[c * self.size:(c + 1) * self.size])
+            (self.run.eager if eager else self.run.run)(n)
+            total += self.run.losses[:n].double().cpu().numpy()
+        return total
+
+
+class _ModgpSteps:
+    """``steps(n, eager)`` for a ModGP's minibatch Adam, as ``_BankSteps``:
+    the model loaded and the batch generator reseeded before each run."""
+
+    def __init__(self, model, x, y, steps: int, dev):
+        from gpitch_tpu_torch.core.params import copy_params
+        from gpitch_tpu_torch.models.fit import AdamSteps, minibatch_fn
+        n = x.shape[0]
+        self.model = model
+        self.generator = torch.Generator(device=dev)
+        batch = minibatch_fn(x, y, 100, self.generator)
+        self.run = AdamSteps(copy_params(model), lambda m, xb, yb: m.loss(xb, yb, num_data=n),
+                             steps, 0.005, batch)
+
+    def steps(self, n: int, eager: bool = False) -> np.ndarray:
+        self.run.load(self.model)
+        self.generator.manual_seed(0)
+        (self.run.eager if eager else self.run.run)(n)
+        return self.run.losses[:n].double().cpu().numpy()
+
+
+def _rel(a: np.ndarray, b: np.ndarray) -> float:
+    return float(np.max(np.abs(a / b - 1)))
+
+
+def _captured_case(name, windows, make, n: int, strict: bool = False) -> tuple[dict, object]:
+    """One path's Adam steps captured (C) and eager (E), each from the same
+    state: a first captured run (the eager warm-up and the capture), a
+    first eager run, then C E E C, each n steps; ms a step of each, the
+    capture's host seconds, the kernels' calls held by a captured step,
+    and the trajectories: C against E and E against E, relative, at every
+    step.  ``strict``: C must be within E against E and within 1e-5;
+    otherwise within the larger of the two.  Returns (the record, C)."""
+    cap, eag = make(), make()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cap.steps(n)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    eag.steps(n, eager=True)
+    runs = {"captured": [], "eager": []}
+    for kind in ("captured", "eager", "eager", "captured"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = (cap if kind == "captured" else eag).steps(n, eager=kind == "eager")
+        torch.cuda.synchronize()
+        runs[kind].append(((time.perf_counter() - t0) / n * 1e3, losses))
+    ms = {k: [r[0] for r in v] for k, v in runs.items()}
+    spread = _rel(runs["eager"][1][1], runs["eager"][0][1])
+    vs = max(_rel(r[1], runs["eager"][0][1]) for r in runs["captured"])
+    out = {"phase": "captured_step", "case": name, "windows": windows, "steps": n,
+           "ms_per_step_captured": ms["captured"], "ms_per_step_eager": ms["eager"],
+           "speedup": float(np.median(ms["eager"]) / np.median(ms["captured"])),
+           "first_captured_run_s": first_s, "capture_s": cap.run.capture_s,
+           "calls_per_captured_step": cap.run.calls,
+           "captured_vs_eager_rel": vs, "eager_vs_eager_rel": spread,
+           "losses_finite": bool(np.isfinite(runs["captured"][0][1]).all()),
+           "distinct_losses": int(len(np.unique(runs["captured"][0][1])))}
+    emit(out)
+    assert out["losses_finite"], f"{name}: not finite"
+    assert cap.run.graph is not None, f"{name}: no step was captured"
+    if strict:
+        assert vs <= spread and vs <= 1e-5, f"{name}: captured off eager: {vs} ({spread})"
+    else:
+        assert vs <= max(spread, 1e-5), f"{name}: captured off eager: {vs} ({spread})"
+    return out, cap
+
+
+def _padded_vs_ragged(dev) -> dict:
+    """amt-1s (43 windows) in chunks of 16, 100 steps: ``optimize_bank``'s
+    padded layout (the last chunk 11 windows and 5 pads, captured) against
+    the same layout run eagerly (within 1e-5) and against the parent tree's
+    ragged layout (the last chunk's 11 windows alone, eagerly): in f32 the
+    kernels' split plans follow the window count, so that difference is
+    reported, not limited."""
+    from gpitch_tpu_torch.core.params import take_windows
+    from gpitch_tpu_torch.models.fit import AdamSteps
+    from gpitch_tpu_torch.pipelines.windowed_sgpr import bank_loss, optimize_bank
+    model, _ = make_amt(1.0, dev, torch.float32)
+    nw = int(model.bank.X.raw.shape[0])
+    _, padded = optimize_bank(model.bank, 100, 0.01, window_chunk=16)
+    ragged = np.zeros(100)
+    for c0 in range(0, nw, 16):
+        run = AdamSteps(take_windows(model.bank, slice(c0, c0 + 16)), bank_loss, 100, 0.01)
+        run.eager(100)
+        ragged += run.losses.double().cpu().numpy()
+    eager = _BankSteps(model.bank, 16, 100).steps(100, eager=True)
+    out = {"phase": "captured_step", "case": "amt1s_padded_vs_ragged", "windows": nw,
+           "captured_padded_vs_eager_padded_rel": _rel(padded, eager),
+           "padded_vs_ragged_rel": _rel(padded, ragged),
+           "padded_vs_ragged_rel_step0": _rel(padded[:1], ragged[:1])}
+    emit(out)
+    assert out["captured_padded_vs_eager_padded_rel"] <= 1e-5, out
+    return out
+
+
+def phase_captured_step(dev, sosp_model, full_model, amt_model, piano, table_bank,
+                        table88) -> tuple[dict, dict]:
+    """The port's Adam fits replay one captured step (``models.fit.AdamSteps``):
+    captured against eager steps in turns on every path, each from the same
+    state, through the chunking ``optimize_bank`` takes (``_BankSteps``):
+    sosp-4s (62 windows, 100 steps, its trajectory within what two eager
+    runs differ by and within 1e-5 at every step), sosp-14s (222, 20),
+    amt-10s (439 in chunks of 64, 5), amt88-2s (the Sum route, 87 in chunks
+    of 16, 2), the lag-table banks of amt-10s (5) and amt88-2s (2), and
+    ModGP's bench workload (minibatch Adam, 300 steps: each replay draws the
+    next batch, equal to the eager run's draws); then amt-1s's padded chunks
+    against the ragged ones (``_padded_vs_ragged``).  Returns (the records,
+    the captured runners the profile phase replays)."""
+    out, keep = {}, {}
+    cases = [("sosp4s", sosp_model.bank, None, 100, True),
+             ("sosp14s", full_model.bank, None, 20, False),
+             ("amt10s", amt_model.bank, 64, 5, False),
+             ("amt88_2s_sum", piano.bank, 16, 2, False),
+             ("amt10s_lag_table", table_bank, 64, 5, False),
+             ("amt88_2s_lag_table", table88, 16, 2, False)]
+    for name, bank, chunk, n, strict in cases:
+        out[name], keep[name] = _captured_case(
+            name, int(bank.X.raw.shape[0]), lambda: _BankSteps(bank, chunk, n), n, strict)
+        if name == "amt88_2s_sum":          # its graph pool holds ~8 GiB
+            del keep[name]
+            torch.cuda.empty_cache()
+    model, x, y, _ = make_modgp_demo(dev, num_inducing=128, noise=1e-3)
+    xt = torch.as_tensor(x, dtype=torch.float32, device=dev)
+    yt = torch.as_tensor(y, dtype=torch.float32, device=dev)
+    out["modgp_bench"], keep["modgp_bench"] = _captured_case(
+        "modgp_bench", 0, lambda: _ModgpSteps(model, xt, yt, 300, dev), 300, strict=True)
+    assert out["modgp_bench"]["distinct_losses"] == 300, "replays drew one batch"
+    out["amt1s_padded_vs_ragged"] = _padded_vs_ragged(dev)
+    return out, keep
+
+
 def best_visited_totals(window_losses: np.ndarray) -> np.ndarray:
     """Per step, the sum over windows of each window's lowest loss so far
     (NaN losses never count as lower)."""
@@ -1217,17 +1400,6 @@ def best_totals_dev(window_losses: np.ndarray, golden: np.ndarray) -> float:
     want = best_visited_totals(golden)
     return float(np.max(np.abs(best_visited_totals(window_losses) - want))
                  / (want[0] - want[-1]))
-
-
-def _zero_path() -> None:
-    from gpitch_tpu_torch.linalg.chol import cholesky_batched
-    cholesky_batched.launches = 0
-    _zero_fused()
-
-
-def _path_launches() -> dict:
-    from gpitch_tpu_torch.linalg.chol import cholesky_batched
-    return {"cholesky_batched": cholesky_batched.launches, **_fused_launches()}
 
 
 def _lbfgs_counts(info, seconds: float) -> dict:
@@ -1271,7 +1443,7 @@ def phase_lbfgs(dev):
     model, _ = make_sosp(4.0, dev, torch.float32)
     sub = take_windows(model.bank, slice(0, nwin))
     del model
-    _zero_path()
+    _zero_all()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     trained_sub, losses, info = optimize_bank(sub, iters, method="lbfgs", return_info=True)
@@ -1311,7 +1483,7 @@ def phase_lbfgs(dev):
     onsets = [(p, on + 4.0 * k) for k in range(4) for p, on in ONSETS
               if on + 4.0 * k < 14.0]
     model, sources = make_sosp(14.0, dev, torch.float32, onsets=onsets)
-    _zero_path()
+    _zero_all()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1339,7 +1511,7 @@ def phase_lbfgs(dev):
     assert all(n > 0 for n in launches.values()), f"a kernel never ran: {launches}"
 
     amt, events = make_amt(1.0, dev, torch.float32)
-    _zero_path()
+    _zero_all()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     amt.optimize(maxiter=20, method="lbfgs")
@@ -1823,14 +1995,13 @@ def _whiten_trained(dev) -> dict:
     m = int(bank.Z.raw.shape[-2])
     with f32_jitters(m):
         loss64, grad64 = bank_grad(bank64)
-    fw.fused_whiten.launches = fw.fused_whiten_bwd.launches = 0
+    _zero_all()
     (loss, grad), chain, du, dv = pair_cotangents(bank)
     torch.cuda.synchronize()
     out = {"phase": "fused_whiten", "case": "e_trained", "windows": TRAINED_WINDOWS, "M": m,
            "loss": loss, "loss_f64": loss64, "value_rel": abs(loss / loss64 - 1),
            "grad_rel_norm": float((grad - grad64).norm() / grad64.norm()), "tol": 2e-4,
-           "launches": {"fused_whiten": fw.fused_whiten.launches,
-                        "fused_whiten_bwd": fw.fused_whiten_bwd.launches}}
+           "launches": _fused_launches()}
     out["max_abs_G"] = float((du + du.mT).abs().max())
     out["max_abs_linv"] = float(chain[3].abs().max())
     with torch.no_grad():
@@ -1863,8 +2034,6 @@ def phase_fused_whiten(dev, sosp_model, full_model) -> dict:
     f64 (``_whiten_trained``); times at (a) and (b), and both kernels at
     each split of a window's tiles over blocks at (a), at 62 windows of
     (a)'s width, and at (b)."""
-    from gpitch_tpu_torch.linalg.fused_whiten import (fused_whiten, fused_whiten_bwd,
-                                                      fused_whiten_flat)
     sosp_f0 = 261.6 * 2 ** (np.array([0, 4, 7]) / 12)
     amt_f0 = 261.6 * 2 ** (np.arange(8) / 12)
     piano_f0 = 27.5 * 2 ** (np.arange(88) / 12)
@@ -1880,12 +2049,10 @@ def phase_fused_whiten(dev, sosp_model, full_model) -> dict:
     for name, d in (("a", a), ("62", _whiten_inputs(62, 2001, 112, sosp, 16000.0)),
                     ("b", b)):
         cases[f"splits_{name}"] = _whiten_splits(name, d, dev)
-    fused_whiten.launches = fused_whiten_flat.launches = fused_whiten_bwd.launches = 0
+    _zero_all()
     for name, model in (("d_bank_62", sosp_model), ("d_bank_222", full_model)):
         cases[name] = _whiten_bank(name, model, dev)
-    launches = {"fused_whiten": fused_whiten.launches,
-                "fused_whiten_flat": fused_whiten_flat.launches,
-                "fused_whiten_bwd": fused_whiten_bwd.launches}
+    launches = _launches("fused_whiten", "fused_whiten_flat", "fused_whiten_bwd")
     emit({"phase": "fused_whiten", "case": "launches_in_d", "launches": launches})
     assert all(n > 0 for n in launches.values()), f"a kernel never ran: {launches}"
     cases["e_trained"] = _whiten_trained(dev)
@@ -2683,11 +2850,6 @@ def phase_profile(windows) -> None:
         emit(rec)
 
 
-def _table_steps(bank, steps: int, window_chunk: int) -> None:
-    from gpitch_tpu_torch.pipelines.windowed_sgpr import optimize_bank
-    optimize_bank(bank, steps, 0.01, window_chunk=window_chunk)
-
-
 def _lbfgs_window(model, iterations: int) -> dict:
     """``iterations`` of L-BFGS on the model's bank (a fresh solver from
     its current state) and the run's counts."""
@@ -2698,18 +2860,18 @@ def _lbfgs_window(model, iterations: int) -> dict:
             + info["value_evaluations"], "syncs": info["syncs"]}
 
 
-def _new_path_windows(dev, amt_model, svgp, x, y):
-    """The profile's windows on the AMT and ModGP paths: 5 bank steps of
-    the 439-window 8 x 10 bank (windows of 64) and 50 minibatch Adam steps
-    of the ModGP demo."""
-    from gpitch_tpu_torch.models import fit_adam, minibatch_fn
-    n = x.shape[0]
-    batch = minibatch_fn(x, y, 100, torch.Generator(device=dev).manual_seed(1))
-    return [("5 amt_full bank steps (8 x 10, 439 windows)",
-             lambda: amt_model.optimize(maxiter=5, window_chunk=64)),
-            ("50 ModGP steps (demo)",
-             lambda: fit_adam(svgp, lambda m, xb, yb: m.loss(xb, yb, num_data=n), 50,
-                              0.005, batch))]
+def _captured_windows(captured: dict) -> list:
+    """The profile's windows of Adam steps: on each path of the
+    captured_step phase, n steps replayed from its captured step, and on
+    sosp-14s, amt-10s and ModGP the same steps run eagerly."""
+    wins = []
+    for name, n, eager in (("sosp4s", 20, False), ("sosp14s", 10, True),
+                           ("amt10s", 3, True), ("amt10s_lag_table", 3, False),
+                           ("amt88_2s_lag_table", 1, False), ("modgp_bench", 100, True)):
+        for e in (False, True) if eager else (False,):
+            wins.append((f"{n} {'eager' if e else 'captured'} Adam steps ({name})",
+                         lambda r=captured[name], n=n, e=e: r.steps(n, eager=e)))
+    return wins
 
 
 def main() -> int:
@@ -2729,15 +2891,15 @@ def main() -> int:
     phase_first_use()
     full_model, full_losses, full_rows = phase_full(dev)
     whiten = phase_fused_whiten(dev, sosp_model, full_model)
-    del sosp_model
-    torch.cuda.empty_cache()
     amt = phase_amt(dev)
     amt_full, amt_model, piano = phase_amt_full(dev)
     lag, (table_bank, table88) = phase_lag_table(dev, amt_model, amt_full["sounding"],
                                                  piano, amt_full["piano88"])
-    del piano
+    _, captured = phase_captured_step(dev, sosp_model, full_model, amt_model, piano,
+                                      table_bank, table88)
+    del sosp_model, piano
     torch.cuda.empty_cache()
-    _, (svgp, x, y) = phase_modgp(dev)
+    phase_modgp(dev)
     lbfgs, lbfgs_model, lbfgs_sub = phase_lbfgs(dev)
     hmc, (hmc_logprob, hmc_init) = phase_hmc(dev, lbfgs_sub)
     del lbfgs_sub
@@ -2747,15 +2909,10 @@ def main() -> int:
     resume = phase_resume(dev, table_bank)
     phase_demos()
     # last: the profiler's tracing may stay attached to the process
-    phase_profile([("5 bank steps", lambda: full_model.optimize(maxiter=5)),
-                   ("predict_s", lambda: full_model.predict_s()),
-                   ("3 L-BFGS iterations (222 windows)",
-                    lambda: _lbfgs_window(lbfgs_model, 3))]
-                  + _new_path_windows(dev, amt_model, svgp, x, y)
-                  + [("5 lag-table bank steps (amt-10s, 439 windows)",
-                      lambda: _table_steps(table_bank, 5, 64)),
-                     ("1 lag-table bank step (amt88-2s, 87 windows)",
-                      lambda: _table_steps(table88, 1, 16)),
+    phase_profile(_captured_windows(captured)
+                  + [("predict_s", lambda: full_model.predict_s()),
+                     ("3 L-BFGS iterations (222 windows)",
+                      lambda: _lbfgs_window(lbfgs_model, 3)),
                      ("10 HMC iterations (ModGP, 4 chains, 8 leapfrog steps)",
                       lambda: _hmc_window(hmc_logprob, hmc_init, 10))])
 
@@ -2778,6 +2935,8 @@ def main() -> int:
          "launches_dist": [r["cholesky_batched"] for r in
                            dist["b_two_ranks_gloo_sosp14s"]["launches_per_rank"]],
          "launches_resume": resume["a_sosp4s_fused"]["launches"]["cholesky_batched"],
+         "calls_per_captured_sosp_step":
+             captured["sosp4s"].run.calls.get("cholesky_batched", 0),
          "shape": main_chol["shape"],
          "max_abs_err": main_chol["max_abs_err_plain"], "ms": main_chol["kernel_ms"],
          "plain_ms": main_chol["plain_ms"], "bound_ms": main_chol["bound_ms"],
@@ -2832,6 +2991,8 @@ def main() -> int:
                                           dist["b_two_ranks_gloo_sosp14s"]["launches_per_rank"]],
                         "launches_resume": resume["a_sosp4s_fused"]["launches"][counter],
                         "entry_launches_in_d": whiten["launches"][name],
+                        "calls_per_captured_sosp_step":
+                            captured["sosp4s"].run.calls.get(counter, 0),
                         "shape": case_a["shape"], "max_abs_err": err, "ms": tm[timed],
                         "plain_ms": plain, "bound_ms": tm[f"bound_{k}_ms"],
                         "bound_by": tm[f"bound_{k}_by"],

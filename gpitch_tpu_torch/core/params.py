@@ -238,13 +238,16 @@ def load_raw(model, leaves: dict) -> int:
 def load_adam_state(optimizer, model, mu: dict, nu: dict, count) -> None:
     """Carry a JAX ``optax.adam`` state into the port's ``models.fit.Adam``
     over ``model``'s trainable leaves: ``mu`` -> m, ``nu`` -> v, ``count``
-    -> t.  ``mu`` and ``nu`` are keyed as ``load_raw``'s leaves (the
+    -> t, each written in place (t is the optimizer's 0-d count on the
+    device).  ``mu`` and ``nu`` are keyed as ``load_raw``'s leaves (the
     moments have the model's own tree), so a run started in one package
     continues in the other from the same mid-run state."""
     moments = []
     for tree in (mu, nu):
         target = copy_params(model)
         load_raw(target, tree)
-        moments.append([t.detach().clone() for t in trainable_tensors(target)])
-    optimizer.m, optimizer.v = moments
-    optimizer.t = int(np.asarray(count))
+        moments.append(trainable_tensors(target))
+    with torch.no_grad():
+        torch._foreach_copy_(optimizer.m, moments[0])
+        torch._foreach_copy_(optimizer.v, moments[1])
+        optimizer.t.fill_(int(np.asarray(count)))

@@ -1,8 +1,9 @@
 """Gauss-Hermite quadrature over every data point and source at once.
 
 Counterpart of gpitch_tpu/core/quadrature.py.  The nodes come from numpy on
-the host; the tensors of nodes and weights are kept per (H, dtype, device),
-so a training step copies nothing to the device.
+the host; the tensors of nodes and weights are kept per (H, dtype, device)
+(and D for the grids), so a training step copies nothing to the device and
+a CUDA graph can capture it.
 """
 
 from __future__ import annotations
@@ -57,18 +58,24 @@ def hermgauss1d(mean, var, h=20, nlinfun=None):
     return gauss_hermite_moments(mean, var, nlinfun, h)
 
 
+@lru_cache(maxsize=32)
+def _mvhermgauss_tensors(h: int, d: int, dtype: torch.dtype, device: torch.device):
+    """The H^D-point grid (H^D, D) and its weights (H^D,), each made once per
+    (H, D, dtype, device)."""
+    raw_x, raw_w = np.polynomial.hermite.hermgauss(h)
+    xn = np.array(list(itertools.product(*(raw_x,) * d)))           # (H^D, D)
+    wn = np.prod(np.array(list(itertools.product(*(raw_w,) * d))), 1)
+    return (torch.as_tensor(xn, dtype=dtype, device=device),
+            torch.as_tensor(wn * np.pi ** (-0.5 * d), dtype=dtype, device=device))
+
+
 def mvhermgauss(means, covs, h: int, d: int):
     """The H^D-point Gauss-Hermite grid of D-dimensional Gaussians.  means
     (N, D), covs (N, D, D).  Returns (locations (H^D, N, D), weights (H^D,))
     with E[f(x)] ~= sum_k w_k f(X[k])."""
-    raw_x, raw_w = np.polynomial.hermite.hermgauss(h)
-    xn = np.array(list(itertools.product(*(raw_x,) * d)))           # (H^D, D)
-    wn = np.prod(np.array(list(itertools.product(*(raw_w,) * d))), 1)
+    grid, weights = _mvhermgauss_tensors(h, d, means.dtype, means.device)
     chol = torch.linalg.cholesky(covs)                              # (N, D, D)
-    grid = torch.as_tensor(xn, dtype=means.dtype, device=means.device)
     X = np.sqrt(2.0) * torch.einsum("nde,ke->ndk", chol, grid) + means[..., None]
-    weights = torch.as_tensor(wn * np.pi ** (-0.5 * d), dtype=means.dtype,
-                              device=means.device)
     return X.permute(2, 0, 1), weights
 
 

@@ -8,6 +8,7 @@ where models are built, in the dtype of the value it is given.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -115,22 +116,32 @@ class FillTriangular(Transform):
         xc = torch.cat([x[..., self.n:], torch.flip(x, dims=(-1,))], dim=-1)
         return torch.tril(xc.reshape(x.shape[:-1] + (self.n, self.n)))
 
-    def _index(self):
-        n = self.n
-        k = np.arange(n * (n + 1) // 2)
-        slots = np.concatenate([k[n:], k[::-1]]).reshape(n, n)
-        ii, jj = np.tril_indices(n)
-        order = np.argsort(slots[ii, jj])
-        return ii[order], jj[order]
-
     def inverse(self, y):
-        ii, jj = self._index()
+        ii, jj = _tril_slots(self.n)
         return np.asarray(y)[..., ii, jj]
 
     def inverse_tensor(self, y):
-        ii, jj = self._index()
-        return y[..., torch.as_tensor(ii, device=y.device),
-                 torch.as_tensor(jj, device=y.device)]
+        ii, jj = _tril_slot_tensors(self.n, y.device)
+        return y[..., ii, jj]
+
+
+@functools.lru_cache(maxsize=None)
+def _tril_slots(n: int):
+    """The (row, column) of each packed entry of FillTriangular(n), in
+    packed order: the static index map of its lower triangle."""
+    k = np.arange(n * (n + 1) // 2)
+    slots = np.concatenate([k[n:], k[::-1]]).reshape(n, n)
+    ii, jj = np.tril_indices(n)
+    order = np.argsort(slots[ii, jj])
+    return ii[order], jj[order]
+
+
+@functools.lru_cache(maxsize=None)
+def _tril_slot_tensors(n: int, device: torch.device):
+    """``_tril_slots`` as index tensors on ``device``, made once per (n,
+    device): made at every call they would be host-to-device copies, which
+    a CUDA graph cannot capture."""
+    return tuple(torch.as_tensor(i, device=device) for i in _tril_slots(n))
 
 
 positive = Positive()

@@ -14,7 +14,9 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["CSRC_DIR", "BUILD_DIR", "build", "load", "check"]
+__all__ = ["CSRC_DIR", "BUILD_DIR", "build", "load", "check", "counted",
+           "launch_counts", "record_capture", "record_replays", "device_launches",
+           "reset_launches"]
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -112,3 +114,55 @@ def check(rc: int, what: str) -> None:
     ``cudaGetLastError()`` right after the launch)."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc}")
+
+
+# The kernel wrappers that count their launches: each adds one to its
+# ``launches`` where it launches its kernel.  A call made while a CUDA graph
+# is captured records the launch into the graph and launches nothing; the
+# graph's replays launch it again without the wrapper.  ``GRAPHS`` keeps,
+# per wrapper, the calls recorded into graphs and the launches of their
+# replays, so that ``device_launches`` counts what ran on the card.
+COUNTED: dict = {}
+GRAPHS = {"graphs": 0, "replays": 0, "recorded": {}, "replayed": {}}
+
+
+def counted(fn):
+    """Register the kernel wrapper ``fn``, its ``launches`` set to 0."""
+    fn.launches = 0
+    COUNTED[fn.__name__] = fn
+    return fn
+
+
+def launch_counts() -> dict:
+    """Each registered wrapper's ``launches``, by name."""
+    return {name: fn.launches for name, fn in COUNTED.items()}
+
+
+def record_capture(calls: dict) -> None:
+    """One graph captured, holding ``calls`` (wrapper name -> calls made
+    while capturing)."""
+    GRAPHS["graphs"] += 1
+    for name, n in calls.items():
+        GRAPHS["recorded"][name] = GRAPHS["recorded"].get(name, 0) + n
+
+
+def record_replays(calls: dict, replays: int) -> None:
+    """``replays`` replays of a graph that holds ``calls``."""
+    GRAPHS["replays"] += replays
+    for name, n in calls.items():
+        GRAPHS["replayed"][name] = GRAPHS["replayed"].get(name, 0) + n * replays
+
+
+def device_launches() -> dict:
+    """Each registered kernel's launches on the card since
+    ``reset_launches``: its wrapper's count, less the calls recorded into
+    graphs, plus the replays' launches."""
+    return {name: n - GRAPHS["recorded"].get(name, 0) + GRAPHS["replayed"].get(name, 0)
+            for name, n in launch_counts().items()}
+
+
+def reset_launches() -> None:
+    """Every registered wrapper's count and ``GRAPHS`` set to 0."""
+    for fn in COUNTED.values():
+        fn.launches = 0
+    GRAPHS.update(graphs=0, replays=0, recorded={}, replayed={})

@@ -53,6 +53,7 @@ def cholesky_plain(K: torch.Tensor) -> torch.Tensor:
     return torch.tril(A)
 
 
+@_cuda.counted
 def cholesky_batched(K: torch.Tensor) -> torch.Tensor:
     """Lower Cholesky factor of each matrix of a (B, M, M) batch, M <= 256.
 
@@ -86,6 +87,3 @@ def cholesky_batched(K: torch.Tensor) -> torch.Tensor:
     _cuda.check(rc, "cholesky_batched")
     cholesky_batched.launches += 1
     return out
-
-
-cholesky_batched.launches = 0

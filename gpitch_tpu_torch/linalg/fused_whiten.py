@@ -240,6 +240,7 @@ def _backward_kernel(zc, xc, err, linv, du, dv, energy, freq, var, inv_l,
             buf[:, o + 2 * s + s * p:].view(nw, s, p))
 
 
+@_cuda.counted
 def fused_whiten_bwd(zc, xc, err, linv, du, dv, energy, freq, var, inv_l):
     """Kernel B (``make_fused_bwd``): given (du, dv), the per-window
     (dlinv (nw, M, M), dvar (nw, 1, S), dinvl (nw, 1, S), de (nw, S, P),
@@ -251,9 +252,6 @@ def fused_whiten_bwd(zc, xc, err, linv, du, dv, energy, freq, var, inv_l):
     out = _backward_kernel(zc, xc, err, linv, du, dv, energy, freq, var, inv_l)
     fused_whiten_bwd.launches += 1
     return out
-
-
-fused_whiten_bwd.launches = 0
 
 
 # ---------------------------------------------------------------- autograd
@@ -292,6 +290,7 @@ def _refuse_data_grads(zc, xc, err):
                            "pass them detached")
 
 
+@_cuda.counted
 def fused_whiten(zc, xc, err, linv, energy, freq, var, inv_l):
     """(U (nw, M, M), v (nw, M, 1)) of ``fused_whiten_plain`` through kernel
     A (``make_fused_mxu``'s arguments), differentiable in linv, energy,
@@ -304,6 +303,7 @@ def fused_whiten(zc, xc, err, linv, energy, freq, var, inv_l):
                               var, inv_l)
 
 
+@_cuda.counted
 def fused_whiten_flat(zc, xc, err, linv, params, num_sources: int):
     """``make_fused``'s form: params (1, S (2P + 2)) shared, or
     (nw, S (2P + 2)) per window, flat per source [e_1..e_P, f_1..f_P, var,
@@ -323,7 +323,3 @@ def fused_whiten_flat(zc, xc, err, linv, params, num_sources: int):
     return _FusedWhiten.apply(fused_whiten_flat, zc, xc, err, linv,
                               r[..., :p], r[..., p:2 * p], r[..., 2 * p],
                               r[..., 2 * p + 1])
-
-
-fused_whiten.launches = 0
-fused_whiten_flat.launches = 0

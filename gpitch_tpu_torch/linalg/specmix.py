@@ -72,6 +72,7 @@ def specmix_plain(x, x2, energy, frequency, variance, lengthscale,
     return K.sum(1) if sum_sources else K
 
 
+@_cuda.counted
 def specmix_matrix(x, x2, energy, frequency, variance, lengthscale,
                    m32: bool = False, sum_sources: bool = False):
     """K (B, S, N, M), or (B, N, M) with ``sum_sources``.
@@ -108,6 +109,3 @@ def specmix_matrix(x, x2, energy, frequency, variance, lengthscale,
     _cuda.check(rc, "specmix_matrix")
     specmix_matrix.launches += 1
     return out
-
-
-specmix_matrix.launches = 0

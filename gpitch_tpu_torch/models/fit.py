@@ -7,7 +7,9 @@ here because constructing the first torch.optim optimizer of a process
 imports torch._dynamo and its dependencies (hundreds of modules), a one-time
 cost of seconds that dwarfs a short training run.  The loss recorded at
 step i is the loss before update i.  Only trainable Params are optimized;
-the others hold tensors that need no gradient.
+the others hold tensors that need no gradient.  ``AdamSteps`` runs the
+steps: on the card one captured CUDA graph of a step, replayed, as the JAX
+package runs one compiled segment; on the CPU the same step eagerly.
 
 With a ``batch_fn`` (see ``minibatch_fn``) each step draws a fresh batch and
 calls ``loss_fn(model, *batch)``; without one, ``loss_fn(model)``.  The JAX
@@ -24,19 +26,34 @@ state, and the caller's model is left unchanged.
 
 from __future__ import annotations
 
-import math
 import time
 from typing import Callable
 
 import numpy as np
 import torch
 
-from ..core.params import Param, copy_params, map_params, trainable_tensors
+from ..core.params import Param, copy_params, map_params, named_params, trainable_tensors
+from ..linalg import _cuda
 from ._lbfgs import lbfgs_run
 
-__all__ = ["Adam", "adam_step_fn", "minibatch_fn", "adam_segments", "first_segment_excess",
+__all__ = ["Adam", "AdamSteps", "adam_step_fn", "minibatch_fn", "adam_segments",
+           "first_segment_excess",
            "fit_adam", "fit_adam_segmented", "fit_adam_timed", "ParamRows",
            "lbfgs_solve", "fit_lbfgs", "fit_modgp"]
+
+
+def _sqrt_rn(a: torch.Tensor) -> torch.Tensor:
+    """sqrt of a float64 tensor, correctly rounded as ``math.sqrt`` is:
+    torch's CPU sqrt of float64 may be an ulp off.  One Newton correction,
+    s + (a - s^2) / 2s, with a - s^2 exact (Dekker's product of s by
+    itself, Sterbenz's difference)."""
+    s = torch.sqrt(a)
+    c = s * 134217729.0                          # 2^27 + 1: Veltkamp's split
+    hi = c - (c - s)
+    lo = s - hi
+    p = s * s
+    e = ((hi * hi - p) + 2.0 * hi * lo) + lo * lo
+    return s + ((a - p) - e) / (2.0 * s)
 
 
 class Adam:
@@ -45,6 +62,12 @@ class Adam:
 
         m <- b1 m + (1 - b1) g,   v <- b2 v + (1 - b2) g^2
         p <- p - lr / (1 - b1^t) * m / (sqrt(v / (1 - b2^t)) + eps)
+
+    The count t is a 0-d int64 tensor on the leaves' device, and the bias
+    corrections are computed there from it in float64 and rounded once to
+    the leaves' type, as the Python scalars of the host count were: the
+    update reads nothing from the host, so a CUDA graph can capture it.
+    ``commit`` writes the leaves, the moments and the count in place.
     """
 
     def __init__(self, params, lr: float, b1: float = 0.9, b2: float = 0.999,
@@ -53,7 +76,9 @@ class Adam:
         self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
         self.m = [torch.zeros_like(p) for p in self.params]
         self.v = [torch.zeros_like(p) for p in self.params]
-        self.t = 0
+        device = self.params[0].device
+        self.t = torch.zeros((), dtype=torch.int64, device=device)
+        self._neg_lr = torch.full((), -lr, dtype=torch.float64, device=device)
 
     def zero_grad(self) -> None:
         for p in self.params:
@@ -67,24 +92,37 @@ class Adam:
     def propose(self, grads):
         """The next step's (params, m, v), out of place: a step that may
         be discarded (see ``commit``)."""
-        t = self.t + 1
+        t = self.t.double() + 1.0
+        dtype = self.params[0].dtype
+        bc2 = _sqrt_rn(1.0 - torch.pow(self.b2, t)).to(dtype)
+        step = self._neg_lr.div(1.0 - torch.pow(self.b1, t)).to(dtype)
         m = torch._foreach_lerp(self.m, grads, 1.0 - self.b1)
         v = torch._foreach_mul(self.v, self.b2)
         torch._foreach_addcmul_(v, grads, grads, value=1.0 - self.b2)
         denom = torch._foreach_sqrt(v)
-        torch._foreach_div_(denom, math.sqrt(1.0 - self.b2 ** t))
+        torch._foreach_div_(denom, bc2)
         torch._foreach_add_(denom, self.eps)
-        params = torch._foreach_addcdiv(self.params, m, denom,
-                                        value=-self.lr / (1.0 - self.b1 ** t))
+        # p + (step m) / denom: addcdiv's association, with a tensor step
+        update = torch._foreach_mul(m, step)
+        torch._foreach_div_(update, denom)
+        params = torch._foreach_add(self.params, update)
         return params, m, v
 
     @torch.no_grad()
     def commit(self, params, m, v) -> None:
-        """Take a proposed step: the params in place, the moments, and one
-        more count."""
+        """Take a proposed step: the params, the moments and one more count,
+        all in place."""
         torch._foreach_copy_(self.params, params)
-        self.m, self.v = m, v
-        self.t += 1
+        torch._foreach_copy_(self.m, m)
+        torch._foreach_copy_(self.v, v)
+        self.t.add_(1)
+
+    @torch.no_grad()
+    def reset(self) -> None:
+        """Moments and count back to 0, in place."""
+        torch._foreach_zero_(self.m)
+        torch._foreach_zero_(self.v)
+        self.t.zero_()
 
 
 def adam_step_fn(loss_fn: Callable, optimizer: Adam) -> Callable:
@@ -123,34 +161,145 @@ def minibatch_fn(x: torch.Tensor, y: torch.Tensor, size: int,
     return batch_fn
 
 
+class AdamSteps:
+    """The counterpart of the JAX package's jitted Adam segment
+    (``fit_adam_segmented``): Adam on ``model``'s trainable leaves, trained
+    in place, with the count on the device and the loss of step t written
+    at index t of ``losses`` (``num_steps`` long), so that a step reads
+    nothing from the host and writes nothing to it.
+
+    On the card the first ``WARMUP`` steps run eagerly on a side stream, as
+    steps of the trajectory: they fill what a step reads once (cuBLAS's
+    handles, the fused kernels' split plans, the kernels' modules, cached
+    constants).  Then one step is captured as a CUDA graph, the counterpart
+    of JAX's one compile, and every later step replays it; a minibatch
+    draw's generator is registered with the graph, so each replay draws the
+    next batch.  A capture that fails raises.  On the CPU every step runs
+    eagerly, the plain version of the capture.  ``load`` puts another model
+    of the same structure into the static leaves with a fresh Adam state,
+    so one capture serves every chunk of a window bank, as one executable
+    serves them in the JAX package.  The fits hand it a copy of the caller's
+    model: leaves that a live autograd graph of other steps still holds
+    would tie the capture to the stream those steps ran on.
+    """
+
+    WARMUP = 3
+
+    def __init__(self, model, loss_fn: Callable, num_steps: int,
+                 learning_rate: float, batch_fn: Callable | None = None):
+        self.model = model
+        self.loss_fn, self.batch_fn = loss_fn, batch_fn
+        self.leaves = [p.raw for _, p in named_params(model)]
+        self.optimizer = Adam(trainable_tensors(model), lr=learning_rate)
+        p = self.optimizer.params[0]
+        self.losses = torch.zeros(num_steps, dtype=p.dtype, device=p.device)
+        self.at = 0                    # the count, as the host knows it
+        self.eager_steps = 0
+        self.graph = None
+        self.capture_s = 0.0           # host seconds of the capture
+        self.calls = {}                # kernel wrapper -> its calls in the graph
+
+    def step(self) -> None:
+        """One step: the loss and its gradient, the loss written at the
+        count, then Adam (which adds one to the count)."""
+        opt = self.optimizer
+        opt.zero_grad()
+        batch = () if self.batch_fn is None else self.batch_fn()
+        loss = self.loss_fn(self.model, *batch)
+        loss.backward()
+        with torch.no_grad():
+            self.losses.index_copy_(0, opt.t.reshape(1),
+                                    loss.detach().reshape(1).to(self.losses.dtype))
+        opt.step()
+
+    def eager(self, n: int) -> None:
+        """``n`` steps run eagerly: the plain version of the captured step,
+        which the CPU runs and the card's checks hold the capture against."""
+        for _ in range(n):
+            self.step()
+        self.at += n
+
+    def run(self, n: int) -> None:
+        """``n`` more steps, with no host fence."""
+        if not self.losses.is_cuda:
+            return self.eager(n)
+        self.at += n
+        if self.graph is None:
+            warm = min(n, self.WARMUP - self.eager_steps)
+            if warm > 0:
+                side = torch.cuda.Stream(self.losses.device)
+                side.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(side):
+                    for _ in range(warm):
+                        self.step()
+                torch.cuda.current_stream().wait_stream(side)
+                self.eager_steps += warm
+                n -= warm
+            if n == 0:
+                return
+            self._capture()
+        for _ in range(n):
+            self.graph.replay()
+        _cuda.record_replays(self.calls, n)
+
+    def _capture(self) -> None:
+        self.optimizer.zero_grad()
+        graph = torch.cuda.CUDAGraph()
+        generator = getattr(self.batch_fn, "generator", None)
+        if generator is not None:
+            graph.register_generator_state(generator)
+        before = _cuda.launch_counts()
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph):
+            self.step()
+        self.capture_s = time.perf_counter() - t0
+        after = _cuda.launch_counts()
+        self.calls = {k: n - before.get(k, 0) for k, n in after.items()
+                      if n != before.get(k, 0)}
+        _cuda.record_capture(self.calls)
+        self.graph = graph
+
+    def segments(self, num_steps: int, segment: int):
+        """``num_steps`` steps from the count on, with one host fence (the
+        losses' copy) every ``segment`` steps.  Returns (their losses numpy,
+        the wall seconds of each segment)."""
+        host, seconds = np.empty(num_steps), []
+        for start in range(0, num_steps, max(1, segment)):
+            t0 = time.perf_counter()
+            n = min(segment, num_steps - start)
+            self.run(n)
+            host[start:start + n] = self.losses[self.at - n:self.at].cpu().numpy()
+            seconds.append(time.perf_counter() - t0)
+        return host, seconds
+
+    @torch.no_grad()
+    def load(self, model, count: int = 0) -> None:
+        """``model``'s raw leaves (the structure of this one's) into the
+        static leaves, the moments set to 0 and the count to ``count``."""
+        for leaf, (_, p) in zip(self.leaves, named_params(model)):
+            leaf.copy_(p.raw)
+        self.optimizer.reset()
+        self.optimizer.t.fill_(count)
+        self.at = count
+
+    def result(self):
+        """The trained model, its gradients dropped."""
+        self.optimizer.zero_grad()
+        return self.model
+
+
 def adam_segments(model, loss_fn: Callable, num_steps: int,
                   learning_rate: float = 0.005, batch_fn: Callable | None = None,
                   segment: int = 100):
-    """``num_steps`` Adam steps on a copy of the model, as ceil(num_steps /
-    segment) segments with one host fence (the losses' copy) at the end of
-    each; between fences the losses stay on the device.  The caller's model
-    is left unchanged, as the JAX package's fits leave theirs.  Returns
-    (the trained copy, losses (num_steps,) numpy, the wall seconds of each
-    segment)."""
-    model = copy_params(model)
-    params = trainable_tensors(model)
-    optimizer = Adam(params, lr=learning_rate)
-    out = torch.empty(num_steps, dtype=params[0].dtype, device=params[0].device)
-    host = np.empty(num_steps)
-    seconds = []
-    segment = max(1, segment)
-    for start in range(0, num_steps, segment):
-        t0 = time.perf_counter()
-        stop = min(start + segment, num_steps)
-        for i in range(start, stop):
-            optimizer.zero_grad()
-            loss = loss_fn(model) if batch_fn is None else loss_fn(model, *batch_fn())
-            loss.backward()
-            optimizer.step()
-            out[i] = loss.detach()
-        host[start:stop] = out[start:stop].cpu().numpy()
-        seconds.append(time.perf_counter() - t0)
-    return model, host, seconds
+    """``num_steps`` Adam steps (``AdamSteps``) on a copy of the model, as
+    ceil(num_steps / segment) segments with one host fence (the losses'
+    copy) at the end of each; between fences the losses stay on the device.
+    The caller's model is left unchanged, as the JAX package's fits leave
+    theirs.  Returns (the trained copy, losses (num_steps,) numpy, the wall
+    seconds of each segment)."""
+    run = AdamSteps(copy_params(model), loss_fn, num_steps, learning_rate, batch_fn)
+    losses, seconds = run.segments(num_steps, max(1, segment))
+    return run.result(), losses, seconds
 
 
 def first_segment_excess(seconds) -> tuple[float, float]:
@@ -188,20 +337,21 @@ def fit_adam_segmented(model, loss_fn: Callable, num_steps: int,
 
 def fit_adam_timed(model, loss_fn: Callable, num_steps: int,
                    learning_rate: float = 0.005, batch_fn: Callable | None = None):
-    """fit_adam run twice from the same state (each run trains its own copy
-    of the model, with the minibatch generator's state restored in
-    between), each ending in one host fence.  Returns (model, losses,
-    first_s, run_s): run_s is the second run's wall time, first_s the first
-    run's excess over it."""
+    """fit_adam run twice from the same state (the model loaded again and
+    the minibatch generator's state restored in between), each run ending
+    in one host fence.  On the card the second run replays the first run's
+    captured step throughout, as the JAX package's second run re-invokes
+    its compiled scan.  Returns (model, losses, first_s, run_s): run_s is
+    the second run's wall time, first_s the first run's excess over it."""
     generator = getattr(batch_fn, "generator", None)
     state = None if generator is None else generator.get_state()
-    _, _, first = adam_segments(model, loss_fn, num_steps, learning_rate, batch_fn,
-                                segment=num_steps)
+    run = AdamSteps(copy_params(model), loss_fn, num_steps, learning_rate, batch_fn)
+    _, first = run.segments(num_steps, num_steps)
+    run.load(model)
     if generator is not None:
         generator.set_state(state)
-    model, losses, run = adam_segments(model, loss_fn, num_steps, learning_rate,
-                                       batch_fn, segment=num_steps)
-    return model, losses, max(sum(first) - sum(run), 0.0), float(sum(run))
+    losses, second = run.segments(num_steps, num_steps)
+    return run.result(), losses, max(sum(first) - sum(second), 0.0), float(sum(second))
 
 
 class ParamRows:

@@ -212,7 +212,7 @@ def fit_natgrad_adam(model, x, y, num_steps: int, gamma: float = 0.1,
 
     if segment is None:
         model, losses = run(model, num_steps)
-        info = {"n_skipped": int(np.isnan(losses).sum()), "adam_steps": adam.t,
+        info = {"n_skipped": int(np.isnan(losses).sum()), "adam_steps": int(adam.t),
                 "returned": "final"}
         return (model, losses, info) if return_info else (model, losses)
 
@@ -247,7 +247,7 @@ def fit_natgrad_adam(model, x, y, num_steps: int, gamma: float = 0.1,
         if np.isfinite(pol_full) and pol_full < min(best_full, final_full):
             returned, out = "polished", pol
     if return_info:
-        info = {"n_skipped": int(np.isnan(losses).sum()), "adam_steps": adam.t,
+        info = {"n_skipped": int(np.isnan(losses).sum()), "adam_steps": int(adam.t),
                 "full_loss_at_segments": [round(v, 2) for v in full_trace],
                 "returned": returned, "polish": polish_info}
         return out, losses, info

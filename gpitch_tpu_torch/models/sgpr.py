@@ -12,6 +12,7 @@ one stationary table per window instead of built directly.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import numpy as np
@@ -36,6 +37,14 @@ def check_on_grid(X, Z, grid_dt: float) -> None:
     for v in (np.asarray(X) / grid_dt, np.asarray(Z) / grid_dt):
         if np.max(np.abs(v - np.round(v))) > 1e-3:
             raise ValueError("grid_dt: inputs are not on the grid")
+
+
+@functools.lru_cache(maxsize=64)
+def _constant(value: float, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A 0-d tensor of ``value``, made once per (value, dtype, device): made
+    at every bound evaluation it would be a host-to-device copy, which a
+    CUDA graph cannot capture."""
+    return torch.tensor(value, dtype=dtype, device=device)
 
 
 def _eye(n: int, like: torch.Tensor) -> torch.Tensor:
@@ -336,8 +345,7 @@ class SGPR:
         if self.mask is not None:
             num_data = self.mask_value.sum(-1)
         else:
-            num_data = torch.tensor(float(err.shape[-2]), dtype=err.dtype,
-                                    device=err.device)
+            num_data = _constant(float(err.shape[-2]), err.dtype, err.device)
         outdim = err.shape[-1]
         bound = -0.5 * num_data * outdim * _LOG2PI
         bound = bound - outdim * torch.log(torch.diagonal(LB, dim1=-2, dim2=-1)).sum(-1)

@@ -15,8 +15,8 @@ import warnings
 import numpy as np
 import torch
 
-from ..core.params import copy_params, trainable_tensors
-from ..models.fit import Adam
+from ..core.params import copy_params
+from ..models.fit import Adam, AdamSteps
 from ..utils.checkpoint import list_checkpoints, load_model, save_model
 from .windowed_sgpr import bank_loss
 
@@ -24,6 +24,9 @@ __all__ = ["optimize_bank_resumable"]
 
 
 def _adam_state(optimizer: Adam) -> dict:
+    """The checkpointed Adam state.  The count is the optimizer's 0-d int64
+    tensor, which a checkpoint holds as the 0-d int64 array it held when
+    the count was a host int: checkpoints of either form load in both."""
     return {"m": tuple(optimizer.m), "v": tuple(optimizer.v), "t": optimizer.t}
 
 
@@ -32,43 +35,39 @@ def optimize_bank_resumable(bank, num_steps: int, checkpoint_dir: str,
                             learning_rate: float = 0.01):
     """Adam over the whole bank with a checkpoint of (bank, Adam state)
     every ``checkpoint_every`` steps, resumed from the newest checkpoint in
-    ``checkpoint_dir`` when there is one.  Returns (bank, losses, start_step):
-    ``losses`` covers the steps run by this call.  A bank-only checkpoint
-    (the format before the Adam state was saved) restores the bank with
-    fresh moments, under a RuntimeWarning.  The input bank is unchanged."""
+    ``checkpoint_dir`` when there is one.  The steps are ``AdamSteps``'s
+    (one captured step replayed on the card), with ``checkpoint_every`` as
+    the segment.  Returns (bank, losses, start_step): ``losses`` covers the
+    steps run by this call.  A bank-only checkpoint (the format before the
+    Adam state was saved) restores the bank with fresh moments, under a
+    RuntimeWarning.  The input bank is unchanged."""
     os.makedirs(checkpoint_dir, exist_ok=True)
-    bank = copy_params(bank)
-    optimizer = Adam(trainable_tensors(bank), lr=learning_rate)
+    run = AdamSteps(copy_params(bank), bank_loss, max(num_steps, 1), learning_rate)
     done = list_checkpoints(checkpoint_dir)
     start = done[-1] if done else 0
     if start:
         try:
-            bank, state = load_model(checkpoint_dir, (bank, _adam_state(optimizer)),
-                                     step=start)
+            saved, state = load_model(checkpoint_dir, (bank, _adam_state(run.optimizer)),
+                                      step=start)
         except ValueError:
-            bank, state = load_model(checkpoint_dir, bank, step=start), None
+            saved, state = load_model(checkpoint_dir, bank, step=start), None
             warnings.warn(
                 "resuming from a checkpoint without the optimizer state: the "
                 "Adam moments restart at zero, so the resumed run is NOT "
                 "bit-identical to an uninterrupted one", RuntimeWarning, stacklevel=2)
-        optimizer = Adam(trainable_tensors(bank), lr=learning_rate)
+        run.load(saved, 0 if state is None else int(state["t"]))
         if state is not None:
-            optimizer.m, optimizer.v = list(state["m"]), list(state["v"])
-            optimizer.t = int(state["t"])
+            with torch.no_grad():
+                torch._foreach_copy_(run.optimizer.m, list(state["m"]))
+                torch._foreach_copy_(run.optimizer.v, list(state["v"]))
 
     all_losses = []
     at = start
     while at < num_steps:
         chunk = min(checkpoint_every, num_steps - at)
-        losses = []
-        for _ in range(chunk):
-            optimizer.zero_grad()
-            loss = bank_loss(bank)
-            loss.backward()
-            optimizer.step()
-            losses.append(loss.detach())
+        losses, _ = run.segments(chunk, chunk)               # one host fence
+        all_losses.append(losses)
         at += chunk
-        all_losses.append(torch.stack(losses).cpu().numpy())      # the host fence
-        save_model(checkpoint_dir, (bank, _adam_state(optimizer)), step=at)
+        save_model(checkpoint_dir, (run.model, _adam_state(run.optimizer)), step=at)
     losses = np.concatenate(all_losses) if all_losses else np.zeros(0)
-    return bank, losses, start
+    return run.result(), losses, start

@@ -21,7 +21,7 @@ from ..config import DEFAULT_DEVICE, resolve_device
 from ..core.params import Param, cat_windows, map_params, take_windows, to_device
 from ..kernels.base import StackedSum, Sum, stack_modules
 from ..models._lbfgs import LbfgsStats, lbfgs_run
-from ..models.fit import ParamRows, adam_segments, first_segment_excess
+from ..models.fit import AdamSteps, ParamRows, first_segment_excess
 from ..models.sgpr import SGPRSS, check_on_grid
 
 __all__ = ["sum_kernel", "pad_inducing", "build_window_bank", "bank_loss",
@@ -245,30 +245,63 @@ def optimize_bank(bank, num_steps: int = 500, learning_rate: float = 0.01,
     return out + (info,) if return_info else out
 
 
+def _chunk_plan(bank, window_chunk: int | None, weights=None):
+    """Adam's chunks of a bank, as the JAX package's ``_chunk_plan`` pads
+    them: (chunk size, chunk count, the bank padded to whole chunks by
+    copies of its last window, the padded bank's per-window weights: 0 for
+    a pad, ``weights`` (or 1) for the others; None when nothing is padded
+    and no ``weights`` are given)."""
+    nw = bank.X.raw.shape[0]
+    chunk = nw if window_chunk is None else min(max(1, window_chunk), nw)
+    nc = -(-nw // chunk)
+    pad = nc * chunk - nw
+    if not pad:
+        return chunk, nc, bank, weights
+    from ..parallel.mesh import repeat_last_window
+    x = bank.X.raw
+    w = torch.ones(nw, dtype=x.dtype, device=x.device) if weights is None else weights
+    return chunk, nc, repeat_last_window(bank, pad), torch.cat([w, w.new_zeros(pad)])
+
+
+def _weighted_loss(w: torch.Tensor) -> Callable:
+    """loss_fn(bank): the per-window negative bounds weighted by ``w`` (read
+    at every call, so its values may change between calls), summed."""
+    def loss_fn(b):
+        return (b.loss() * w).sum()
+    return loss_fn
+
+
 def _optimize_windows(bank, num_steps: int, learning_rate: float, method: str,
                       segment: int | None, window_chunk: int | None, weights=None):
     """One process's run of ``optimize_bank``: (bank, losses, the wall
     seconds of each segment, info).  ``weights`` ((nw,) of 1 and 0) leaves
-    the windows of weight 0 out of the Adam losses and gradients."""
+    the windows of weight 0 out of the Adam losses and gradients.
+
+    Adam in chunks, as the JAX package's ``_optimize_bank_chunked``: the
+    window axis is padded to whole chunks (``_chunk_plan``), so that every
+    chunk has one shape and one captured step (``AdamSteps``) serves them
+    all; each chunk's leaves and weights go into the step's static tensors,
+    with a fresh Adam state."""
     if method == "lbfgs":
         return _optimize_bank_lbfgs(bank, num_steps, window_chunk=window_chunk)
     nw = bank.X.raw.shape[0]
-    chunk = nw if window_chunk is None else max(1, window_chunk)
+    chunk, nc, bank, w_all = _chunk_plan(bank, window_chunk, weights)
+    w = None if w_all is None else w_all[:chunk].clone()
+    loss_fn = bank_loss if w is None else _weighted_loss(w)
+    run = AdamSteps(take_windows(bank, slice(0, chunk)), loss_fn, num_steps, learning_rate)
+    segment = segment or num_steps
     banks, losses, seconds = [], np.zeros(num_steps), []
-    for c0 in range(0, nw, chunk):
-        part = bank if chunk >= nw else take_windows(bank, slice(c0, c0 + chunk))
-        loss_fn = bank_loss
-        if weights is not None:
-            w = weights[c0:c0 + chunk]
-
-            def loss_fn(b, w=w):
-                return (b.loss() * w).sum()
-        part, ls, secs = adam_segments(part, loss_fn, num_steps, learning_rate,
-                                       segment=segment or num_steps)
-        banks.append(part)
+    for ci in range(nc):
+        sl = slice(ci * chunk, (ci + 1) * chunk)
+        if ci:
+            run.load(take_windows(bank, sl))
+            if w is not None:
+                w.copy_(w_all[sl])
+        ls, secs = run.segments(num_steps, segment)
+        banks.append(run.result() if nc == 1 else take_windows(run.model, slice(None)))
         losses += ls
         seconds += secs
-    bank = banks[0] if len(banks) == 1 else cat_windows(banks)
+    bank = banks[0] if nc == 1 else take_windows(cat_windows(banks), slice(0, nw))
     return bank, losses, seconds, {"syncs": len(seconds)}
 
 

@@ -587,3 +587,70 @@ def test_cuda_one_rank_nccl_shard_map_bank_loss(cuda, tmp_path):
                 assert _rel(g.double(), r.double()) <= 1e-6
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("window_chunk", [None, 4], ids=["whole", "chunks_of_4"])
+def test_cuda_captured_bank_steps_match_eager(cuda, monkeypatch, window_chunk):
+    """optimize_bank's Adam on the card replays one captured step (the
+    fused pair inside the graph, once a step of every chunk; 6 windows in
+    chunks of 4 pad to 8) and gives the eager steps' losses and leaves
+    within 1e-5 relative (the same kernels on the same inputs)."""
+    from gpitch_tpu_torch.core.params import named_params
+    from gpitch_tpu_torch.linalg import _cuda
+    from gpitch_tpu_torch.models import fit
+    from gpitch_tpu_torch.pipelines import windowed_sgpr as tws
+    bank = _lbfgs_bank(cuda, torch.float32)
+    _cuda.reset_launches()
+    got, gl = tws.optimize_bank(bank, 12, 0.05, window_chunk=window_chunk, segment=5)
+    chunks = 1 if window_chunk is None else 2
+    assert _cuda.GRAPHS["graphs"] == 1
+    assert _cuda.GRAPHS["replays"] == chunks * 12 - fit.AdamSteps.WARMUP
+    launches = _cuda.device_launches()
+    assert launches["fused_whiten"] == launches["fused_whiten_bwd"] == chunks * 12
+    monkeypatch.setattr(fit.AdamSteps, "run", fit.AdamSteps.eager)
+    want, wl = tws.optimize_bank(bank, 12, 0.05, window_chunk=window_chunk, segment=5)
+    np.testing.assert_allclose(gl, wl, rtol=1e-5)
+    for (_, a), (_, b) in zip(named_params(got), named_params(want)):
+        assert _rel(a.raw.detach(), b.raw.detach().double()) <= 1e-5
+
+
+def test_cuda_captured_minibatch_draws_differ_and_equal_eager(cuda):
+    """A minibatch draw inside the captured step: its generator registered
+    with the graph, each replay draws the next batch (20 different batches
+    in 20 steps), the same batches the eager steps draw from the same seed,
+    and the same losses."""
+    import dataclasses
+    from typing import Any
+
+    from gpitch_tpu_torch.core.params import Param
+    from gpitch_tpu_torch.models.fit import AdamSteps, minibatch_fn
+
+    @dataclasses.dataclass
+    class Mean:
+        w: Any = None
+
+    x = torch.arange(64.0, device=cuda)[:, None]
+
+    def draws(eager):
+        seen = torch.zeros(20, 8, device=cuda)
+        k = torch.zeros((), dtype=torch.int64, device=cuda)
+        base = minibatch_fn(x, x.clone(), 8, torch.Generator(device=cuda).manual_seed(5))
+
+        def batch_fn():
+            xb, yb = base()
+            seen.index_copy_(0, k.reshape(1), xb.reshape(1, 8))
+            k.add_(1)
+            return xb, yb
+
+        batch_fn.generator = base.generator
+        run = AdamSteps(Mean(w=Param(torch.zeros(1, device=cuda))),
+                        lambda m, xb, yb: ((m.w.value - yb / 64.0) ** 2).sum(), 20, 0.05,
+                        batch_fn)
+        (run.eager if eager else run.run)(20)
+        assert (run.graph is None) == eager
+        return seen, run.losses.clone()
+
+    seen_c, loss_c = draws(False)
+    seen_e, loss_e = draws(True)
+    assert torch.equal(seen_c, seen_e) and torch.equal(loss_c, loss_e)
+    assert len({tuple(r) for r in seen_c.tolist()}) == 20
