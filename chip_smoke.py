@@ -5,7 +5,9 @@ Run from the repository root:   python3 chip_smoke.py
 
 Phases, each printing one JSON line; any failure raises and exits non-zero:
   1. device   the card, its power limit, and the f32 matmul mode (full f32);
-  2. build    the three CUDA sources, one nvcc each, started together;
+  2. build    the four CUDA sources (the three kernels' and graphs.cu, the
+              conditional chains of the captured L-BFGS), one nvcc each,
+              started together;
   3. chol     the Cholesky kernel against its plain version and
               torch.linalg.cholesky_ex, at the bank shapes, on random SPD,
               ill-conditioned and low-rank Grams;
@@ -27,8 +29,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
   6. small    a 0.5 s separation in f64 on the card and on the CPU, which
               must agree;
   7. first_use  a fresh process through the main path: import, build, each
-              of three steps' parts, the first predictions, and what
-              torch.optim.Adam would add;
+              of three steps' parts, a captured Adam segment and 3 captured
+              L-BFGS iterations (each with its capture's cost), the first
+              predictions, and what torch.optim.Adam would add;
   8. full     the 14 s mix (222 windows): 20 Adam steps (the fused pair's
               launches counted: one each a step) and predict_s;
   9. fused_whiten  the fused build -> whiten -> accumulate pair (kernel A
@@ -55,18 +58,27 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
  12. modgp    the ModGP SVGP model: the golden fixture in f64 and f32, the
               demo (N 16000, 1000 minibatch Adam steps, source RMSE) and
               the bench workload (M 128, 1000 steps, steps/s);
- 13. lbfgs    one L-BFGS solver per window (the reference's optimizer):
+ 13. lbfgs    one L-BFGS solver per window (the reference's optimizer), an
+              iteration replayed from captured CUDA graphs whose conditions
+              (a trial's, an evaluation's) the device decides
+              (models._lbfgs.LbfgsSteps):
               (a) the first 16 windows of sosp-4s, 30 iterations in f32,
               against the JAX package's f64 trajectories
               (tests/torch_lbfgs_goldens.npz); (b) sosp-14s at full width
               (222 windows), SoSp.optimize(method="lbfgs", maxiter=20),
               predict_s and the RMSE, with the kernels' launches,
-              evaluations and host syncs per iteration; (c) amt-1s,
+              evaluations and host reads per iteration; (c) amt-1s,
               AMT.optimize(method="lbfgs", maxiter=20) and its F-measure;
-              (d) (a) again with one window made NaN on purpose;
+              (d) (a) again with one window made NaN on purpose; after (a),
+              (b), (c) and on amt-10s (439 windows in chunks of 64, 5
+              iterations) captured against eager iterations in turns and
+              the one-chain design: ms an iteration, evaluations and host
+              reads an iteration (none inside a segment), capture s, node
+              counts, peak memory, the trajectories' difference;
  14. natgrad  natural gradients with Adam and L-BFGS on the ModGP golden
-              fixture in f32 against the goldens, and the demo trained by
-              500 minibatch natgrad_adam steps (source RMSE);
+              fixture in f32 against the goldens, the demo trained by 500
+              minibatch natgrad_adam steps (source RMSE), and the demo's
+              steps captured against eager in turns (steps/s);
  15. lag_table  (after 11) the lag-table route (one stationary table per
               window, Kuf and Kuu gathered from it): amt-10s and amt88-2s
               with lag_table=True, f64 bound against the direct route
@@ -115,9 +127,11 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               (and eager ones on sosp-14s, amt-10s and ModGP: the device's
               busy share of each; the lag table's gather and its
               scatter-add backward by op), one predict_s of 8's 222-window
-              bank, 3 L-BFGS iterations of 13(b)'s bank and 10 HMC
-              iterations of 17(b), last because its tracing may stay
-              attached;
+              bank, 3 captured and 3 eager L-BFGS iterations of 13(b)'s
+              bank, 50 captured and 20 eager natgrad_adam steps of 14's
+              demo (the profiler's own cost grows with the ops it records)
+              and 10 HMC iterations of 17(b), last because its tracing may
+              stay attached;
 then the kernels line, the nvidia-smi line and the result line.
 ``python3 chip_smoke.py --worker <kind> <rank> <world> <store> ...`` runs
 one rank of 18 or the fresh process of 19 (the phases start them).
@@ -136,6 +150,7 @@ import os
 import subprocess
 import sys
 import time
+from typing import Callable
 
 import numpy as np
 import torch
@@ -150,7 +165,14 @@ PITCHES = [60, 64, 67]
 ONSETS = [(60, 0.1), (64, 0.8), (67, 1.6), (60, 2.4), (64, 3.1)]
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also carries the seconds since the
+    script started (``at_s``)."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": round(time.perf_counter() - _T0, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -711,6 +733,12 @@ run.run(AdamSteps.WARMUP + 10)
 sync()
 out["warmup_capture_10_replays_s"] = time.perf_counter() - t0
 out["capture_s"] = run.capture_s
+from gpitch_tpu_torch.pipelines.windowed_sgpr import optimize_bank
+t0 = time.perf_counter()
+_, _, info = optimize_bank(model.bank, 3, method="lbfgs", return_info=True)
+sync()
+out["lbfgs_3_iterations_s"] = time.perf_counter() - t0
+out["lbfgs_capture_s"] = info["capture_s"]
 for name, run in (("predict_f_s", model.predict_f), ("predict_s_s", model.predict_s)):
     t0 = time.perf_counter()
     run()
@@ -1417,7 +1445,152 @@ def _lbfgs_counts(info, seconds: float) -> dict:
             "windows_nonfinite": info["windows_nonfinite"]}
 
 
-def phase_lbfgs(dev):
+class _LbfgsBank:
+    """Per-window L-BFGS of a whole bank as ``optimize_bank(method="lbfgs")``
+    runs it (``windowed_sgpr._optimize_bank_lbfgs``): the window axis padded
+    to whole chunks of ``chunk`` windows, one ``LbfgsSteps`` over a chunk's
+    static rows, each chunk loaded in turn.  ``iterations(n, how)``: n
+    iterations of every chunk from the bank's state, "captured" (the three
+    chained graphs replayed), "eager" (the plain version, every condition
+    read on the host) or "one_chain" (the other design: the whole iteration,
+    with ``MAX_LINESEARCH_STEPS`` conditional trials, as one chain built from
+    the captured parts; ``one_chain()`` builds it).  Returns the per-window
+    losses (nw, n) and the counts of the run."""
+
+    def __init__(self, bank, chunk, iters: int):
+        from gpitch_tpu_torch.core.params import take_windows
+        from gpitch_tpu_torch.models._lbfgs import LbfgsSteps
+        from gpitch_tpu_torch.models.fit import ParamRows
+        from gpitch_tpu_torch.pipelines import windowed_sgpr as tws
+        self.nw = int(bank.X.raw.shape[0])
+        size, nc, padded, _ = tws._chunk_plan(bank, chunk)
+        self.chunks = [take_windows(padded, slice(c * size, (c + 1) * size))
+                       for c in range(nc)]
+        self.rows = ParamRows(self.chunks[0], lambda b: b.loss(), batched=True)
+        self.run = LbfgsSteps(self.rows.value_and_grad, self.rows.value,
+                              self.rows.rows(), iters)
+        self.one = None
+        self.one_chain_s = None
+
+    def one_chain(self) -> int:
+        """Build the one-chain iteration from the captured parts; returns
+        its node count."""
+        from gpitch_tpu_torch.linalg._cuda import GraphChain
+        from gpitch_tpu_torch.models._lbfgs import MAX_LINESEARCH_STEPS
+        run, p = self.run, self.run.parts
+        t0 = time.perf_counter()
+        self.one = GraphChain([(p["need"], None), (p["evaluation"], run.any_need),
+                               (p["head"], None)]
+                              + [(p["trial"], run.any_active)] * MAX_LINESEARCH_STEPS
+                              + [(p["tail"], None)])
+        self.one_chain_s = time.perf_counter() - t0
+        return self.one.nodes
+
+    def iterations(self, n: int, how: str = "captured"):
+        run, st = self.run, self.run.stats
+        before = (st.iterations, st.trials + st.grad_evaluations + st.value_evaluations,
+                  st.syncs)
+        out = []
+        for part in self.chunks:
+            self.rows.load(part)
+            run.load(self.rows.rows())
+            with torch.no_grad():
+                if how == "captured":
+                    run.run(n)
+                elif how == "eager":
+                    for _ in range(n):
+                        run.iteration()
+                else:
+                    for _ in range(n):
+                        self.one.replay()
+            run.finish()
+            out.append(run.read(0, n)[0])
+        counts = {"iterations": n, "chunk_iterations": st.iterations - before[0],
+                  "evaluations": st.trials + st.grad_evaluations + st.value_evaluations
+                  - before[1], "host_reads": st.syncs - before[2]}
+        return np.concatenate(out)[:self.nw], counts
+
+
+def _rel_nan(a: np.ndarray, b: np.ndarray) -> float:
+    """The largest |a / b - 1| over the entries where b is finite; inf when
+    a and b are not finite at the same entries."""
+    bad = ~np.isfinite(b)
+    if not np.array_equal(bad, ~np.isfinite(a)):
+        return float("inf")
+    return float(np.max(np.abs(a[~bad] / b[~bad] - 1), initial=0.0))
+
+
+def _lbfgs_captured_case(name, bank, chunk, n: int) -> tuple[dict, tuple]:
+    """One bank's per-window L-BFGS captured (C) and eager (E), each from the
+    same state: a first captured run (the eager warm-up iteration and the
+    captures), a first eager run, then C E E C and the one-chain design
+    twice (O O), each n iterations; ms an iteration of each, evaluations
+    and host reads an iteration, the captures' host seconds, the chains'
+    nodes, the device memory the captured runner holds (its static tensors
+    and its graphs' pool: the reserved memory it added, the cache emptied
+    before and after its first run; a replay allocates nothing) against the
+    eager runner's peak (its static tensors and its run's temporaries, above
+    what was allocated before it), and the largest relative difference of the
+    per-window losses: C and O against E, and E against E (C and O must be
+    within E against E and within 1e-5, NaN at the same places).  No host
+    read may fall inside a chunk's iterations.  Returns (the record, (C, E)).
+    """
+    gib = 2.0 ** 30
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    cap = _LbfgsBank(bank, chunk, n)
+    t0 = time.perf_counter()
+    cap.iterations(n)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    held = (torch.cuda.memory_reserved() - reserved) / gib
+    allocated = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    eag = _LbfgsBank(bank, chunk, n)
+    eag.iterations(n, "eager")
+    torch.cuda.synchronize()
+    eager_peak = (torch.cuda.max_memory_allocated() - allocated) / gib
+    one_nodes = cap.one_chain()
+    runs = {"captured": [], "eager": [], "one_chain": []}
+    for how in ("captured", "eager", "eager", "captured", "one_chain", "one_chain"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lw, counts = (eag if how == "eager" else cap).iterations(n, how)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / n * 1e3
+        runs[how].append((ms, lw, counts))
+    lw = {k: [r[1].astype(np.float64) for r in v] for k, v in runs.items()}
+    spread = _rel_nan(lw["eager"][1], lw["eager"][0])
+    vs = max(_rel_nan(t, lw["eager"][0]) for t in lw["captured"] + lw["one_chain"])
+    c0 = runs["captured"][0][2]
+    e0 = runs["eager"][0][2]
+    out = {"phase": "lbfgs", "case": name, "windows": cap.nw, "window_chunk": chunk,
+           "chunks": len(cap.chunks), "iterations": n,
+           "ms_per_iteration_captured": [r[0] for r in runs["captured"]],
+           "ms_per_iteration_eager": [r[0] for r in runs["eager"]],
+           "ms_per_iteration_one_chain": [r[0] for r in runs["one_chain"]],
+           "speedup": float(np.median([r[0] for r in runs["eager"]])
+                            / np.median([r[0] for r in runs["captured"]])),
+           "evaluations_per_iteration": c0["evaluations"] / (n * len(cap.chunks)),
+           "host_reads_per_iteration_captured": c0["host_reads"] / n,
+           "host_reads_per_iteration_eager": e0["host_reads"] / n,
+           "host_reads_inside_a_segment": c0["host_reads"] - len(cap.chunks),
+           "first_captured_run_s": first_s, "capture_s": cap.run.capture_s,
+           "nodes_head_trial_tail": [g.nodes for g in cap.run.graphs],
+           "one_chain_nodes": one_nodes, "one_chain_build_s": cap.one_chain_s,
+           "calls_per_evaluation": cap.run.calls["trial"],
+           "held_gib_captured": held, "peak_gib_eager": eager_peak,
+           "captured_vs_eager_rel": vs, "eager_vs_eager_rel": spread,
+           "windows_not_finite": int((~np.isfinite(lw["captured"][0])).any(1).sum())}
+    emit(out)
+    assert out["host_reads_inside_a_segment"] == 0, out
+    assert vs <= spread and vs <= 1e-5, f"{name}: captured off eager: {vs} ({spread})"
+    return out, (cap, eag)
+
+
+def phase_lbfgs(dev, amt_model):
     """Per-window L-BFGS on the card, f32: (a) the first 16 windows of
     sosp-4s for 30 iterations against the JAX package's f64 per-window
     trajectories, loss[0] within rtol 5e-3 and the best-visited totals
@@ -1431,7 +1604,12 @@ def phase_lbfgs(dev):
     method="lbfgs", maxiter=20), with the windows whose best f32 value lies
     below what any state can give, and their state's value by the plain
     versions on the CPU and in f64 (reported, not limited; see PERF.md
-    §6).  Returns (the records, (b)'s model, (a)'s trained windows)."""
+    §6).  Every run goes through the captured solver (``LbfgsSteps``: one
+    eager warm-up iteration, the captures, then replays), and after (a),
+    (b) and (c), and on amt-10s (``amt_model``'s 439 windows in chunks of
+    64, 5 iterations), ``_lbfgs_captured_case`` holds the captured
+    iterations against eager ones in turns.  Returns (the records, (b)'s
+    model, (a)'s trained windows, (b)'s captured and eager runners)."""
     from gpitch_tpu_torch.audio.pianoroll import Pianoroll
     from gpitch_tpu_torch.core.params import Param, map_params, take_windows, to_device
     from gpitch_tpu_torch.pipelines.windowed_sgpr import optimize_bank
@@ -1461,6 +1639,7 @@ def phase_lbfgs(dev):
     out["a"] = rec
     assert rec["rel0"] <= 5e-3, f"L-BFGS loss[0] off the golden: {rec['rel0']}"
     assert rec["best_dev"] <= rec["best_dev_limit"], rec
+    out["captured_sosp4s16"], _ = _lbfgs_captured_case("sosp4s16", sub, None, iters)
 
     bad = take_windows(sub, slice(0, nwin))
     with torch.no_grad():
@@ -1483,6 +1662,7 @@ def phase_lbfgs(dev):
     onsets = [(p, on + 4.0 * k) for k in range(4) for p, on in ONSETS
               if on + 4.0 * k < 14.0]
     model, sources = make_sosp(14.0, dev, torch.float32, onsets=onsets)
+    bank0 = model.bank
     _zero_all()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
@@ -1509,8 +1689,11 @@ def phase_lbfgs(dev):
     assert np.isfinite(best).all() and best[-1] < best[0], rec
     assert np.isfinite(rmse) and rmse < rec["rmse_limit"], "separation failed"
     assert all(n > 0 for n in launches.values()), f"a kernel never ran: {launches}"
+    out["captured_sosp14s"], runners = _lbfgs_captured_case("sosp14s", bank0, None, 20)
+    del bank0
 
     amt, events = make_amt(1.0, dev, torch.float32)
+    amt_bank0 = amt.bank
     _zero_all()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1548,17 +1731,23 @@ def phase_lbfgs(dev):
     out["c"] = rec
     assert np.isfinite(abest).all() and np.all(np.diff(abest) <= 0) and abest[-1] < abest[0], rec
     assert np.isfinite(amt.matrix_var).all()
-    return out, model, trained_sub
+    out["captured_amt1s"], _ = _lbfgs_captured_case("amt1s", amt_bank0, None, 20)
+    del amt, amt_bank0
+    out["captured_amt10s"], _ = _lbfgs_captured_case("amt10s", amt_model.bank, 64, 5)
+    return out, model, trained_sub, runners
 
 
-def phase_natgrad(dev) -> dict:
-    """ModGP's other optimizers on the card, f32: (a) the golden fixture,
+def phase_natgrad(dev) -> tuple[dict, Callable]:
+    """ModGP's other optimizers on the card, f32, each captured
+    (``NatgradSteps``, ``LbfgsSteps``): (a) the golden fixture,
     full-batch natgrad_adam (NATGRAD) and L-BFGS (15 iterations), against
     the JAX package's f64 trajectories (tests/torch_lbfgs_goldens.npz)
     within 2e-4 (the fixture's f32 ELBO limit; the port's f32 spread on the
     CPU is printed beside it); (b) the demo (N 16000, M 76) trained by 500
     minibatch-100 natgrad_adam steps (gamma 0.1, lr 0.005, segments of
-    100): source RMSE < 0.05, skipped steps and steps/s."""
+    100): source RMSE < 0.05, skipped steps and steps/s; (c) the demo's
+    steps captured against eager (``_natgrad_captured``).  Returns (the
+    records, (c)'s runs for the profile)."""
     from gpitch_tpu_torch.models import fit_modgp
     from gpitch_tpu_torch.models.natgrad import fit_natgrad_adam
     gold = np.load(LBFGS_GOLDENS)
@@ -1597,7 +1786,60 @@ def phase_natgrad(dev) -> dict:
     assert out["golden_lbfgs_min_rel"] <= out["golden_limit"], out
     assert np.isfinite(out["demo"]["rmse_source"]) and out["demo"]["rmse_source"] < 0.05, \
         "source recovery failed"
-    return out
+    model, x, y, _ = make_modgp_demo(dev)
+    xt = torch.as_tensor(x, dtype=torch.float32, device=dev)
+    yt = torch.as_tensor(y, dtype=torch.float32, device=dev)
+    out["captured"], steps = _natgrad_captured(model, xt, yt, dev, 200)
+    return out, steps
+
+
+def _natgrad_captured(model, x, y, dev, n: int) -> tuple[dict, Callable]:
+    """``fit_natgrad_adam``'s steps (``NatgradSteps``: minibatch 100, gamma
+    0.1, lr 0.005) on the demo, captured (C) and eager (E), each from the
+    model with the batch generator reseeded: a first captured run (3 eager
+    warm-up steps and the capture), a first eager run, then C E E C, each n
+    steps; steps/s of each, the capture's host seconds, and the losses: C
+    against E relative, NaN (skipped steps) at the same places (C must be
+    within E against E and within 1e-5).  Returns (the record, steps(kind,
+    k=n): one more such run of k steps)."""
+    from gpitch_tpu_torch.core.params import copy_params
+    from gpitch_tpu_torch.models.fit import minibatch_fn
+    from gpitch_tpu_torch.models.natgrad import NatgradSteps
+    runs = {}
+    for kind in ("captured", "eager"):
+        batch = minibatch_fn(x, y, 100, torch.Generator(device=dev))
+        runs[kind] = NatgradSteps(copy_params(model), x, y, n, 0.1, x.shape[0], 0.005,
+                                  batch_fn=batch)
+
+    def steps(kind, k=n):
+        run = runs[kind]
+        run.load(model)
+        run.batch_fn.generator.manual_seed(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (run.run if kind == "captured" else run.eager)(k)
+        losses = run.losses[:k].double().cpu().numpy()
+        return k / (time.perf_counter() - t0), losses
+
+    t0 = time.perf_counter()
+    steps("captured")
+    first_s = time.perf_counter() - t0
+    steps("eager")
+    timed = {"captured": [], "eager": []}
+    for kind in ("captured", "eager", "eager", "captured"):
+        timed[kind].append(steps(kind))
+    spread = _rel_nan(timed["eager"][1][1], timed["eager"][0][1])
+    vs = max(_rel_nan(r[1], timed["eager"][0][1]) for r in timed["captured"])
+    out = {"steps": n, "steps_per_s_captured": [r[0] for r in timed["captured"]],
+           "steps_per_s_eager": [r[0] for r in timed["eager"]],
+           "first_captured_run_s": first_s, "capture_s": runs["captured"].capture_s,
+           "skipped": int(np.isnan(timed["captured"][0][1]).sum()),
+           "distinct_losses": int(len(np.unique(timed["captured"][0][1]))),
+           "captured_vs_eager_rel": vs, "eager_vs_eager_rel": spread}
+    emit({"phase": "natgrad", "case": "captured_demo", **out})
+    assert runs["captured"].graph is not None, "no natgrad step was captured"
+    assert vs <= spread and vs <= 1e-5, f"natgrad captured off eager: {vs} ({spread})"
+    return out, steps
 
 
 # --------------------------------------------- fused whiten (kernels 3-5)
@@ -2850,16 +3092,6 @@ def phase_profile(windows) -> None:
         emit(rec)
 
 
-def _lbfgs_window(model, iterations: int) -> dict:
-    """``iterations`` of L-BFGS on the model's bank (a fresh solver from
-    its current state) and the run's counts."""
-    model.optimize(maxiter=iterations, method="lbfgs")
-    info = model.opt_info
-    return {"iterations": info["iterations"],
-            "evaluations": info["trials"] + info["grad_evaluations"]
-            + info["value_evaluations"], "syncs": info["syncs"]}
-
-
 def _captured_windows(captured: dict) -> list:
     """The profile's windows of Adam steps: on each path of the
     captured_step phase, n steps replayed from its captured step, and on
@@ -2900,10 +3132,10 @@ def main() -> int:
     del sosp_model, piano
     torch.cuda.empty_cache()
     phase_modgp(dev)
-    lbfgs, lbfgs_model, lbfgs_sub = phase_lbfgs(dev)
+    lbfgs, _, lbfgs_sub, (lbfgs_cap, lbfgs_eager) = phase_lbfgs(dev, amt_model)
     hmc, (hmc_logprob, hmc_init) = phase_hmc(dev, lbfgs_sub)
     del lbfgs_sub
-    phase_natgrad(dev)
+    _, natgrad_steps = phase_natgrad(dev)
     train = phase_kernel_train(dev)
     dist = phase_distributed(dev, full_losses, full_rows)
     resume = phase_resume(dev, table_bank)
@@ -2911,8 +3143,14 @@ def main() -> int:
     # last: the profiler's tracing may stay attached to the process
     phase_profile(_captured_windows(captured)
                   + [("predict_s", lambda: full_model.predict_s()),
-                     ("3 L-BFGS iterations (222 windows)",
-                      lambda: _lbfgs_window(lbfgs_model, 3)),
+                     ("3 captured L-BFGS iterations (sosp14s, 222 windows)",
+                      lambda: lbfgs_cap.iterations(3)[1]),
+                     ("3 eager L-BFGS iterations (sosp14s, 222 windows)",
+                      lambda: lbfgs_eager.iterations(3, "eager")[1]),
+                     ("50 captured natgrad_adam steps (ModGP demo)",
+                      lambda: natgrad_steps("captured", 50)),
+                     ("20 eager natgrad_adam steps (ModGP demo)",
+                      lambda: natgrad_steps("eager", 20)),
                      ("10 HMC iterations (ModGP, 4 chains, 8 leapfrog steps)",
                       lambda: _hmc_window(hmc_logprob, hmc_init, 10))])
 

@@ -16,7 +16,7 @@ from pathlib import Path
 
 __all__ = ["CSRC_DIR", "BUILD_DIR", "build", "load", "check", "counted",
            "launch_counts", "record_capture", "record_replays", "device_launches",
-           "reset_launches"]
+           "reset_launches", "GraphChain"]
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -42,6 +42,13 @@ SIGNATURES = {
                      "gpitch_fused_whiten_bwd": [_P] * 13 + [_I] * 8 + [_P],
                      "gpitch_fused_whiten_bwd_workspace": [_I] * 3,
                      "gpitch_fused_whiten_splits": [_I] * 6 + [ctypes.POINTER(_I)]},
+    # a graph's top-level nodes; the chain of n parts (graphs, conditions,
+    # the new graph and its executable out); launch (executable, stream); free
+    "graphs": {"gpitch_graph_nodes": [_P, ctypes.POINTER(ctypes.c_longlong)],
+               "gpitch_graph_chain": [_I, ctypes.POINTER(_P), ctypes.POINTER(_P),
+                                      ctypes.POINTER(_P), ctypes.POINTER(_P)],
+               "gpitch_graph_launch": [_P, _P],
+               "gpitch_graph_free": [_P, _P]},
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -166,3 +173,38 @@ def reset_launches() -> None:
     for fn in COUNTED.values():
         fn.launches = 0
     GRAPHS.update(graphs=0, replays=0, recorded={}, replayed={})
+
+
+class GraphChain:
+    """PyTorch CUDA graphs run one after another as one CUDA graph
+    (``csrc/graphs.cu``), each part given as (graph, condition): a graph
+    captured with ``keep_graph=True``, and None or a 0-d bool CUDA tensor.
+    A part with a condition runs only where the tensor holds when the part
+    is reached, decided on the device by a CUDA IF node; the host reads
+    nothing.  ``replay()`` launches the chain on the current stream.  The
+    parts are cloned into the chain, but their memory (the pool of their
+    capture) is theirs: keep the graphs while the chain is used.
+    ``nodes``: the chain's nodes, the parts' included."""
+
+    def __init__(self, parts):
+        self._lib = lib = load("graphs")
+        n = len(parts)
+        graphs = (_P * n)(*[g.raw_cuda_graph() for g, _ in parts])
+        preds = (_P * n)(*[None if c is None else c.data_ptr() for _, c in parts])
+        self._graph, self._exec = _P(), _P()
+        check(lib.gpitch_graph_chain(n, graphs, preds, ctypes.byref(self._graph),
+                                     ctypes.byref(self._exec)), "gpitch_graph_chain")
+        count = ctypes.c_longlong()
+        self.nodes = 0
+        for g, (_, c) in zip(graphs, parts):
+            check(lib.gpitch_graph_nodes(g, ctypes.byref(count)), "gpitch_graph_nodes")
+            self.nodes += count.value + (0 if c is None else 2)
+
+    def replay(self) -> None:
+        import torch
+        stream = torch.cuda.current_stream().cuda_stream
+        check(self._lib.gpitch_graph_launch(self._exec, stream), "gpitch_graph_launch")
+
+    def __del__(self):
+        if self._exec:
+            self._lib.gpitch_graph_free(self._graph, self._exec)

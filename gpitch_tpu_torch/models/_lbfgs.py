@@ -16,18 +16,26 @@ step size, the linesearch's low, high and safe values, done, failed) is a
 every problem still searching proposes its own step size and one batched
 evaluation of value and gradient serves them all; a problem that is done
 keeps its state.  This is what the JAX package gets from ``jax.vmap`` over
-``lbfgs_solve`` (the per-window solvers of a window bank).  Deciding
-whether any problem still searches is one host sync per trial.
+``lbfgs_solve`` (the per-window solvers of a window bank).
+
+``LbfgsSteps`` keeps all of it in static device tensors, with the counts
+on the device, and on the card replays an iteration from CUDA graphs whose
+conditional nodes (CUDA IF nodes) decide on the device whether a problem
+still needs an evaluation or a trial: the counterpart of the JAX package's
+``lax.scan`` over iterations with the linesearch's bounded ``while_loop``
+inside.  The host reads the losses and the counts at a segment's fence.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Callable
 
+import numpy as np
 import torch
 
-__all__ = ["LbfgsState", "lbfgs_run", "LbfgsStats"]
+__all__ = ["LbfgsState", "LbfgsSteps", "lbfgs_run", "LbfgsStats"]
 
 # optax.lbfgs's linesearch: scale_by_zoom_linesearch defaults
 MAX_LINESEARCH_STEPS = 20
@@ -91,7 +99,8 @@ class LbfgsStats:
     """Counts of a run: iterations, linesearch trials (one batched value and
     gradient each), other batched evaluations (of value and gradient where
     a carried value was not finite; of the value alone for the final
-    state), and host syncs."""
+    state), host reads (fences, and the conditionals of eager iterations),
+    and the trials of each iteration."""
 
     iterations: int = 0
     trials: int = 0
@@ -201,37 +210,175 @@ def _zoom_middle(s: dict) -> tuple[torch.Tensor, torch.Tensor]:
     return middle, delta <= INTERVAL_THRESHOLD
 
 
-def _linesearch(f: ValueAndGrad, w, u, value, grad, searching, stats: LbfgsStats,
-                nonfinite: torch.Tensor):
-    """optax's zoom linesearch from w along u for every problem that is
-    ``searching`` (the others start done and are left as they are).
-    Returns (step size, value and gradient there), each per problem; marks
-    in ``nonfinite`` the problems a trial of which was not finite."""
-    zero = torch.zeros_like(value)
-    slope = _vdot(u, grad)
-    inf = torch.full_like(value, float("inf"))
-    s = {"count": torch.zeros_like(value, dtype=torch.int64),
-         "stepsize": zero, "value": value, "grad": grad, "slope": slope,
-         "decrease_error": inf,
-         "interval_found": torch.zeros_like(searching), "done": ~searching,
-         "failed": torch.zeros_like(searching),
-         "low": zero, "value_low": value, "slope_low": slope,
-         "high": zero, "value_high": value, "slope_high": slope,
-         "cubic_ref": zero, "value_cubic_ref": value,
-         "safe_stepsize": zero, "safe_value": value, "safe_grad": grad}
-    value_init, slope_init = value, slope
-    active = searching
-    trials = 0
-    stats.syncs += 1
-    while bool(active.any()):
+
+_LS_FLOAT = ("stepsize", "value", "slope", "decrease_error", "low", "value_low",
+             "slope_low", "high", "value_high", "slope_high", "cubic_ref",
+             "value_cubic_ref", "safe_stepsize", "safe_value")
+_LS_BOOL = ("interval_found", "done", "failed")
+_LS_ROWS = ("grad", "safe_grad")
+
+
+def _readback(*tensors: torch.Tensor) -> list:
+    """The tensors on the host, as numpy arrays, after one wait: on the card
+    each is copied into pinned memory without blocking, then the stream is
+    synchronized once."""
+    if not tensors[0].is_cuda:
+        return [t.detach().numpy().copy() for t in tensors]
+    host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
+    for h, t in zip(host, tensors):
+        h.copy_(t, non_blocking=True)
+    torch.cuda.current_stream(tensors[0].device).synchronize()
+    return [h.numpy() for h in host]
+
+
+class LbfgsSteps:
+    """The counterpart of the JAX package's compiled L-BFGS segment: the
+    solver's state, the linesearch's, the best-visited point, the losses
+    (B, num_steps) and the counts live in static device tensors, indexed by
+    an iteration count on the device, so that an iteration reads nothing
+    from the host and writes nothing to it.
+
+    An iteration is five parts: ``need`` (which problems carry a value that
+    is not finite); ``evaluation``, where any does (optax's
+    ``value_and_grad_from_state``); ``head`` (the loss written at the count,
+    the best-visited update, the direction and the linesearch's start);
+    ``trial``, ``MAX_LINESEARCH_STEPS`` times while any problem searches
+    (one batched evaluation at w + step u and the zoom's update of every
+    problem still searching; a problem that is done keeps its state bit
+    for bit); ``tail`` (the update, the state's select, the count + 1).
+    ``evaluation`` and ``trial`` leave everything as it was when no problem
+    needs them, so running them anyway (the masked form) equals skipping
+    them (the early-exit form).
+
+    On the card the first ``WARMUP`` iterations run eagerly on a side
+    stream (each condition a host read), as ``AdamSteps`` warms up; then
+    each part is captured as a CUDA graph, all in one memory pool, and
+    chained (``linalg._cuda.GraphChain``) into three graphs: need ->
+    [IF any_need] evaluation -> head; [IF any_active] trial; tail.  The
+    device decides each condition (a CUDA IF node), so an iteration is a
+    replay of the first, ``MAX_LINESEARCH_STEPS`` replays of the second and
+    one of the third, and a trial whose condition is false launches nothing:
+    the counterpart of the vmapped ``while_loop`` that stops when the last
+    problem is done.  A capture that fails raises.  On the CPU every
+    iteration runs eagerly in the early-exit form, the plain version of the
+    capture.  The host reads the losses and the counts at ``read`` (a
+    segment's fence) and nothing else; ``stats.syncs`` counts every host
+    read, the eager conditions' included.  ``load`` puts another start into
+    the static tensors, so one capture serves every chunk of a window bank.
+    """
+
+    WARMUP = 1
+
+    def __init__(self, f: ValueAndGrad, fvalue: Value, w: torch.Tensor, num_steps: int,
+                 memory_size: int = 20, grad_tol: float = 1e-9,
+                 stats: LbfgsStats | None = None):
+        self.f, self.fvalue, self.grad_tol = f, fvalue, grad_tol
+        self.stats = LbfgsStats() if stats is None else stats
+        b = w.shape[0]
+        self.num_steps = num_steps
+        self.w = w.detach().clone()
+        fresh = LbfgsState.init(self.w, memory_size)     # its rows share one zeros
+        self.state = LbfgsState(**{f.name: getattr(fresh, f.name).clone()
+                                   for f in dataclasses.fields(fresh)})
+        self.best_w, self.best_v = self.w.clone(), self.w.new_full((b,), float("inf"))
+        flag = torch.zeros(b, dtype=torch.bool, device=w.device)
+        self.nonfinite, self.need, self.searching, self.active = (flag.clone() for _ in range(4))
+        self.any_need, self.any_active = flag[0].clone(), flag[0].clone()
+        self.losses = w.new_zeros((b, num_steps))
+        self.i = torch.zeros((), dtype=torch.int64, device=w.device)
+        self.active_steps = torch.full_like(self.i, num_steps)
+        # iterations, linesearch trials, evaluations of value and gradient
+        # where a carried value was not finite, of the value alone
+        self.counts = torch.zeros(4, dtype=torch.int64, device=w.device)
+        self.trials = torch.zeros(num_steps, dtype=torch.int64, device=w.device)
+        self.value, self.value_init, self.slope_init = (w.new_zeros(b) for _ in range(3))
+        self.grad, self.u = torch.zeros_like(w), torch.zeros_like(w)
+        self.memory = (torch.zeros_like(self.state.diff_params),
+                       torch.zeros_like(self.state.diff_updates),
+                       torch.zeros_like(self.state.weights))
+        self.s = {"count": torch.zeros_like(self.i.expand(b))}
+        self.s.update({k: w.new_zeros(b) for k in _LS_FLOAT})
+        self.s.update({k: flag.clone() for k in _LS_BOOL})
+        self.s.update({k: torch.zeros_like(w) for k in _LS_ROWS})
+        self.parts = {}                # part -> its captured graph
+        self.graphs = None             # the head, the trial and the tail chains
+        self.capture_s = 0.0           # host seconds of the captures and the chains
+        self.calls = {}                # part -> {kernel wrapper: calls in it}
+        self.eager_iterations = 0
+        self.counted = np.zeros(4, dtype=np.int64)     # counts as last read
+        self.replayed = np.zeros(4, dtype=np.int64)    # counts whose replays are recorded
+
+    # ------------------------------------------------------------ the parts
+    def _if(self, pred: torch.Tensor, body: Callable[[], None]) -> bool:
+        """``body`` where the 0-d bool ``pred`` holds, read on the host:
+        the eager form of a CUDA IF node.  Returns whether it ran."""
+        self.stats.syncs += 1
+        if bool(pred):
+            body()
+            return True
+        return False
+
+    def _evaluate_need(self) -> None:
+        v, g = self.f(self.w)
+        self.value.copy_(torch.where(self.need, v, self.value))
+        self.grad.copy_(_where(self.need, g, self.grad))
+        self.counts[2:3].add_(self.any_need)
+
+    def _head_need(self) -> None:
+        st = self.state
+        torch.logical_not(torch.isfinite(st.value), out=self.need)
+        self.any_need.copy_(self.need.any())
+        self.value.copy_(st.value)
+        self.grad.copy_(st.grad)
+
+    def _head(self) -> None:
+        st, value, grad = self.state, self.value, self.grad
+        self.losses.index_copy_(1, self.i.reshape(1), value[:, None])
+        self.nonfinite.logical_or_(~torch.isfinite(value))
+        better = torch.isfinite(value) & (value < self.best_v)
+        self.best_w.copy_(_where(better, self.w, self.best_w))
+        self.best_v.copy_(torch.where(better, value, self.best_v))
+        run = self.i < self.active_steps
+        self.counts[0:1].add_(run)
+        torch.logical_and(torch.sqrt(_vdot(grad, grad)) > self.grad_tol, run,
+                          out=self.searching)
+        direction, memory = _direction(grad, st, self.w)
+        torch.mul(direction, -1.0, out=self.u)
+        for static, new in zip(self.memory, memory):
+            static.copy_(new)
+        # the linesearch's start: step 0, the value and slope at w
+        s, slope = self.s, _vdot(self.u, grad)
+        self.value_init.copy_(value)
+        self.slope_init.copy_(slope)
+        for key in ("count", "stepsize", "low", "high", "cubic_ref", "safe_stepsize"):
+            s[key].zero_()
+        for key in ("value", "value_low", "value_high", "value_cubic_ref", "safe_value"):
+            s[key].copy_(value)
+        for key in ("slope", "slope_low", "slope_high"):
+            s[key].copy_(slope)
+        s["grad"].copy_(grad)
+        s["safe_grad"].copy_(grad)
+        s["decrease_error"].fill_(float("inf"))
+        s["interval_found"].zero_()
+        s["failed"].zero_()
+        torch.logical_not(self.searching, out=s["done"])
+        self.active.copy_(self.searching)
+        self.any_active.copy_(self.active.any())
+
+    def _trial(self) -> None:
+        """One trial of optax's zoom linesearch for every problem still
+        searching (``active``); the others keep their state."""
+        s, u, active = self.s, self.u, self.active
+        value_init, slope_init = self.value_init, self.slope_init
         found = s["interval_found"]
         middle, too_small = _zoom_middle(s)
-        grown = torch.where(s["count"] == 0, torch.ones_like(value),
+        grown = torch.where(s["count"] == 0, torch.ones_like(value_init),
                             INCREASE_FACTOR * s["stepsize"])
         step = torch.where(found, middle, grown)
-        vt, gt = f(w + step[:, None] * u)
-        trials += 1
-        nonfinite |= active & ~torch.isfinite(vt)
+        vt, gt = self.f(self.w + step[:, None] * u)
+        self.counts[1:2].add_(self.any_active)
+        self.trials.index_add_(0, self.i.reshape(1), self.any_active.reshape(1).long())
+        self.nonfinite.logical_or_(active & ~torch.isfinite(vt))
         st_ = _vdot(gt, u)
         dec = _decrease_error(step, vt, st_, value_init, slope_init)
         err = torch.maximum(dec, _curvature_error(st_, slope_init))
@@ -283,12 +430,152 @@ def _linesearch(f: ValueAndGrad, w, u, value, grad, searching, stats: LbfgsStats
         new["value"] = torch.where(fall, new["safe_value"], new["value"])
         new["grad"] = _where(fall, new["safe_grad"], new["grad"])
 
-        s = {key: _where(active, new[key], old) for key, old in s.items()}
-        active = ~(s["done"] | s["failed"])
-        stats.syncs += 1
-    stats.trials += trials
-    stats.trials_per_iteration.append(trials)
-    return s["stepsize"], s["value"], s["grad"]
+        for key, old in s.items():
+            old.copy_(_where(active, new[key], old))
+        torch.logical_not(s["done"] | s["failed"], out=active)
+        self.any_active.copy_(active.any())
+
+    def _tail(self) -> None:
+        st, s, w = self.state, self.s, self.w
+        update = s["stepsize"][:, None] * self.u
+        ok = self.searching & torch.isfinite(update).all(-1)
+        dwm, dum, wm = self.memory
+        new = LbfgsState(count=st.count + 1, params=w, updates=self.grad,
+                         diff_params=dwm, diff_updates=dum, weights=wm,
+                         value=s["value"], grad=s["grad"]).where(ok, st)
+        w_new = _where(ok, w + update, w)
+        for f in dataclasses.fields(st):
+            getattr(st, f.name).copy_(getattr(new, f.name))
+        w.copy_(w_new)
+        self.i.add_(1)
+
+    def iteration(self) -> None:
+        """One iteration run eagerly, in the early-exit form: the plain
+        version of a captured iteration."""
+        self._head_need()
+        self._if(self.any_need, self._evaluate_need)
+        self._head()
+        for _ in range(MAX_LINESEARCH_STEPS):
+            if not self._if(self.any_active, self._trial):
+                break
+        self._tail()
+
+    # ------------------------------------------------------------ running
+    def run(self, n: int) -> None:
+        """``n`` more iterations, with no host fence on the card once the
+        iteration is captured."""
+        with torch.no_grad():
+            if not self.w.is_cuda:
+                for _ in range(n):
+                    self.iteration()
+                return
+            if self.graphs is None:
+                warm = min(n, self.WARMUP - self.eager_iterations)
+                if warm > 0:
+                    side = torch.cuda.Stream(self.w.device)
+                    side.wait_stream(torch.cuda.current_stream())
+                    with torch.cuda.stream(side):
+                        for _ in range(warm):
+                            self.iteration()
+                    torch.cuda.current_stream().wait_stream(side)
+                    self.eager_iterations += warm
+                    n -= warm
+                if n == 0:
+                    return
+                self._capture()
+            head, trial, tail = self.graphs
+            for _ in range(n):
+                head.replay()
+                for _ in range(MAX_LINESEARCH_STEPS):
+                    trial.replay()
+                tail.replay()
+
+    def _capture(self) -> None:
+        from ..linalg import _cuda
+        # what the eager iterations counted: the replays' launches are
+        # recorded from the counts that follow (``read``)
+        self.replayed = _readback(self.counts)[0].copy()
+        self.stats.syncs += 1
+        pool = torch.cuda.graph_pool_handle()
+        parts = self.parts
+        t0 = time.perf_counter()
+        for name, part in (("need", self._head_need), ("evaluation", self._evaluate_need),
+                           ("head", self._head), ("trial", self._trial),
+                           ("tail", self._tail)):
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
+            before = _cuda.launch_counts()
+            with torch.cuda.graph(graph, pool=pool):
+                part()
+            after = _cuda.launch_counts()
+            self.calls[name] = {k: n - before.get(k, 0) for k, n in after.items()
+                                if n != before.get(k, 0)}
+            _cuda.record_capture(self.calls[name])
+            parts[name] = graph
+        self.graphs = (_cuda.GraphChain([(parts["need"], None),
+                                         (parts["evaluation"], self.any_need),
+                                         (parts["head"], None)]),
+                       _cuda.GraphChain([(parts["trial"], self.any_active)]),
+                       _cuda.GraphChain([(parts["tail"], None)]))
+        self.capture_s = time.perf_counter() - t0
+
+    @torch.no_grad()
+    def finish(self) -> None:
+        """The value at the current point, evaluated once and compared with
+        the best visited (``lbfgs_run``'s end of a run)."""
+        final = self.fvalue(self.w)
+        self.counts[3:4].add_(1)
+        better = torch.isfinite(final) & (final < self.best_v)
+        self.best_w.copy_(_where(better, self.w, self.best_w))
+        self.best_v.copy_(torch.where(better, final, self.best_v))
+
+    def read(self, start: int, stop: int, *more: torch.Tensor) -> list:
+        """The host fence: losses[:, start:stop], the counts and ``more``
+        read in one wait; the counts go into ``stats`` (with the trials of
+        iterations start..stop-1), and on the card the launches of the
+        conditionals' bodies that ran in replays are recorded.  Returns
+        [losses, *more] as numpy."""
+        from ..linalg import _cuda
+        n = stop - start
+        host = _readback(self.losses[:, start:stop], self.counts,
+                         self.trials[start:stop], *more)
+        counts = host[1]
+        delta = counts - self.counted
+        self.counted = counts.copy()
+        st = self.stats
+        st.iterations += int(delta[0])
+        st.trials += int(delta[1])
+        st.grad_evaluations += int(delta[2])
+        st.value_evaluations += int(delta[3])
+        # iterations from ``active_steps`` on count no trials and no iteration
+        st.trials_per_iteration += [int(t) for t in host[2][:min(n, int(delta[0]))]]
+        st.syncs += 1
+        if self.graphs is not None:
+            ran = counts - self.replayed
+            self.replayed = counts.copy()
+            _cuda.record_replays(self.calls["trial"], int(ran[1]))
+            _cuda.record_replays(self.calls["evaluation"], int(ran[2]))
+        return [host[0]] + host[3:]
+
+    @torch.no_grad()
+    def load(self, w: torch.Tensor, state: LbfgsState | None = None,
+             best: tuple[torch.Tensor, torch.Tensor] | None = None,
+             active_steps: int | None = None) -> None:
+        """A new start in the static tensors: the point ``w``, the solver's
+        ``state`` (fresh when None), the best visited (``w`` and +inf when
+        None), no problem marked non-finite, the iteration count 0 and the
+        iterations from ``active_steps`` on frozen."""
+        self.w.copy_(w)
+        fresh = LbfgsState.init(self.w, self.state.weights.shape[1]) if state is None else state
+        for f in dataclasses.fields(self.state):
+            getattr(self.state, f.name).copy_(getattr(fresh, f.name))
+        best_w, best_v = (w, torch.full_like(self.best_v, float("inf"))) if best is None else best
+        self.best_w.copy_(best_w)
+        self.best_v.copy_(best_v)
+        self.nonfinite.zero_()
+        self.losses.zero_()
+        self.trials.zero_()
+        self.i.zero_()
+        self.active_steps.fill_(self.num_steps if active_steps is None else active_steps)
 
 
 # ------------------------------------------------------------ the solver
@@ -298,55 +585,20 @@ def lbfgs_run(f: ValueAndGrad, fvalue: Value, w: torch.Tensor, num_steps: int,
               best: tuple[torch.Tensor, torch.Tensor] | None = None,
               stats: LbfgsStats | None = None, nonfinite: torch.Tensor | None = None):
     """``num_steps`` L-BFGS iterations from w (B, D), each problem on its
-    own.  The loss recorded at step i is the value before update i.  A
-    problem freezes once its gradient norm is <= ``grad_tol`` or its update
-    is not finite, and every problem at step ``active_steps``.  ``best``
-    (best_w, best_v) carries the best-visited point across calls; the final
-    state's own value is evaluated once and compared too.  ``nonfinite``
-    (B,) bool, when given, is marked for every problem that meets a value
-    that is not finite.  Returns (w, losses (B, num_steps), state,
-    (best_w, best_v), stats)."""
-    stats = LbfgsStats() if stats is None else stats
-    if nonfinite is None:
-        nonfinite = torch.zeros(w.shape[0], dtype=torch.bool, device=w.device)
-    state = LbfgsState.init(w, memory_size) if state is None else state
-    active = num_steps if active_steps is None else active_steps
-    if best is None:
-        best = (w, torch.full_like(w[:, 0], float("inf")))
-    best_w, best_v = best
-    losses = w.new_empty((w.shape[0], num_steps))
-    with torch.no_grad():
-        for i in range(num_steps):
-            # value_and_grad_from_state: the carried value and gradient
-            # unless the carried value is not finite
-            need = ~torch.isfinite(state.value)
-            stats.syncs += 1
-            value, grad = state.value, state.grad
-            if bool(need.any()):
-                v, g = f(w)
-                stats.grad_evaluations += 1
-                value, grad = torch.where(need, v, value), _where(need, g, grad)
-            losses[:, i] = value
-            nonfinite |= ~torch.isfinite(value)
-            better = torch.isfinite(value) & (value < best_v)
-            best_w, best_v = _where(better, w, best_w), torch.where(better, value, best_v)
-            if i >= active:
-                continue
-            stats.iterations += 1
-            searching = torch.sqrt(_vdot(grad, grad)) > grad_tol
-            direction, (dwm, dum, wm) = _direction(grad, state, w)
-            u = -1.0 * direction
-            lr, fval, fgrad = _linesearch(f, w, u, value, grad, searching, stats,
-                                          nonfinite)
-            update = lr[:, None] * u
-            ok = searching & torch.isfinite(update).all(-1)
-            new = LbfgsState(count=state.count + 1, params=w, updates=grad,
-                             diff_params=dwm, diff_updates=dum, weights=wm,
-                             value=fval, grad=fgrad)
-            w = _where(ok, w + update, w)
-            state = new.where(ok, state)
-        final = fvalue(w)
-        stats.value_evaluations += 1
-        better = torch.isfinite(final) & (final < best_v)
-        best_w, best_v = _where(better, w, best_w), torch.where(better, final, best_v)
-    return w, losses, state, (best_w, best_v), stats
+    own (``LbfgsSteps``: captured on the card, eager on the CPU).  The loss
+    recorded at step i is the value before update i.  A problem freezes
+    once its gradient norm is <= ``grad_tol`` or its update is not finite,
+    and every problem at step ``active_steps``.  ``best`` (best_w, best_v)
+    carries the best-visited point across calls; the final state's own
+    value is evaluated once and compared too.  ``nonfinite`` (B,) bool,
+    when given, is marked for every problem that meets a value that is not
+    finite.  Returns (w, losses (B, num_steps), state, (best_w, best_v),
+    stats)."""
+    run = LbfgsSteps(f, fvalue, w, num_steps, memory_size, grad_tol, stats)
+    run.load(w, state, best, active_steps)
+    run.run(num_steps)
+    run.finish()
+    run.read(0, num_steps)
+    if nonfinite is not None:
+        nonfinite |= run.nonfinite
+    return run.w, run.losses, run.state, (run.best_w, run.best_v), run.stats

@@ -18,9 +18,10 @@ reproduce, so minibatch trajectories of the two packages differ; full-batch
 ones agree.
 
 ``lbfgs_solve`` and ``fit_lbfgs`` run the batched L-BFGS of ``_lbfgs``
-(optax's L-BFGS and zoom linesearch, written out) on a model's trainable
-raw leaves, as one problem; the window bank runs one problem per window
-(``pipelines.windowed_sgpr``).  The returned model is the best-visited
+(optax's L-BFGS and zoom linesearch, written out; on the card an iteration
+is a replay of captured CUDA graphs, ``_lbfgs.LbfgsSteps``) on a model's
+trainable raw leaves, as one problem; the window bank runs one problem per
+window (``pipelines.windowed_sgpr``).  The returned model is the best-visited
 state, and the caller's model is left unchanged.
 """
 
@@ -36,8 +37,8 @@ from ..core.params import Param, copy_params, map_params, named_params, trainabl
 from ..linalg import _cuda
 from ._lbfgs import lbfgs_run
 
-__all__ = ["Adam", "AdamSteps", "adam_step_fn", "minibatch_fn", "adam_segments",
-           "first_segment_excess",
+__all__ = ["Adam", "CapturedSteps", "AdamSteps", "adam_step_fn", "minibatch_fn",
+           "adam_segments", "first_segment_excess",
            "fit_adam", "fit_adam_segmented", "fit_adam_timed", "ParamRows",
            "lbfgs_solve", "fit_lbfgs", "fit_modgp"]
 
@@ -109,13 +110,19 @@ class Adam:
         return params, m, v
 
     @torch.no_grad()
-    def commit(self, params, m, v) -> None:
+    def commit(self, params, m, v, ok: torch.Tensor | None = None) -> None:
         """Take a proposed step: the params, the moments and one more count,
-        all in place."""
+        all in place.  With ``ok`` (a 0-d bool on the leaves' device) the
+        step is taken only where it holds, decided on the device: otherwise
+        every leaf, moment and the count keep their values."""
+        if ok is not None:
+            params, m, v = ([torch.where(ok, a, b) for a, b in zip(new, old)]
+                            for new, old in ((params, self.params), (m, self.m),
+                                             (v, self.v)))
         torch._foreach_copy_(self.params, params)
         torch._foreach_copy_(self.m, m)
         torch._foreach_copy_(self.v, v)
-        self.t.add_(1)
+        self.t.add_(1 if ok is None else ok)
 
     @torch.no_grad()
     def reset(self) -> None:
@@ -161,12 +168,11 @@ def minibatch_fn(x: torch.Tensor, y: torch.Tensor, size: int,
     return batch_fn
 
 
-class AdamSteps:
-    """The counterpart of the JAX package's jitted Adam segment
-    (``fit_adam_segmented``): Adam on ``model``'s trainable leaves, trained
-    in place, with the count on the device and the loss of step t written
-    at index t of ``losses`` (``num_steps`` long), so that a step reads
-    nothing from the host and writes nothing to it.
+class CapturedSteps:
+    """Steps that read nothing from the host, run as the JAX package runs a
+    compiled segment.  A subclass gives ``step()``, which writes its
+    results into static tensors and its loss at the step count into
+    ``losses``, and draws its batch, if any, from ``batch_fn()``.
 
     On the card the first ``WARMUP`` steps run eagerly on a side stream, as
     steps of the trajectory: they fill what a step reads once (cuBLAS's
@@ -175,24 +181,13 @@ class AdamSteps:
     of JAX's one compile, and every later step replays it; a minibatch
     draw's generator is registered with the graph, so each replay draws the
     next batch.  A capture that fails raises.  On the CPU every step runs
-    eagerly, the plain version of the capture.  ``load`` puts another model
-    of the same structure into the static leaves with a fresh Adam state,
-    so one capture serves every chunk of a window bank, as one executable
-    serves them in the JAX package.  The fits hand it a copy of the caller's
-    model: leaves that a live autograd graph of other steps still holds
-    would tie the capture to the stream those steps ran on.
+    eagerly, the plain version of the capture.
     """
 
     WARMUP = 3
 
-    def __init__(self, model, loss_fn: Callable, num_steps: int,
-                 learning_rate: float, batch_fn: Callable | None = None):
-        self.model = model
-        self.loss_fn, self.batch_fn = loss_fn, batch_fn
-        self.leaves = [p.raw for _, p in named_params(model)]
-        self.optimizer = Adam(trainable_tensors(model), lr=learning_rate)
-        p = self.optimizer.params[0]
-        self.losses = torch.zeros(num_steps, dtype=p.dtype, device=p.device)
+    def __init__(self, losses: torch.Tensor, batch_fn: Callable | None = None):
+        self.losses, self.batch_fn = losses, batch_fn
         self.at = 0                    # the count, as the host knows it
         self.eager_steps = 0
         self.graph = None
@@ -200,17 +195,7 @@ class AdamSteps:
         self.calls = {}                # kernel wrapper -> its calls in the graph
 
     def step(self) -> None:
-        """One step: the loss and its gradient, the loss written at the
-        count, then Adam (which adds one to the count)."""
-        opt = self.optimizer
-        opt.zero_grad()
-        batch = () if self.batch_fn is None else self.batch_fn()
-        loss = self.loss_fn(self.model, *batch)
-        loss.backward()
-        with torch.no_grad():
-            self.losses.index_copy_(0, opt.t.reshape(1),
-                                    loss.detach().reshape(1).to(self.losses.dtype))
-        opt.step()
+        raise NotImplementedError
 
     def eager(self, n: int) -> None:
         """``n`` steps run eagerly: the plain version of the captured step,
@@ -243,7 +228,6 @@ class AdamSteps:
         _cuda.record_replays(self.calls, n)
 
     def _capture(self) -> None:
-        self.optimizer.zero_grad()
         graph = torch.cuda.CUDAGraph()
         generator = getattr(self.batch_fn, "generator", None)
         if generator is not None:
@@ -258,6 +242,46 @@ class AdamSteps:
                       if n != before.get(k, 0)}
         _cuda.record_capture(self.calls)
         self.graph = graph
+
+
+class AdamSteps(CapturedSteps):
+    """The counterpart of the JAX package's jitted Adam segment
+    (``fit_adam_segmented``): Adam on ``model``'s trainable leaves, trained
+    in place, with the count on the device and the loss of step t written
+    at index t of ``losses`` (``num_steps`` long), so that a step reads
+    nothing from the host and writes nothing to it; on the card one step
+    captured and replayed (``CapturedSteps``).  ``load`` puts another model
+    of the same structure into the static leaves with a fresh Adam state,
+    so one capture serves every chunk of a window bank, as one executable
+    serves them in the JAX package.  The fits hand it a copy of the caller's
+    model: leaves that a live autograd graph of other steps still holds
+    would tie the capture to the stream those steps ran on.
+    """
+
+    def __init__(self, model, loss_fn: Callable, num_steps: int,
+                 learning_rate: float, batch_fn: Callable | None = None):
+        self.model, self.loss_fn = model, loss_fn
+        self.leaves = [p.raw for _, p in named_params(model)]
+        self.optimizer = Adam(trainable_tensors(model), lr=learning_rate)
+        p = self.optimizer.params[0]
+        super().__init__(torch.zeros(num_steps, dtype=p.dtype, device=p.device), batch_fn)
+
+    def step(self) -> None:
+        """One step: the loss and its gradient, the loss written at the
+        count, then Adam (which adds one to the count)."""
+        opt = self.optimizer
+        opt.zero_grad()
+        batch = () if self.batch_fn is None else self.batch_fn()
+        loss = self.loss_fn(self.model, *batch)
+        loss.backward()
+        with torch.no_grad():
+            self.losses.index_copy_(0, opt.t.reshape(1),
+                                    loss.detach().reshape(1).to(self.losses.dtype))
+        opt.step()
+
+    def _capture(self) -> None:
+        self.optimizer.zero_grad()
+        super()._capture()
 
     def segments(self, num_steps: int, segment: int):
         """``num_steps`` steps from the count on, with one host fence (the
@@ -362,7 +386,10 @@ class ParamRows:
     the gradient of their sum gives each window's gradient); without it the
     model is one problem (B = 1).  Untrainable leaves take no part, which
     gives the directions and norms of the JAX package's
-    ``zero_untrainable_grads``."""
+    ``zero_untrainable_grads``.  The leaves are static, and so are the
+    values and gradients the functions return (written in place, read
+    before the next call): a CUDA graph of a solver that calls them reads
+    and writes the same memory at every replay."""
 
     def __init__(self, model, loss_fn: Callable, batched: bool):
         self.model = copy_params(model)
@@ -370,11 +397,20 @@ class ParamRows:
         self.leaves = trainable_tensors(self.model)
         self.b = self.leaves[0].shape[0] if batched else 1
         self.sizes = [t.numel() // self.b for t in self.leaves]
+        w = self.rows()
+        self.value_out, self.grad_out = w.new_empty(self.b), torch.empty_like(w)
 
     def rows(self, model=None) -> torch.Tensor:
         """The (B, D) rows of ``model`` (this copy when None)."""
         leaves = self.leaves if model is None else trainable_tensors(model)
         return torch.cat([t.detach().reshape(self.b, -1) for t in leaves], 1)
+
+    @torch.no_grad()
+    def load(self, model) -> None:
+        """Every raw leaf of ``model`` (this copy's structure and shapes)
+        into this copy's leaves."""
+        for (_, mine), (_, p) in zip(named_params(self.model), named_params(model)):
+            mine.raw.copy_(p.raw)
 
     def _load(self, w: torch.Tensor) -> None:
         with torch.no_grad():
@@ -387,13 +423,15 @@ class ParamRows:
             loss = self.loss_fn(self.model)
             grads = torch.autograd.grad(loss.sum(), self.leaves, allow_unused=True)
         grads = [torch.zeros_like(t) if g is None else g for t, g in zip(self.leaves, grads)]
-        return (loss.detach().reshape(self.b),
-                torch.cat([g.reshape(self.b, -1) for g in grads], 1))
+        with torch.no_grad():
+            self.value_out.copy_(loss.reshape(self.b))
+            torch.cat([g.reshape(self.b, -1) for g in grads], 1, out=self.grad_out)
+        return self.value_out, self.grad_out
 
     def value(self, w: torch.Tensor) -> torch.Tensor:
         self._load(w)
         with torch.no_grad():
-            return self.loss_fn(self.model).reshape(self.b)
+            return self.value_out.copy_(self.loss_fn(self.model).reshape(self.b))
 
     def model_at(self, w: torch.Tensor):
         """A new model with the trainable leaves of ``w``."""

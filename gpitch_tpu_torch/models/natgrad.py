@@ -17,16 +17,17 @@ model is skipped.
 ``fit_natgrad_adam`` alternates a natural step on the banks with an Adam
 step on the hyperparameters.  A skipped step leaves the model and Adam's
 moments and count as they were while the schedule's step index advances,
-as the JAX package's ``pick(st2, st)`` does.  Deciding that on the host is
-one sync per step; the step is host-bound (the device idles between its
-launches), so the sync costs little, and Adam's bias corrections stay the
-host-side ones of ``fit.Adam``.
+as the JAX package's ``pick(st2, st)`` does.  ``NatgradSteps`` runs the
+steps as the JAX package's jitted scan does: the step index, the gamma
+scale and the skip decision are device tensors, a skipped step keeps every
+leaf through ``torch.where``, and on the card one step is captured as a
+CUDA graph and replayed (``fit.CapturedSteps``); the host reads the losses
+at a segment's fence.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Callable
 
 import numpy as np
@@ -34,9 +35,9 @@ import torch
 
 from ..core.params import Param, copy_params, named_params
 from ..linalg.ops import add_jitter, safe_cholesky
-from .fit import Adam
+from .fit import Adam, CapturedSteps, _sqrt_rn
 
-__all__ = ["natgrad_step", "natgrad_polish", "fit_natgrad_adam"]
+__all__ = ["natgrad_step", "natgrad_polish", "fit_natgrad_adam", "NatgradSteps"]
 
 _BANKS = ("q_mu_act", "q_sqrt_act", "q_mu_com", "q_sqrt_com")
 
@@ -81,10 +82,10 @@ def _wrap(p: Param, value: torch.Tensor) -> Param:
     return Param.wrap(p.transform.inverse_tensor(value), p.transform, p.trainable)
 
 
-def natgrad_step(model, x, y, gamma: float = 0.1, num_data: int | None = None):
-    """One natural-gradient step on both variational banks of a ModGP
-    (activation and component); the hyperparameters are untouched.
-    Returns a new model."""
+def _natgrad_values(model, x, y, gamma, num_data: int | None = None):
+    """The constrained values (q_mu_act, q_sqrt_act, q_mu_com, q_sqrt_com)
+    after one natural-gradient step of size ``gamma`` (a float, or a 0-d
+    tensor on the model's device) on both variational banks."""
     mu_a = model.q_mu_act.value.detach()
     mu_c = model.q_mu_com.value.detach()
     La = torch.tril(model.q_sqrt_act.value.detach())
@@ -101,29 +102,125 @@ def natgrad_step(model, x, y, gamma: float = 0.1, num_data: int | None = None):
     with torch.no_grad():
         mu_a2, La2 = _nat_update_bank(mu_a, La, g_ma, _sym(g_Sa), gamma)
         mu_c2, Lc2 = _nat_update_bank(mu_c, Lc, g_mc, _sym(g_Sc), gamma)
+    return mu_a2, La2, mu_c2, Lc2
+
+
+def natgrad_step(model, x, y, gamma: float = 0.1, num_data: int | None = None):
+    """One natural-gradient step on both variational banks of a ModGP
+    (activation and component); the hyperparameters are untouched.
+    Returns a new model."""
+    values = _natgrad_values(model, x, y, gamma, num_data)
 
     def param(p: Param, value):
         return Param(p.transform.inverse_tensor(value), p.transform, p.trainable)
 
-    return dataclasses.replace(
-        model, q_mu_act=param(model.q_mu_act, mu_a2),
-        q_sqrt_act=param(model.q_sqrt_act, La2),
-        q_mu_com=param(model.q_mu_com, mu_c2),
-        q_sqrt_com=param(model.q_sqrt_com, Lc2))
+    return dataclasses.replace(model, **{b: param(getattr(model, b), v)
+                                         for b, v in zip(_BANKS, values)})
 
 
-def _all_finite(model, loss, extra=()) -> bool:
+def _finite(model, loss, extra=()) -> torch.Tensor:
     """Whether the loss and every raw leaf of the model (and ``extra``)
-    are finite: one host sync."""
+    are finite: a 0-d bool on their device."""
     flat = [loss.detach().reshape(-1)] + [t.detach().reshape(-1) for t in extra]
     flat += [p.raw.detach().reshape(-1) for _, p in named_params(model)]
-    return bool(torch.isfinite(torch.cat(flat)).all())
+    return torch.isfinite(torch.cat(flat)).all()
 
 
-def _backoff(gscale: float, finite: bool) -> float:
-    """The step-size scale: x1.05 (at most 1) after a finite step, x0.5 (at
-    least 1e-3) after a skipped one."""
-    return min(gscale * 1.05, 1.0) if finite else max(gscale * 0.5, 1e-3)
+class NatgradSteps(CapturedSteps):
+    """Natural-gradient steps on ``model``'s variational banks, trained in
+    place, as the JAX package's scans run them: ``fit_natgrad_adam``'s
+    (``learning_rate`` given: gamma on its ramp and decay, ``gamma_warmup``
+    steps, and an Adam step on the hyperparameters at the model after the
+    natural step, on ``batch_fn()``'s minibatch when given) or
+    ``natgrad_polish``'s (``learning_rate`` None: gamma fixed, the full
+    batch, the hyperparameters frozen).
+
+    The step index, the gamma scale and the decision to skip a step are
+    device tensors.  A step that leaves the loss or a leaf (or Adam's
+    proposal) non-finite is skipped: every leaf, Adam's moments and count
+    keep their values through ``torch.where``, the loss trace gets NaN, and
+    the gamma scale halves (floor 1e-3); it grows by 5% (at most 1) after a
+    finite step.  The loss of step t is written at index t of ``losses``;
+    on the card one step is captured and replayed (``CapturedSteps``)."""
+
+    def __init__(self, model, x, y, num_steps: int, gamma: float,
+                 num_data: int | None = None, learning_rate: float | None = None,
+                 gamma_warmup: int = 100, batch_fn: Callable | None = None):
+        self.model, self.x, self.y, self.num_data = model, x, y, num_data
+        self.gamma = gamma
+        banks = ["." + b for b in _BANKS]
+        hypers = [p.raw for name, p in named_params(model)
+                  if p.trainable and name not in banks]
+        self.adam = None if learning_rate is None else Adam(hypers, lr=learning_rate)
+        self.warm = float(max(gamma_warmup, 1))
+        raw = model.q_mu_act.raw
+        self.step_i = torch.zeros((), dtype=torch.float64, device=raw.device)
+        self.gscale = torch.ones_like(self.step_i)
+        self.i = torch.zeros((), dtype=torch.int64, device=raw.device)
+        super().__init__(raw.new_zeros(num_steps), batch_fn)
+
+    def _gamma(self):
+        if self.adam is None:
+            return self.gamma * self.gscale
+        ramp = torch.clamp((self.step_i + 1.0) / self.warm, max=1.0)
+        # 1/sqrt decay after ~20x warmup: a fixed-size natural step under
+        # minibatch noise oscillates around the optimum once converged
+        decay = 1.0 / _sqrt_rn(1.0 + self.step_i / (20.0 * self.warm))
+        return self.gamma * (0.02 + 0.98 * ramp) * self.gscale * decay
+
+    def step(self) -> None:
+        m = self.model
+        xb, yb = (self.x, self.y) if self.batch_fn is None else self.batch_fn()
+        values = _natgrad_values(m, xb, yb, self._gamma(), self.num_data)
+        raws = [getattr(m, b).transform.inverse_tensor(v).detach()
+                for b, v in zip(_BANKS, values)]
+        m2 = dataclasses.replace(m, **{
+            b: Param.wrap(r, getattr(m, b).transform, getattr(m, b).trainable)
+            for b, r in zip(_BANKS, raws)})
+        if self.adam is None:
+            with torch.no_grad():
+                loss = m2.loss(xb, yb, self.num_data)
+            finite = _finite(m2, loss)
+        else:
+            hypers = self.adam.params
+            with torch.enable_grad():
+                loss = m2.loss(xb, yb, self.num_data)
+                grads = torch.autograd.grad(loss, hypers, allow_unused=True)
+            grads = [torch.zeros_like(h) if g is None else g for h, g in zip(hypers, grads)]
+            proposal = self.adam.propose(grads)
+            finite = _finite(m2, loss, proposal[0])
+            self.adam.commit(*proposal, ok=finite)
+        with torch.no_grad():
+            for b, r in zip(_BANKS, raws):
+                leaf = getattr(m, b).raw
+                leaf.copy_(torch.where(finite, r, leaf))
+            nan = torch.full_like(loss, float("nan"))
+            self.losses.index_copy_(0, self.i.reshape(1),
+                                    torch.where(finite, loss.detach(), nan).reshape(1))
+            self.gscale.copy_(torch.where(finite, torch.clamp(self.gscale * 1.05, max=1.0),
+                                          torch.clamp(self.gscale * 0.5, min=1e-3)))
+            self.step_i.add_(1.0)
+            self.i.add_(1)
+
+    @torch.no_grad()
+    def load(self, model) -> None:
+        """``model``'s raw leaves (this one's structure) into the static
+        leaves, and the step index, the gamma scale, the count and Adam's
+        state back to their start."""
+        for (_, mine), (_, p) in zip(named_params(self.model), named_params(model)):
+            mine.raw.copy_(p.raw)
+        if self.adam is not None:
+            self.adam.reset()
+        self.step_i.zero_()
+        self.gscale.fill_(1.0)
+        self.i.zero_()
+        self.at = 0
+
+    def segment(self, n: int) -> np.ndarray:
+        """``n`` more steps and their losses (NaN where skipped), read at
+        one host fence."""
+        self.run(n)
+        return self.losses[self.at - n:self.at].cpu().numpy().astype(np.float64)
 
 
 def natgrad_polish(model, x, y, num_steps: int = 200, gamma: float = 0.05,
@@ -132,19 +229,11 @@ def natgrad_polish(model, x, y, num_steps: int = 200, gamma: float = 0.05,
     a (near-)converged state, fixed-size natural steps on the full-data ELBO
     walk q to its optimum for the current hyperparameters.  A non-finite
     step is skipped with the backoff of ``fit_natgrad_adam``.  Returns
-    (model, losses numpy) with NaN on skipped steps."""
-    losses = np.empty(num_steps)
-    gscale = 1.0
-    for i in range(num_steps):
-        m2 = natgrad_step(model, x, y, gamma * gscale, num_data)
-        with torch.no_grad():
-            loss = m2.loss(x, y, num_data)
-        finite = _all_finite(m2, loss)
-        if finite:
-            model = m2
-        losses[i] = float(loss) if finite else np.nan
-        gscale = _backoff(gscale, finite)
-    return model, losses
+    (model, losses numpy) with NaN on skipped steps; the input is
+    unchanged."""
+    run = NatgradSteps(copy_params(model), x, y, num_steps, gamma, num_data)
+    losses = run.segment(num_steps)
+    return run.model, losses
 
 
 def fit_natgrad_adam(model, x, y, num_steps: int, gamma: float = 0.1,
@@ -161,7 +250,8 @@ def fit_natgrad_adam(model, x, y, num_steps: int, gamma: float = 0.1,
     and decays as 1/sqrt(1 + i / (20 warmup)).  A step that leaves the
     loss or any leaf non-finite is skipped: NaN in the loss trace, the
     model and Adam's state kept, and an adaptive scale on gamma halved
-    (floor 1e-3; it recovers by 5% a finite step).
+    (floor 1e-3; it recovers by 5% a finite step).  The steps run in
+    ``NatgradSteps``.
 
     ``segment=None``: one run, the final state returned.  ``segment=k``: a
     host fence every k steps, and at each the full-data loss; the returned
@@ -171,48 +261,17 @@ def fit_natgrad_adam(model, x, y, num_steps: int, gamma: float = 0.1,
     ``return_info`` (model, losses, info): n_skipped, the steps Adam took,
     the full-data losses at segment boundaries, which state was returned,
     and the polish's record.  The caller's model is left unchanged."""
-    model = copy_params(model)
-    hypers = [p.raw for name, p in named_params(model)
-              if p.trainable and name not in ["." + b for b in _BANKS]]
-    adam = Adam(hypers, lr=learning_rate)
-    warm = max(gamma_warmup, 1)
-    step_i, gscale = 0, 1.0
+    run = NatgradSteps(copy_params(model), x, y, num_steps, gamma, num_data,
+                       learning_rate, gamma_warmup, batch_fn)
+    model = run.model
 
     def full_loss(m) -> float:
         with torch.no_grad():
             return float(m.loss(x, y, num_data))
 
-    def run(m, length):
-        nonlocal step_i, gscale
-        out = torch.empty(length, dtype=hypers[0].dtype, device=hypers[0].device)
-        skipped = []
-        for i in range(length):
-            xb, yb = batch_fn() if batch_fn is not None else (x, y)
-            ramp = min(1.0, (step_i + 1.0) / warm)
-            decay = 1.0 / math.sqrt(1.0 + step_i / (20.0 * warm))
-            m2 = natgrad_step(m, xb, yb, gamma * (0.02 + 0.98 * ramp) * gscale * decay,
-                              num_data)
-            with torch.enable_grad():
-                loss = m2.loss(xb, yb, num_data)
-                grads = torch.autograd.grad(loss, hypers, allow_unused=True)
-            grads = [torch.zeros_like(h) if g is None else g for h, g in zip(hypers, grads)]
-            proposal = adam.propose(grads)
-            finite = _all_finite(m2, loss, proposal[0])
-            if finite:
-                adam.commit(*proposal)
-                m = m2
-            else:
-                skipped.append(i)
-            out[i] = loss.detach()
-            gscale = _backoff(gscale, finite)
-            step_i += 1
-        losses = out.cpu().numpy().astype(np.float64)
-        losses[skipped] = np.nan
-        return m, losses
-
     if segment is None:
-        model, losses = run(model, num_steps)
-        info = {"n_skipped": int(np.isnan(losses).sum()), "adam_steps": int(adam.t),
+        losses = run.segment(num_steps)
+        info = {"n_skipped": int(np.isnan(losses).sum()), "adam_steps": int(run.adam.t),
                 "returned": "final"}
         return (model, losses, info) if return_info else (model, losses)
 
@@ -222,13 +281,12 @@ def fit_natgrad_adam(model, x, y, num_steps: int, gamma: float = 0.1,
     losses_out, full_trace = [], []
     best_model, best_full = None, np.inf
     for length in lengths:
-        model, losses = run(model, length)
-        losses_out.append(losses)
+        losses_out.append(run.segment(length))
         # best-state selection on the full-data objective, at segment ends
         fl = full_loss(model)
         full_trace.append(fl)
         if np.isfinite(fl) and fl < best_full:
-            # a copy: later Adam steps write the hyperparameters in place
+            # a copy: later steps write the leaves in place
             best_full, best_model = fl, copy_params(model)
     losses = np.concatenate(losses_out)
     final_full = full_trace[-1]
@@ -247,7 +305,7 @@ def fit_natgrad_adam(model, x, y, num_steps: int, gamma: float = 0.1,
         if np.isfinite(pol_full) and pol_full < min(best_full, final_full):
             returned, out = "polished", pol
     if return_info:
-        info = {"n_skipped": int(np.isnan(losses).sum()), "adam_steps": int(adam.t),
+        info = {"n_skipped": int(np.isnan(losses).sum()), "adam_steps": int(run.adam.t),
                 "full_loss_at_segments": [round(v, 2) for v in full_trace],
                 "returned": returned, "polish": polish_info}
         return out, losses, info

@@ -20,7 +20,7 @@ import torch
 from ..config import DEFAULT_DEVICE, resolve_device
 from ..core.params import Param, cat_windows, map_params, take_windows, to_device
 from ..kernels.base import StackedSum, Sum, stack_modules
-from ..models._lbfgs import LbfgsStats, lbfgs_run
+from ..models._lbfgs import LbfgsSteps
 from ..models.fit import AdamSteps, ParamRows, first_segment_excess
 from ..models.sgpr import SGPRSS, check_on_grid
 
@@ -344,46 +344,55 @@ def _optimize_bank_lbfgs(bank, num_steps: int, window_chunk: int | None = None,
     ``lbfgs_solve`` and of the reference's per-window scipy L-BFGS-B.
 
     A window's values are ``bank.loss()``'s entry and its gradient the
-    gradient of their sum.  The solver state threads through a host fence
-    every ``step_segment`` iterations, so segments are exact, and chunks
-    of ``window_chunk`` windows are exact too.  A window whose bound goes
-    NaN at a trial (a step that makes its Kuu indefinite) turns only its
-    own values NaN; its linesearch shrinks the step, or it freezes.
+    gradient of their sum.  The solver (``LbfgsSteps``: on the card one
+    captured iteration, replayed) has a host fence every ``step_segment``
+    iterations, where the value at the segment's end is compared with the
+    best visited, as the JAX package's segments do, so segments are exact.
+    Chunks of ``window_chunk`` windows are padded to one shape by copies of
+    the last window, as the JAX package pads them, so that one capture
+    serves them all; the pads' results are dropped.  A window whose bound
+    goes NaN at a trial (a step that makes its Kuu indefinite) turns only
+    its own values NaN; its linesearch shrinks the step, or it freezes.
 
     Returns (bank of each window's best-visited state, losses: the
     per-step total over windows, the wall seconds of each segment, info):
     info holds the per-window losses (nw, num_steps), the solver's counts
-    (iterations, linesearch trials, other evaluations, host syncs, trials
-    per iteration), the windows that end at their initial state and the
-    windows that ever met a non-finite value."""
+    (iterations, linesearch trials, other evaluations, host reads, trials
+    per iteration), the capture's host seconds (0 on the CPU), the windows
+    that end at their initial state and the windows that ever met a
+    non-finite value."""
     nw = bank.X.raw.shape[0]
-    chunk = nw if window_chunk is None else max(1, window_chunk)
+    chunk, nc, padded, _ = _chunk_plan(bank, window_chunk)
     step_segment = max(1, min(step_segment, num_steps))
+    rows = ParamRows(take_windows(padded, slice(0, chunk)), lambda b: b.loss(), batched=True)
+    run = LbfgsSteps(rows.value_and_grad, rows.value, rows.rows(), num_steps)
     banks, window_losses, seconds = [], [], []
-    stats = LbfgsStats()
     at_initial, nonfinite = 0, 0
-    for c0 in range(0, nw, chunk):
-        part = bank if chunk >= nw else take_windows(bank, slice(c0, c0 + chunk))
-        rows = ParamRows(part, lambda b: b.loss(), batched=True)
-        w0 = w = rows.rows()
-        state = best = None
-        bad = torch.zeros(w.shape[0], dtype=torch.bool, device=w.device)
+    for ci in range(nc):
+        real = min(chunk, nw - ci * chunk)
+        if ci:
+            rows.load(take_windows(padded, slice(ci * chunk, (ci + 1) * chunk)))
+        w0 = rows.rows()
+        run.load(w0)
         lw = []
         for start in range(0, num_steps, step_segment):
             t0 = time.perf_counter()
-            w, ls, state, best, _ = lbfgs_run(
-                rows.value_and_grad, rows.value, w, min(step_segment, num_steps - start),
-                state=state, best=best, stats=stats, nonfinite=bad)
-            lw.append(ls.cpu().numpy())                     # the host fence
+            stop = min(start + step_segment, num_steps)
+            run.run(stop - start)
+            run.finish()
+            more = ((run.best_w == w0).all(-1), run.nonfinite) if stop == num_steps else ()
+            host = run.read(start, stop, *more)               # the host fence
+            lw.append(host[0][:real])
             seconds.append(time.perf_counter() - t0)
         window_losses.append(np.concatenate(lw, axis=1))
-        banks.append(rows.model_at(best[0]))
-        at_initial += int((best[0] == w0).all(-1).sum())
-        nonfinite += int(bad.sum())
+        at_initial += int(host[1][:real].sum())
+        nonfinite += int(host[2][:real].sum())
+        best = rows.model_at(run.best_w)
+        banks.append(best if real == chunk else take_windows(best, slice(0, real)))
     window_losses = np.concatenate(window_losses)
     info = {"window_losses": window_losses,
             "windows_at_initial_state": at_initial, "windows_nonfinite": nonfinite,
-            **vars(stats)}
+            "capture_s": run.capture_s, **vars(run.stats)}
     bank = banks[0] if len(banks) == 1 else cat_windows(banks)
     return bank, window_losses.astype(np.float64).sum(0), seconds, info
 

@@ -654,3 +654,82 @@ def test_cuda_captured_minibatch_draws_differ_and_equal_eager(cuda):
     seen_e, loss_e = draws(True)
     assert torch.equal(seen_c, seen_e) and torch.equal(loss_c, loss_e)
     assert len({tuple(r) for r in seen_c.tolist()}) == 20
+
+
+def _eager_lbfgs(self, n):
+    """LbfgsSteps.run as the plain version: every iteration eagerly, each
+    condition read on the host."""
+    with torch.no_grad():
+        for _ in range(n):
+            self.iteration()
+
+
+@pytest.mark.parametrize("window_chunk", [None, 4], ids=["whole", "chunks_of_4"])
+def test_cuda_captured_lbfgs_matches_eager(cuda, monkeypatch, window_chunk):
+    """Per-window L-BFGS on the card replays its captured iteration (the
+    five parts captured once for every chunk; 6 windows in chunks of 4 pad
+    to 8), 10 iterations in segments of 4, f32 through the fused pair: the
+    same per-window losses, leaves and counts as the eager iterations, bit
+    for bit, with fewer host reads; the fused pair launched once for every
+    evaluation the device counted."""
+    from gpitch_tpu_torch.core.params import named_params
+    from gpitch_tpu_torch.linalg import _cuda
+    from gpitch_tpu_torch.models._lbfgs import LbfgsSteps
+    from gpitch_tpu_torch.pipelines import windowed_sgpr as tws
+    bank = _lbfgs_bank(cuda, torch.float32)
+    _cuda.reset_launches()
+    got, _, _, ginfo = tws._optimize_bank_lbfgs(bank, 10, window_chunk=window_chunk,
+                                                step_segment=4)
+    assert _cuda.GRAPHS["graphs"] == 5 and ginfo["capture_s"] > 0
+    launches = _cuda.device_launches()
+    grads = ginfo["trials"] + ginfo["grad_evaluations"]
+    assert launches["fused_whiten_bwd"] == grads
+    assert launches["fused_whiten"] == grads + ginfo["value_evaluations"]
+    monkeypatch.setattr(LbfgsSteps, "run", _eager_lbfgs)
+    want, _, _, winfo = tws._optimize_bank_lbfgs(bank, 10, window_chunk=window_chunk,
+                                                 step_segment=4)
+    np.testing.assert_array_equal(ginfo["window_losses"], winfo["window_losses"])
+    for key in ("trials", "trials_per_iteration", "grad_evaluations", "iterations"):
+        assert ginfo[key] == winfo[key], key
+    assert ginfo["syncs"] < winfo["syncs"]
+    for (name, a), (_, b) in zip(named_params(got), named_params(want)):
+        assert torch.equal(a.raw, b.raw), name
+
+
+def test_cuda_captured_lbfgs_f64_bank_matches_the_cpu(cuda):
+    """The f64 bank's per-window L-BFGS captured on the card (the Cholesky
+    kernel in f64 inside the conditional trial) against the CPU: per-window
+    losses at rtol 1e-8, 10 iterations."""
+    from gpitch_tpu_torch.core.params import to_device
+    from gpitch_tpu_torch.linalg import _cuda
+    from gpitch_tpu_torch.pipelines import windowed_sgpr as tws
+    bank = _lbfgs_bank(cuda, torch.float64)
+    _cuda.reset_launches()
+    _, _, _, got = tws._optimize_bank_lbfgs(bank, 10)
+    assert _cuda.GRAPHS["graphs"] == 5 and _cuda.GRAPHS["replayed"]["cholesky_batched"] > 0
+    _, _, _, want = tws._optimize_bank_lbfgs(to_device(bank, "cpu"), 10)
+    np.testing.assert_allclose(got["window_losses"], want["window_losses"], rtol=1e-8)
+
+
+def test_cuda_captured_natgrad_adam_with_skips_matches_eager(cuda):
+    """fit_natgrad_adam's steps captured on the card (NatgradSteps, gamma 3
+    with no warm-up, f32: some steps leave the PSD cone and are skipped on
+    the device) against the same steps run eagerly: the losses with NaN at
+    the same steps, Adam's count and every raw leaf, bit for bit."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    from chip_smoke import golden_modgp
+    from gpitch_tpu_torch.core.params import copy_params, named_params
+    from gpitch_tpu_torch.models.natgrad import NatgradSteps
+    model, x, y = golden_modgp(torch.float32, cuda)
+    runs = [NatgradSteps(copy_params(model), x, y, 12, 3.0, None, 0.01, 1) for _ in range(2)]
+    runs[0].run(12)
+    runs[1].eager(12)
+    assert runs[0].graph is not None and runs[1].graph is None
+    cap, eag = (r.losses.cpu().numpy() for r in runs)
+    np.testing.assert_array_equal(cap, eag)
+    assert 0 < np.isnan(cap).sum() < 12
+    assert int(runs[0].adam.t) == int(runs[1].adam.t) == int(np.isfinite(cap).sum())
+    for (name, a), (_, b) in zip(named_params(runs[0].model), named_params(runs[1].model)):
+        assert torch.equal(a.raw, b.raw), name
