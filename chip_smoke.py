@@ -110,13 +110,24 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               and B launched): the value against one chain at a time
               (1e-5), the gradient against f64 as one chain's is and
               within 2e-4 both ways (each f32 part's share of that error:
-              ``--check-hmc-state``);
+              ``--check-hmc-state``); (b) and (c) run the sampler
+              (models.hmc.HmcSteps) captured, each phase one graph
+              replayed, against its eager plain version in turns: ms a
+              leapfrog step, capture s, nodes, memory held against eager's
+              peak, samples and rates equal (0.0), no host read inside a
+              phase (torch's sync debug mode over the eager runs);
  18. distributed  (a) a one-rank NCCL group in a fresh process: the
               shard-map bank loss and optimize_bank(mesh=) on sosp-4s; (b)
               two processes on the one card (gloo): sosp-14s
               SoSp.optimize(2, then 20, mesh=) against 8's single-process
               steps (1e-5), ms a step and launches per rank; (c) per-window
               L-BFGS on 16 sosp-4s windows, two ranks against one process;
+              (d) fit_modgp on a two-source bench ModGP whose sources are
+              split over the ranks (one NCCL rank: adam, natgrad_adam,
+              lbfgs, the all-reduces inside the graphs; two gloo ranks:
+              adam and natgrad_adam, each step's graphs split at its host
+              all-reduces, and lbfgs raising ValueError) against one
+              process: losses within 1e-5, leaves, ms a step, host points;
  19. resume   optimize_bank_resumable on sosp-4s: 30 steps in one call
               against 20 and a resume to 30 in a fresh process, bit for bit;
               the same on 64 windows of 15's amt-10s table bank (reported);
@@ -130,8 +141,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               bank, 3 captured and 3 eager L-BFGS iterations of 13(b)'s
               bank, 50 captured and 20 eager natgrad_adam steps of 14's
               demo (the profiler's own cost grows with the ops it records)
-              and 10 HMC iterations of 17(b), last because its tracing may
-              stay attached;
+              and 10 captured and 10 eager HMC iterations of 17(b) and of
+              17(c), last because its tracing may stay attached;
 then the kernels line, the nvidia-smi line and the result line.
 ``python3 chip_smoke.py --worker <kind> <rank> <world> <store> ...`` runs
 one rank of 18 or the fresh process of 19 (the phases start them).
@@ -145,6 +156,7 @@ Exits non-zero without printing a result when there is no CUDA device.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -2320,6 +2332,88 @@ def _split_rhat(x: np.ndarray) -> float:
     return float(np.sqrt(var / max(w, 1e-30)))
 
 
+def hmc_runner(logprob, init, seed: int, **kw):
+    """The ``HmcSteps`` that ``hmc_sample(logprob, init, generator, **kw)``
+    runs, its noise drawn by a generator seeded ``seed`` on the card."""
+    from gpitch_tpu_torch.models.hmc import hmc_steps
+    dev = next(iter(init.values())).device
+    return hmc_steps(logprob, init, torch.Generator(device=dev).manual_seed(seed), **kw)
+
+
+def host_syncs(fn):
+    """(fn(), the host reads it made): the CUDA calls that wait on the card
+    (a copy to the host, a stream's synchronize), counted by torch's sync
+    debug mode."""
+    import warnings
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return out, sum("synchroniz" in str(w.message) for w in seen)
+
+
+def _hmc_turns(logprob, init, seed: int, turns, kw) -> tuple[dict, tuple]:
+    """HMC on one route from one seed's noise, the sampler captured (C:
+    each phase's graph replayed) and eager (E: its plain version) in
+    ``turns``, each run building its ``HmcSteps`` (the captures included)
+    and reading its samples and rates on the host once, at its end: ms a
+    leapfrog step of each run; the first C's capture s, graph nodes by
+    phase and the device memory it holds (reserved memory it added, the
+    cache emptied) against the first E's peak (above what was allocated
+    before it); the host reads inside the E runs' phases (torch's sync
+    debug mode: none may fall there, so none is in the captured graphs);
+    and the largest difference of every C's samples and rates from the
+    first E's (0.0: the same arithmetic).  Returns (the record, the first
+    C's (samples, rates) on the host).  The kernels' launches are read over
+    each run."""
+    gib = 2.0 ** 30
+    leapfrog = (kw["num_warmup"] + kw["num_samples"]) * kw["num_leapfrog"]
+    runs, rec = {"captured": [], "eager": []}, {}
+    for how in turns:
+        torch.cuda.synchronize()
+        gc.collect()                  # an earlier runner's graphs (a reference cycle)
+        torch.cuda.empty_cache()
+        reserved, allocated = torch.cuda.memory_reserved(), torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_all()
+        t0 = time.perf_counter()
+        runner = hmc_runner(logprob, init, seed, **kw)
+        if how == "eager":
+            (samples, rates), syncs = host_syncs(lambda: runner.run(eager=True))
+            rec.setdefault("host_reads_inside_phases_eager", []).append(syncs)
+        else:
+            samples, rates = runner.run()
+        host = ({k: v.double().cpu().numpy() for k, v in samples.items()},
+                rates.double().cpu().numpy())
+        seconds = time.perf_counter() - t0
+        rec.setdefault("launches_by_run", []).append(_all_launches())
+        if how == "eager" and not runs["eager"]:
+            rec["peak_gib_eager"] = (torch.cuda.max_memory_allocated() - allocated) / gib
+        if how == "captured" and not runs["captured"]:
+            torch.cuda.empty_cache()
+            rec["held_gib_captured"] = (torch.cuda.memory_reserved() - reserved) / gib
+            rec["capture_s"] = runner.capture_s
+            rec["nodes_by_phase"] = {k: p.nodes() for k, p in runner.phases.items()}
+            rec["graphs"] = len(runner.phases)
+        runs[how].append((seconds, host))
+        del runner
+    ref = runs["eager"][0][1]
+    diff = max(max(float(np.abs(s[k] - ref[0][k]).max()) for k in ref[0])
+               + float(np.abs(r - ref[1]).max()) for _, (s, r) in runs["captured"])
+    rec.update({"turns": list(turns),
+                "ms_per_leapfrog_step_captured": [t * 1e3 / leapfrog
+                                                  for t, _ in runs["captured"]],
+                "ms_per_leapfrog_step_eager": [t * 1e3 / leapfrog for t, _ in runs["eager"]],
+                "captured_vs_eager_max_abs": diff, "host_reads_per_run": 1})
+    rec["speedup"] = float(np.median(rec["ms_per_leapfrog_step_eager"])
+                           / np.median(rec["ms_per_leapfrog_step_captured"]))
+    return rec, runs["captured"][0][1]
+
+
 def _hmc_targets(dev) -> dict:
     """tests/test_hmc_natgrad.py's two Gaussian targets in f32 on the card."""
     from gpitch_tpu_torch.models import hmc_sample
@@ -2408,19 +2502,15 @@ def hmc_modgp_logprob(model, x, y):
 
 def _hmc_modgp(dev) -> tuple[dict, tuple]:
     from gpitch_tpu_torch.core.params import named_params
-    from gpitch_tpu_torch.models import hmc_sample
     t0 = time.perf_counter()
     model, x, y = make_hmc_modgp(dev)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     logprob, init = hmc_modgp_logprob(model, x, y)
     kw = {k: v for k, v in HMC_MODGP.items() if k != "fit_steps"}
-    t0 = time.perf_counter()
-    samples, rates = hmc_sample(logprob, init, torch.Generator(device=dev).manual_seed(2),
-                                jitter_init=0.05, **kw)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    s = {k.split(".")[-1]: v.double().cpu().numpy() for k, v in samples.items()}
+    turns, (s, rates) = _hmc_turns(logprob, init, 2, ("captured", "eager", "captured"),
+                                   dict(kw, jitter_init=0.05))
+    s = {k.split(".")[-1]: v for k, v in s.items()}
     raws = {k.split(".")[-1]: p for k, p in named_params(model.kern_com)}
     vals = {k: raws[k].transform.forward(torch.as_tensor(v)).numpy().reshape(
         kw["num_chains"], kw["num_samples"], -1) for k, v in s.items()}
@@ -2430,11 +2520,11 @@ def _hmc_modgp(dev) -> tuple[dict, tuple]:
                             for j in range(vals["lengthscales"].shape[-1])],
             "frequency": [_split_rhat(vals["frequency"][..., j])
                           for j in range(vals["frequency"].shape[-1])]}
-    steps = (kw["num_warmup"] + kw["num_samples"]) * kw["num_leapfrog"]
     rec = {"workload": "run_hmc on the synthetic C4 note (12 component-kernel raws)",
            "N": int(x.shape[0]), "M": int(model.za.raw.shape[1]), **kw,
-           "fit_steps": HMC_MODGP["fit_steps"], "fit_s": fit_s, "seconds": seconds,
-           "ms_per_leapfrog_step": seconds * 1e3 / steps, "rates": rates.tolist(),
+           "fit_steps": HMC_MODGP["fit_steps"], "fit_s": fit_s,
+           "ms_per_leapfrog_step": float(np.median(turns["ms_per_leapfrog_step_captured"])),
+           **turns, "rates": rates.tolist(),
            "finite": bool(all(np.isfinite(v).all() for v in s.values())),
            "rhat_identified": rhat,
            "rhat_identified_max": max(max(v) for v in rhat.values())}
@@ -2696,31 +2786,28 @@ def write_hmc_bank_state(path: str) -> dict:
     return rec
 
 
-def _hmc_bank(dev, bank) -> dict:
+def _hmc_bank(dev, bank) -> tuple[dict, tuple]:
     """HMC over every window's trainable kernel leaves of a trained bank
-    (the noise fixed), the chains folded into the window axis.  The folded
-    log density and gradient against one chain at a time, and both against
-    the same evaluation in f64 (``hmc_bank_check``)."""
+    (the noise fixed), the chains folded into the window axis, captured
+    against eager in turns (C E E C; ``launches``: the kernels' over the
+    first C).  The folded log density and gradient against one chain at a
+    time, and both against the same evaluation in f64
+    (``hmc_bank_check``).  Returns (the record, (log density, init))."""
     from gpitch_tpu_torch.core.params import with_raw
-    from gpitch_tpu_torch.models import hmc_sample, model_logprob_fn
+    from gpitch_tpu_torch.models import model_logprob_fn
     paths, init, chains = hmc_bank_start(bank)
     logprob = model_logprob_fn(bank, with_raw, prior_scale=1e3)
     check = hmc_bank_check(bank, chains)
-    _zero_all()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    samples, rates = hmc_sample(logprob, init, torch.Generator(device=dev).manual_seed(5),
-                                **HMC_BANK)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    steps = (HMC_BANK["num_warmup"] + HMC_BANK["num_samples"]) * HMC_BANK["num_leapfrog"]
+    turns, (samples, rates) = _hmc_turns(logprob, init, 5,
+                                         ("captured", "eager", "eager", "captured"), HMC_BANK)
     return {"windows": int(bank.X.raw.shape[0]),
             "folded_windows": HMC_BANK["num_chains"] * int(bank.X.raw.shape[0]),
             "leaves": paths, "dims_per_chain": int(sum(v.numel() for v in init.values())),
-            **HMC_BANK, "folded_vs_one_chain": check, "seconds": seconds,
-            "ms_per_leapfrog_step": seconds * 1e3 / steps, "rates": rates.tolist(),
-            "finite": bool(all(torch.isfinite(v).all() for v in samples.values())),
-            "launches": _all_launches()}
+            **HMC_BANK, "folded_vs_one_chain": check,
+            "ms_per_leapfrog_step": float(np.median(turns["ms_per_leapfrog_step_captured"])),
+            **turns, "rates": rates.tolist(),
+            "finite": bool(all(np.isfinite(v).all() for v in samples.values())),
+            "launches": turns["launches_by_run"][0]}, (logprob, init)
 
 
 def phase_hmc(dev, bank):
@@ -2734,11 +2821,15 @@ def phase_hmc(dev, bank):
     steps, 20 + 20 iterations (every sample finite; at the chains' start the
     folded log density within 1e-5 of one chain at a time, and its gradient
     no further from the same evaluation in f64, with the f32 jitters, than
-    twice one chain's, and within 2e-4).  Returns (the
-    records, (b)'s log density and init for the profile)."""
+    twice one chain's, and within 2e-4).  (b) and (c) run ``HmcSteps``
+    captured (each phase one graph, replayed) against its eager plain
+    version in turns (``_hmc_turns``): equal samples and rates (0.0), no
+    host read inside a phase, and on (c) the Cholesky kernel and kernels A
+    and B launched.  Returns (the records, (b)'s and (c)'s log density and
+    init for the profile)."""
     out = {"phase": "hmc", "targets": _hmc_targets(dev)}
     out["modgp"], modgp = _hmc_modgp(dev)
-    out["bank"] = _hmc_bank(dev, bank)
+    out["bank"], bank_fn = _hmc_bank(dev, bank)
     emit(out)
     for name, rec in out["targets"].items():
         assert rec["ok"], f"HMC missed the {name} target: {rec}"
@@ -2754,17 +2845,29 @@ def phase_hmc(dev, bank):
     assert chk["f64_grad_rel_norm_folded"] <= 2 * chk["f64_grad_rel_norm_one"] + 1e-5, b
     assert max(chk["f64_grad_rel_norm_folded"], chk["f64_grad_rel_norm_one"]) <= 2e-4, b
     assert all(b["launches"][k] > 0 for k in _PATH), f"a kernel never ran: {b['launches']}"
-    return out, modgp
+    for r in (m, b):
+        assert r["captured_vs_eager_max_abs"] == 0.0, r
+        assert not any(r["host_reads_inside_phases_eager"]), r
+    return out, (modgp, bank_fn)
 
 
-def _hmc_window(logprob, init, iterations: int):
-    """``iterations`` HMC iterations of run_hmc's ModGP (no warmup): the
-    profile's window."""
-    from gpitch_tpu_torch.models import hmc_sample
-    hmc_sample(logprob, init, torch.Generator(device=init[next(iter(init))].device).manual_seed(9),
-               num_samples=iterations, num_warmup=0, num_leapfrog=HMC_MODGP["num_leapfrog"],
-               num_chains=HMC_MODGP["num_chains"], jitter_init=0.05)
-    return {"iterations": iterations, "leapfrog_steps": iterations * HMC_MODGP["num_leapfrog"]}
+def _hmc_windows(name: str, logprob, init, iterations: int, kw) -> list:
+    """The profile's windows of ``iterations`` HMC sampling iterations (no
+    warm-up): replays of a captured iteration (the sampler's eager
+    iteration and capture run before the window) and eager iterations."""
+    runners = [hmc_runner(logprob, init, 9, num_samples=iterations + 2, num_warmup=0,
+                          jitter_init=0.05, **kw) for _ in range(2)]
+    for r in runners:
+        r.begin("adapt")
+        r.end("adapt", 0)
+        r.begin("sample")
+    runners[0].phases["sample"].run(2)
+    torch.cuda.synchronize()
+    counts = {"iterations": iterations, "leapfrog_steps": iterations * kw["num_leapfrog"]}
+    label = f"{iterations} %s HMC iterations ({name}, {kw['num_chains']} chains, " \
+            f"{kw['num_leapfrog']} leapfrog steps)"
+    return [(label % "captured", lambda: runners[0].phases["sample"].run(iterations) or counts),
+            (label % "eager", lambda: runners[1].phases["sample"].eager(iterations) or counts)]
 
 
 # ---------------------------------------------------------- distribution
@@ -2803,6 +2906,99 @@ def _rows_of(bank) -> np.ndarray:
     return torch.cat([t.detach().reshape(nw, -1) for t in leaves], 1).double().cpu().numpy()
 
 
+# fit_modgp's methods on the source-sharded ModGP (``make_modgp_sharded``),
+# on the ranks and in one process; L-BFGS raises over gloo on the card
+MODGP_SHARDED = {
+    "adam": dict(method="adam", num_steps=100, learning_rate=0.005, minibatch_size=100),
+    "natgrad_adam": dict(method="natgrad_adam", num_steps=50, learning_rate=0.005,
+                         minibatch_size=100),
+    "lbfgs": dict(method="lbfgs", num_steps=10, minibatch_size=None)}
+
+
+def make_modgp_sharded(dev):
+    """bench.py's workload (N 16000, M 128 taken evenly from the extrema,
+    noise variance 1e-3) with two sources, so that they split over two
+    ranks: each a Matern32 activation and a 3-partial MercerMatern12sm
+    component, the first's partials at 15/30/45 Hz (bench.py's), the
+    second's at 20/40/60.  Returns (model, x, y) in f32."""
+    from gpitch_tpu_torch.kernels import Matern32, MercerMatern12sm
+    from gpitch_tpu_torch.models import ModGP
+    one, x, y, _ = make_modgp_demo(dev, num_inducing=128, noise=1e-3)
+    z = one.za.raw[0].detach().cpu().numpy()
+    model = ModGP.create(z=[[z, z], [z, z]],
+                         kern=[[Matern32.create(1.0, 1.0) for _ in range(2)],
+                               [MercerMatern12sm.create(energy=[1.0] * 3, frequency=f)
+                                for f in ([15.0, 30.0, 45.0], [20.0, 40.0, 60.0])]],
+                         device=dev)
+    return (model, torch.as_tensor(x, dtype=torch.float32, device=dev),
+            torch.as_tensor(y, dtype=torch.float32, device=dev))
+
+
+def _modgp_leaves(model, group=None) -> dict:
+    """Every raw leaf of a ModGP as f64 numpy; with ``group`` (its sources
+    split over the ranks) the per-source leaves gathered in rank order and
+    the replicated ones (the likelihood's) as this rank holds them."""
+    from gpitch_tpu_torch.core.params import named_params
+    from gpitch_tpu_torch.parallel.mesh import gather_rows
+    out = {}
+    for n, p in named_params(model):
+        raw = p.raw.detach()
+        if group is not None and not n.startswith(".likelihood."):
+            raw = gather_rows(raw.reshape(raw.shape[0], -1), group).reshape(
+                (-1,) + raw.shape[1:])
+        out[n] = raw.double().cpu().numpy()
+    return out
+
+
+def fit_sharded_modgp(dev, mesh, prefix: str, rank: int) -> dict:
+    """fit_modgp on this rank's share of ``make_modgp_sharded``'s sources,
+    each method of MODGP_SHARDED (the minibatch generator seeded 0 on
+    every rank, as in one process), each fit twice: ms a step of the
+    second (its warm-up and capture included) and of the first (the
+    process's first use too), the graphs the second captured, their
+    replays and host points, the kernels' launches.  Over gloo on the card
+    L-BFGS must raise ValueError at the start.  Rank 0 writes the losses
+    and the gathered leaves to ``prefix``.modgp.npz."""
+    from gpitch_tpu_torch.linalg import _cuda
+    from gpitch_tpu_torch.models import fit_modgp
+    from gpitch_tpu_torch.parallel import shard_modgp_sources
+    from gpitch_tpu_torch.parallel.mesh import on_host
+    model, x, y = make_modgp_sharded(dev)
+    local, _ = shard_modgp_sources(model, mesh)
+    group = local.source_group
+    assert group is not None, "the sources did not split"
+    out, arrays = {"sources_on_this_rank": local.num_sources}, {}
+    for name, kw in MODGP_SHARDED.items():
+        if name == "lbfgs" and on_host(group):
+            try:
+                fit_modgp(local, x, y, **kw)
+            except ValueError as e:
+                out[name] = {"raises_value_error": str(e)}
+                continue
+            raise AssertionError("L-BFGS over gloo ranks on the card did not raise")
+        seconds = []
+        for _ in range(2):
+            _zero_all()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fitted, losses = fit_modgp(
+                local, x, y, generator=torch.Generator(device=dev).manual_seed(0), **kw)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+        g = _cuda.GRAPHS
+        out[name] = {"steps": kw["num_steps"],
+                     "ms_per_step": seconds[1] * 1e3 / kw["num_steps"],
+                     "first_fit_ms_per_step": seconds[0] * 1e3 / kw["num_steps"],
+                     "graphs_captured": g["graphs"], "replays": g["replays"],
+                     "host_points_per_step": g["host_points"] / max(g["graphs"], 1),
+                     "launches": _all_launches()}
+        arrays[name + "_losses"] = np.asarray(losses, dtype=np.float64)
+        arrays.update({name + n: v for n, v in _modgp_leaves(fitted, group).items()})
+    if rank == 0:
+        np.savez(prefix + ".modgp.npz", **arrays)
+    return out
+
+
 def _worker(kind: str, rank: int, world: int, store: str, *extra) -> dict:
     """One rank of the distributed or resume phase (see there)."""
     from gpitch_tpu_torch.linalg import _cuda
@@ -2838,6 +3034,8 @@ def _worker(kind: str, rank: int, world: int, store: str, *extra) -> dict:
         lb, ll = optimize_bank(model.bank, 5, 0.01)
         out["steps_loss_rel"] = float(np.max(np.abs(ml / ll - 1)))
         out["steps_leaf_max_diff"] = float(np.abs(_rows_of(mb) - _rows_of(lb)).max())
+        del model
+        out["modgp_sources"] = fit_sharded_modgp(dev, mesh, extra[0], rank)
     else:
         model, _ = _sosp14s(dev)
         model.optimize(maxiter=2, learning_rate=0.01, mesh=mesh)       # the full phase's warm-up
@@ -2858,6 +3056,8 @@ def _worker(kind: str, rank: int, world: int, store: str, *extra) -> dict:
         torch.cuda.synchronize()
         out["lbfgs_s"] = time.perf_counter() - t0
         out["lbfgs_losses"] = lb_losses.tolist()
+        del sub
+        out["modgp_sources"] = fit_sharded_modgp(dev, mesh, extra[0] + ".sources", rank)
     import torch.distributed as dist
     dist.destroy_process_group()
     return out
@@ -2875,16 +3075,20 @@ def phase_distributed(dev, full_losses, full_rows) -> dict:
     window L-BFGS on the 16 sosp-4s windows, 10 iterations, the two ranks
     against one process in chunks of a rank's 8 windows within 1e-5 (and,
     reported, unchunked: the kernels' split plans follow the window count,
-    and L-BFGS's linesearch turns f32 rounding into other trial steps).
-    The workers load the kernels the parent built (no nvcc run)."""
+    and L-BFGS's linesearch turns f32 rounding into other trial steps);
+    (d) fit_modgp on ``make_modgp_sharded``'s two sources split over the
+    ranks of (a) and (b) (``fit_sharded_modgp``) against one process
+    (``_sharded_modgp_vs_one_process``): every fit captured, losses within
+    1e-5, gloo's L-BFGS a ValueError.  The workers load the kernels the
+    parent built (no nvcc run)."""
     import tempfile
 
     from gpitch_tpu_torch.core.params import take_windows
     from gpitch_tpu_torch.pipelines.windowed_sgpr import optimize_bank
-    t0 = time.perf_counter()
-    (one,) = _run_workers("nccl", 1)
-    one_s = time.perf_counter() - t0
     prefix = os.path.join(tempfile.mkdtemp(prefix="gpitch_dist_out_"), "rank")
+    t0 = time.perf_counter()
+    (one,) = _run_workers("nccl", 1, (prefix + ".nccl",))
+    one_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     ranks = _run_workers("gloo", 2, (prefix,))
     two_s = time.perf_counter() - t0
@@ -2903,6 +3107,8 @@ def phase_distributed(dev, full_losses, full_rows) -> dict:
     got = np.asarray(ranks[0]["lbfgs_losses"])
     lbfgs_rel = float(np.max(np.abs(got / ref - 1)))
     whole_rel = float(np.max(np.abs(got / whole - 1)))
+    modgp = _sharded_modgp_vs_one_process(dev, {"one_rank_nccl": (one, prefix + ".nccl"),
+                                               "two_ranks_gloo": (ranks, prefix + ".sources")})
     out = {"phase": "distributed",
            "a_one_rank_nccl": {**one, "process_s": one_s},
            "b_two_ranks_gloo_sosp14s": {
@@ -2917,7 +3123,8 @@ def phase_distributed(dev, full_losses, full_rows) -> dict:
                                  "loss_rel_vs_one_process_unchunked": whole_rel,
                                  "ranks_equal": bool(all(r["lbfgs_losses"] == ranks[0][
                                      "lbfgs_losses"] for r in ranks)),
-                                 "seconds": [r["lbfgs_s"] for r in ranks]}}
+                                 "seconds": [r["lbfgs_s"] for r in ranks]},
+           "d_modgp_sources": modgp}
     emit(out)
     assert not one["rebuilt"] and not any(r["rebuilt"] for r in ranks), "a worker ran nvcc"
     assert one["loss_rel"] <= 1e-6 and one["grad_rel"] <= 1e-5, one
@@ -2926,6 +3133,50 @@ def phase_distributed(dev, full_losses, full_rows) -> dict:
     assert all(r["launches"][k] > 0 for r in ranks for k in _PATH), "a kernel never ran"
     assert lbfgs_rel <= 1e-5 and out["c_lbfgs_two_ranks"]["ranks_equal"], \
         out["c_lbfgs_two_ranks"]
+    for route, rec in modgp.items():
+        for name, r in rec["fits"].items():
+            if "raises_value_error" in r:
+                assert route == "two_ranks_gloo" and name == "lbfgs", (route, name, r)
+                continue
+            assert r["loss_rel_vs_one_process"] <= 1e-5, (route, name, r)
+            assert all(g >= 1 for g in r["graphs_captured"]), (route, name, r)
+    return out
+
+
+def _sharded_modgp_vs_one_process(dev, routes: dict) -> dict:
+    """Each route's source-sharded fits (``fit_sharded_modgp``) against
+    fit_modgp in this process on the whole model: the largest loss
+    difference over max|loss| (<= 1e-5), the largest leaf difference over
+    the leaf's max (reported), and each rank's ms a step, graphs, replays,
+    host points a step and launches."""
+    from gpitch_tpu_torch.models import fit_modgp
+    model, x, y = make_modgp_sharded(dev)
+    ref = {}
+    for name, kw in MODGP_SHARDED.items():
+        fitted, losses = fit_modgp(model, x, y,
+                                   generator=torch.Generator(device=dev).manual_seed(0), **kw)
+        ref[name] = (np.asarray(losses, dtype=np.float64), _modgp_leaves(fitted))
+    out = {}
+    for route, (ranks, prefix) in routes.items():
+        ranks = ranks if isinstance(ranks, list) else [ranks]
+        got = dict(np.load(prefix + ".modgp.npz"))
+        fits = {}
+        for name in MODGP_SHARDED:
+            per = [r["modgp_sources"][name] for r in ranks]
+            if "raises_value_error" in per[0]:
+                fits[name] = per[0]
+                continue
+            losses, leaves = ref[name]
+            fits[name] = {
+                "loss_rel_vs_one_process": float(np.max(np.abs(got[name + "_losses"] - losses))
+                                                 / np.max(np.abs(losses))),
+                "leaf_rel_vs_one_process": max(float(np.max(np.abs(got[name + n] - v))
+                                                     / max(np.max(np.abs(v)), 1e-30))
+                                               for n, v in leaves.items()),
+                **{k: [p[k] for p in per] for k in ("ms_per_step", "first_fit_ms_per_step",
+                                                      "graphs_captured", "replays",
+                                                      "host_points_per_step", "launches")}}
+        out[route] = {"ranks": len(ranks), "fits": fits}
     return out
 
 
@@ -3133,7 +3384,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_modgp(dev)
     lbfgs, _, lbfgs_sub, (lbfgs_cap, lbfgs_eager) = phase_lbfgs(dev, amt_model)
-    hmc, (hmc_logprob, hmc_init) = phase_hmc(dev, lbfgs_sub)
+    hmc, ((hmc_logprob, hmc_init), (bank_logprob, bank_init)) = phase_hmc(dev, lbfgs_sub)
+    hmc_windows = (_hmc_windows("ModGP", hmc_logprob, hmc_init, 10,
+                                dict(num_chains=HMC_MODGP["num_chains"],
+                                     num_leapfrog=HMC_MODGP["num_leapfrog"]))
+                   + _hmc_windows("16 windows folded 4x", bank_logprob, bank_init, 10,
+                                  dict(num_chains=HMC_BANK["num_chains"],
+                                       num_leapfrog=HMC_BANK["num_leapfrog"])))
     del lbfgs_sub
     _, natgrad_steps = phase_natgrad(dev)
     train = phase_kernel_train(dev)
@@ -3150,9 +3407,8 @@ def main() -> int:
                      ("50 captured natgrad_adam steps (ModGP demo)",
                       lambda: natgrad_steps("captured", 50)),
                      ("20 eager natgrad_adam steps (ModGP demo)",
-                      lambda: natgrad_steps("eager", 20)),
-                     ("10 HMC iterations (ModGP, 4 chains, 8 leapfrog steps)",
-                      lambda: _hmc_window(hmc_logprob, hmc_init, 10))])
+                      lambda: natgrad_steps("eager", 20))]
+                  + hmc_windows)
 
     main_chol = next(r for r in chol["cases"] if r["kind"] == "spd"
                      and r["shape"] == [sosp["windows"], 112, 112]

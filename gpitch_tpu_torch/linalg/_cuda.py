@@ -16,7 +16,7 @@ from pathlib import Path
 
 __all__ = ["CSRC_DIR", "BUILD_DIR", "build", "load", "check", "counted",
            "launch_counts", "record_capture", "record_replays", "device_launches",
-           "reset_launches", "GraphChain"]
+           "reset_launches", "graph_nodes", "GraphChain"]
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -130,7 +130,7 @@ def check(rc: int, what: str) -> None:
 # per wrapper, the calls recorded into graphs and the launches of their
 # replays, so that ``device_launches`` counts what ran on the card.
 COUNTED: dict = {}
-GRAPHS = {"graphs": 0, "replays": 0, "recorded": {}, "replayed": {}}
+GRAPHS = {"graphs": 0, "replays": 0, "host_points": 0, "recorded": {}, "replayed": {}}
 
 
 def counted(fn):
@@ -145,10 +145,12 @@ def launch_counts() -> dict:
     return {name: fn.launches for name, fn in COUNTED.items()}
 
 
-def record_capture(calls: dict) -> None:
-    """One graph captured, holding ``calls`` (wrapper name -> calls made
-    while capturing)."""
+def record_capture(calls: dict, host_points: int = 0) -> None:
+    """One graph (or one step split at ``host_points`` host all-reduces)
+    captured, holding ``calls`` (wrapper name -> calls made while
+    capturing)."""
     GRAPHS["graphs"] += 1
+    GRAPHS["host_points"] += host_points
     for name, n in calls.items():
         GRAPHS["recorded"][name] = GRAPHS["recorded"].get(name, 0) + n
 
@@ -172,7 +174,16 @@ def reset_launches() -> None:
     """Every registered wrapper's count and ``GRAPHS`` set to 0."""
     for fn in COUNTED.values():
         fn.launches = 0
-    GRAPHS.update(graphs=0, replays=0, recorded={}, replayed={})
+    GRAPHS.update(graphs=0, replays=0, host_points=0, recorded={}, replayed={})
+
+
+def graph_nodes(graph) -> int:
+    """The top-level nodes of a PyTorch CUDA graph captured with
+    ``keep_graph=True``."""
+    count = ctypes.c_longlong()
+    check(load("graphs").gpitch_graph_nodes(graph.raw_cuda_graph(), ctypes.byref(count)),
+          "gpitch_graph_nodes")
+    return count.value
 
 
 class GraphChain:
@@ -194,11 +205,7 @@ class GraphChain:
         self._graph, self._exec = _P(), _P()
         check(lib.gpitch_graph_chain(n, graphs, preds, ctypes.byref(self._graph),
                                      ctypes.byref(self._exec)), "gpitch_graph_chain")
-        count = ctypes.c_longlong()
-        self.nodes = 0
-        for g, (_, c) in zip(graphs, parts):
-            check(lib.gpitch_graph_nodes(g, ctypes.byref(count)), "gpitch_graph_nodes")
-            self.nodes += count.value + (0 if c is None else 2)
+        self.nodes = sum(graph_nodes(g) + (0 if c is None else 2) for g, c in parts)
 
     def replay(self) -> None:
         import torch

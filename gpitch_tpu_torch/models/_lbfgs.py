@@ -48,10 +48,22 @@ INCREASE_FACTOR = 2.0
 # f(w (B, D)) -> (values (B,), gradients (B, D)); g(w) -> values (B,)
 ValueAndGrad = Callable[[torch.Tensor], tuple[torch.Tensor, torch.Tensor]]
 Value = Callable[[torch.Tensor], torch.Tensor]
+# x (B, D) -> (B,): the sums of the rows over every rank's share of them
+# (``parallel.mesh.source_row_reduce``)
+Reduce = Callable[[torch.Tensor], torch.Tensor]
 
 
-def _vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return (a * b).sum(-1)
+def _vdot(a: torch.Tensor, b: torch.Tensor, reduce: Reduce | None = None) -> torch.Tensor:
+    """The rows' inner products (B,); with ``reduce``, over every rank's
+    share of the rows."""
+    return (a * b).sum(-1) if reduce is None else reduce(a * b)
+
+
+def _all_finite(x: torch.Tensor, reduce: Reduce | None = None) -> torch.Tensor:
+    """Whether every entry of each row is finite (B,), on every rank."""
+    if reduce is None:
+        return torch.isfinite(x).all(-1)
+    return reduce((~torch.isfinite(x)).to(x.dtype)) == 0
 
 
 def _where(mask: torch.Tensor, new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
@@ -111,9 +123,11 @@ class LbfgsStats:
 
 
 # ------------------------------------------------------------ the direction
-def _direction(g: torch.Tensor, st: LbfgsState, w: torch.Tensor):
+def _direction(g: torch.Tensor, st: LbfgsState, w: torch.Tensor,
+               reduce: Reduce | None = None):
     """scale_by_lbfgs: store (w - st.params, g - st.updates) in the ring
-    memory and return (P g, the new memories), P the two-loop product."""
+    memory and return (P g, the new memories), P the two-loop product
+    (every inner product over the ranks with ``reduce``)."""
     b, m = st.weights.shape
     rows = torch.arange(b, device=w.device)
     idx = st.count % m
@@ -121,7 +135,7 @@ def _direction(g: torch.Tensor, st: LbfgsState, w: torch.Tensor):
     started = st.count > 0
     dw = _where(started, w - st.params, torch.zeros_like(w))
     du = _where(started, g - st.updates, torch.zeros_like(g))
-    vd = _vdot(du, dw)
+    vd = _vdot(du, dw, reduce)
     weight = torch.where(vd == 0.0, torch.zeros_like(vd), 1.0 / vd)
     weight = torch.where(started, weight, torch.zeros_like(weight))
     dwm, dum, wm = st.diff_params.clone(), st.diff_updates.clone(), st.weights.clone()
@@ -129,9 +143,9 @@ def _direction(g: torch.Tensor, st: LbfgsState, w: torch.Tensor):
     dum[rows, prev] = du
     wm[rows, prev] = weight
 
-    den = _vdot(du, du)
-    scale = torch.where(den > 0.0, _vdot(du, dw) / den, torch.ones_like(den))
-    capped = torch.minimum(torch.ones_like(den), 1.0 / torch.sqrt(_vdot(g, g)))
+    den = _vdot(du, du, reduce)
+    scale = torch.where(den > 0.0, vd / den, torch.ones_like(den))
+    capped = torch.minimum(torch.ones_like(den), 1.0 / torch.sqrt(_vdot(g, g, reduce)))
     scale = torch.where(started, scale, capped)
 
     # the memory from oldest to newest: slots idx, idx + 1, ... (mod m)
@@ -142,12 +156,12 @@ def _direction(g: torch.Tensor, st: LbfgsState, w: torch.Tensor):
     vec = g
     alphas = [None] * m
     for k in reversed(range(m)):
-        alpha = orho[:, k] * _vdot(odw[:, k], vec)
+        alpha = orho[:, k] * _vdot(odw[:, k], vec, reduce)
         vec = vec + (-alpha)[:, None] * odu[:, k]
         alphas[k] = alpha
     vec = scale[:, None] * vec
     for k in range(m):
-        beta = orho[:, k] * _vdot(odu[:, k], vec)
+        beta = orho[:, k] * _vdot(odu[:, k], vec, reduce)
         vec = vec + (alphas[k] - beta)[:, None] * odw[:, k]
     return vec, (dwm, dum, wm)
 
@@ -271,8 +285,8 @@ class LbfgsSteps:
 
     def __init__(self, f: ValueAndGrad, fvalue: Value, w: torch.Tensor, num_steps: int,
                  memory_size: int = 20, grad_tol: float = 1e-9,
-                 stats: LbfgsStats | None = None):
-        self.f, self.fvalue, self.grad_tol = f, fvalue, grad_tol
+                 stats: LbfgsStats | None = None, reduce: Reduce | None = None):
+        self.f, self.fvalue, self.grad_tol, self.reduce = f, fvalue, grad_tol, reduce
         self.stats = LbfgsStats() if stats is None else stats
         b = w.shape[0]
         self.num_steps = num_steps
@@ -340,14 +354,14 @@ class LbfgsSteps:
         self.best_v.copy_(torch.where(better, value, self.best_v))
         run = self.i < self.active_steps
         self.counts[0:1].add_(run)
-        torch.logical_and(torch.sqrt(_vdot(grad, grad)) > self.grad_tol, run,
+        torch.logical_and(torch.sqrt(_vdot(grad, grad, self.reduce)) > self.grad_tol, run,
                           out=self.searching)
-        direction, memory = _direction(grad, st, self.w)
+        direction, memory = _direction(grad, st, self.w, self.reduce)
         torch.mul(direction, -1.0, out=self.u)
         for static, new in zip(self.memory, memory):
             static.copy_(new)
         # the linesearch's start: step 0, the value and slope at w
-        s, slope = self.s, _vdot(self.u, grad)
+        s, slope = self.s, _vdot(self.u, grad, self.reduce)
         self.value_init.copy_(value)
         self.slope_init.copy_(slope)
         for key in ("count", "stepsize", "low", "high", "cubic_ref", "safe_stepsize"):
@@ -379,7 +393,7 @@ class LbfgsSteps:
         self.counts[1:2].add_(self.any_active)
         self.trials.index_add_(0, self.i.reshape(1), self.any_active.reshape(1).long())
         self.nonfinite.logical_or_(active & ~torch.isfinite(vt))
-        st_ = _vdot(gt, u)
+        st_ = _vdot(gt, u, self.reduce)
         dec = _decrease_error(step, vt, st_, value_init, slope_init)
         err = torch.maximum(dec, _curvature_error(st_, slope_init))
         done = err <= 0.0
@@ -438,7 +452,7 @@ class LbfgsSteps:
     def _tail(self) -> None:
         st, s, w = self.state, self.s, self.w
         update = s["stepsize"][:, None] * self.u
-        ok = self.searching & torch.isfinite(update).all(-1)
+        ok = self.searching & _all_finite(update, self.reduce)
         dwm, dum, wm = self.memory
         new = LbfgsState(count=st.count + 1, params=w, updates=self.grad,
                          diff_params=dwm, diff_updates=dum, weights=wm,
@@ -583,7 +597,8 @@ def lbfgs_run(f: ValueAndGrad, fvalue: Value, w: torch.Tensor, num_steps: int,
               memory_size: int = 20, grad_tol: float = 1e-9,
               state: LbfgsState | None = None, active_steps: int | None = None,
               best: tuple[torch.Tensor, torch.Tensor] | None = None,
-              stats: LbfgsStats | None = None, nonfinite: torch.Tensor | None = None):
+              stats: LbfgsStats | None = None, nonfinite: torch.Tensor | None = None,
+              reduce: Reduce | None = None):
     """``num_steps`` L-BFGS iterations from w (B, D), each problem on its
     own (``LbfgsSteps``: captured on the card, eager on the CPU).  The loss
     recorded at step i is the value before update i.  A problem freezes
@@ -592,9 +607,11 @@ def lbfgs_run(f: ValueAndGrad, fvalue: Value, w: torch.Tensor, num_steps: int,
     carries the best-visited point across calls; the final state's own
     value is evaluated once and compared too.  ``nonfinite`` (B,) bool,
     when given, is marked for every problem that meets a value that is not
-    finite.  Returns (w, losses (B, num_steps), state, (best_w, best_v),
-    stats)."""
-    run = LbfgsSteps(f, fvalue, w, num_steps, memory_size, grad_tol, stats)
+    finite.  ``reduce``: the rows are each rank's share of the problems'
+    parameters, and every inner product and finite test is taken over the
+    ranks (a ModGP whose sources are split; None in one process).  Returns
+    (w, losses (B, num_steps), state, (best_w, best_v), stats)."""
+    run = LbfgsSteps(f, fvalue, w, num_steps, memory_size, grad_tol, stats, reduce)
     run.load(w, state, best, active_steps)
     run.run(num_steps)
     run.finish()

@@ -27,6 +27,7 @@ state, and the caller's model is left unchanged.
 
 from __future__ import annotations
 
+import gc
 import time
 from typing import Callable
 
@@ -168,6 +169,19 @@ def minibatch_fn(x: torch.Tensor, y: torch.Tensor, size: int,
     return batch_fn
 
 
+_SIDE_STREAMS: dict = {}
+
+
+def _side_stream(device) -> torch.cuda.Stream:
+    """The one side stream of ``device`` on which every warm-up step and
+    capture runs: a new stream would get cuBLAS a new workspace (kept for
+    the process) and a capture its own copies of the per-stream state."""
+    device = torch.device(device)
+    if device not in _SIDE_STREAMS:
+        _SIDE_STREAMS[device] = torch.cuda.Stream(device)
+    return _SIDE_STREAMS[device]
+
+
 class CapturedSteps:
     """Steps that read nothing from the host, run as the JAX package runs a
     compiled segment.  A subclass gives ``step()``, which writes its
@@ -182,6 +196,16 @@ class CapturedSteps:
     draw's generator is registered with the graph, so each replay draws the
     next batch.  A capture that fails raises.  On the CPU every step runs
     eagerly, the plain version of the capture.
+
+    A step that sums over gloo ranks (a ModGP whose sources are split,
+    ``parallel.mesh``) holds host all-reduces, which no graph can: its
+    capture is split at each (``mesh.HOST_POINTS``) into graphs captured
+    one after another in one memory pool, so that autograd's graph runs
+    across them (a backward needs no collective: ``_SumOverRanks``'s is
+    the identity).  A replay runs the graphs in their order and, between
+    two, copies the all-reduce's input into pinned host memory, waits on
+    one event, all-reduces there and copies the sum into the static tensor
+    the next graph reads: one fence a host point (``host_points``).
     """
 
     WARMUP = 3
@@ -190,9 +214,25 @@ class CapturedSteps:
         self.losses, self.batch_fn = losses, batch_fn
         self.at = 0                    # the count, as the host knows it
         self.eager_steps = 0
-        self.graph = None
+        self.graphs = []               # the captured step's graphs, in their order
+        self.points = []               # the host all-reduces between them
+        self.pool = None               # the graphs' memory pool (None: their own)
         self.capture_s = 0.0           # host seconds of the capture
         self.calls = {}                # kernel wrapper -> its calls in the graph
+
+    @property
+    def graph(self):
+        """The captured step's (first) graph, None before the capture."""
+        return self.graphs[0] if self.graphs else None
+
+    @property
+    def host_points(self) -> int:
+        """Host all-reduces (fences) in a captured step."""
+        return len(self.points)
+
+    def nodes(self) -> int:
+        """The captured step's graph nodes, over all its graphs."""
+        return sum(_cuda.graph_nodes(g) for g in self.graphs)
 
     def step(self) -> None:
         raise NotImplementedError
@@ -205,14 +245,15 @@ class CapturedSteps:
         self.at += n
 
     def run(self, n: int) -> None:
-        """``n`` more steps, with no host fence."""
+        """``n`` more steps, with no host fence but one at each host point
+        of a split step."""
         if not self.losses.is_cuda:
             return self.eager(n)
         self.at += n
         if self.graph is None:
             warm = min(n, self.WARMUP - self.eager_steps)
             if warm > 0:
-                side = torch.cuda.Stream(self.losses.device)
+                side = _side_stream(self.losses.device)
                 side.wait_stream(torch.cuda.current_stream())
                 with torch.cuda.stream(side):
                     for _ in range(warm):
@@ -224,24 +265,87 @@ class CapturedSteps:
                 return
             self._capture()
         for _ in range(n):
-            self.graph.replay()
+            self.replay()
         _cuda.record_replays(self.calls, n)
 
+    def replay(self) -> None:
+        """One captured step."""
+        self.graphs[0].replay()
+        for graph, point in zip(self.graphs[1:], self.points):
+            point.all_reduce()
+            graph.replay()
+
     def _capture(self) -> None:
-        graph = torch.cuda.CUDAGraph()
+        from ..parallel import mesh
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
         generator = getattr(self.batch_fn, "generator", None)
         if generator is not None:
             graph.register_generator_state(generator)
+        pool = self.pool if self.pool is not None else torch.cuda.graph_pool_handle()
+        graphs, points = [graph], []
+
+        def split(x: torch.Tensor, group) -> torch.Tensor:
+            # a host point: this graph ends, the next begins, and the sum's
+            # static tensor stands for x's sum in it
+            graphs[-1].capture_end()
+            points.append(_HostPoint(x, group))
+            graphs.append(torch.cuda.CUDAGraph(keep_graph=True))
+            graphs[-1].capture_begin(pool=pool)
+            return points[-1].out.clone()
+
         before = _cuda.launch_counts()
         t0 = time.perf_counter()
-        with torch.cuda.graph(graph):
-            self.step()
+        # as torch.cuda.graph does: no garbage left whose freeing inside the
+        # capture would query events of other streams; and no collection
+        # during it
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        collecting = gc.isenabled()
+        gc.disable()
+        side = _side_stream(self.losses.device)
+        side.wait_stream(torch.cuda.current_stream())
+        mesh.HOST_POINTS.append(split)
+        try:
+            with torch.cuda.stream(side):
+                graph.capture_begin(pool=pool)
+                try:
+                    self.step()
+                finally:
+                    graphs[-1].capture_end()
+        finally:
+            mesh.HOST_POINTS.pop()
+            if collecting:
+                gc.enable()
+        torch.cuda.current_stream().wait_stream(side)
+        for g in graphs:
+            g.instantiate()
+        self.graphs, self.points = graphs, points
         self.capture_s = time.perf_counter() - t0
         after = _cuda.launch_counts()
         self.calls = {k: n - before.get(k, 0) for k, n in after.items()
                       if n != before.get(k, 0)}
-        _cuda.record_capture(self.calls)
-        self.graph = graph
+        _cuda.record_capture(self.calls, len(self.points))
+
+
+class _HostPoint:
+    """A gloo all-reduce between two graphs of a split step: ``x`` the
+    static tensor the graph before it leaves, ``out`` the one the graph
+    after it reads, and a pinned host buffer between them."""
+
+    def __init__(self, x: torch.Tensor, group):
+        self.x, self.group = x, group
+        self.out = torch.empty_like(x)
+        self.host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        self.ready = torch.cuda.Event()
+
+    def all_reduce(self) -> None:
+        import torch.distributed as dist
+        self.host.copy_(self.x, non_blocking=True)
+        self.ready.record()
+        self.ready.synchronize()
+        dist.all_reduce(self.host, group=self.group)
+        self.out.copy_(self.host, non_blocking=True)
 
 
 class AdamSteps(CapturedSteps):
@@ -456,16 +560,31 @@ def lbfgs_solve(model, loss_fn: Callable, num_steps: int = 1000,
     the solver state and the (best model, best value) pair across calls,
     so segments of a solve equal the whole solve.  Returns (best model,
     losses numpy), with ``return_state`` (last model, losses, state, (best
-    model, best value)).  The caller's model is left unchanged."""
+    model, best value)).  The caller's model is left unchanged.
+
+    A ModGP whose sources are split over ranks (``source_group``) is one
+    problem across them: every inner product and finite test of the solver
+    is summed over the ranks, the replicated noise variance counted once,
+    so every rank takes the decisions of one process.  On the card that
+    needs an NCCL group (its all-reduces are captured); over gloo it raises
+    ValueError."""
+    from ..parallel.mesh import on_host, source_row_reduce
     rows = ParamRows(model, loss_fn, batched=False)
     w = rows.rows()
+    group = getattr(model, "source_group", None)
+    if group is not None and w.is_cuda and on_host(group):
+        raise ValueError(
+            "L-BFGS over a ModGP whose sources are split over gloo ranks cannot run "
+            "on the card: every inner product of the solver is a host all-reduce, "
+            "and the captured iteration's conditional graphs can hold none; use an "
+            "NCCL group, or the CPU")
     best = None
     if best_in is not None:
         best = (rows.rows(best_in[0]),
                 torch.as_tensor(best_in[1], dtype=w.dtype, device=w.device).reshape(1))
     w, losses, state, (best_w, best_v), _ = lbfgs_run(
         rows.value_and_grad, rows.value, w, num_steps, memory_size, grad_tol,
-        opt_state, active_steps, best)
+        opt_state, active_steps, best, reduce=source_row_reduce(rows.model))
     losses = losses[0].cpu().numpy()
     if return_state:
         return rows.model_at(w), losses, state, (rows.model_at(best_w), best_v[0])

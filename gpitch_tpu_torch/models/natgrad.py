@@ -35,6 +35,7 @@ import torch
 
 from ..core.params import Param, copy_params, named_params
 from ..linalg.ops import add_jitter, safe_cholesky
+from ..parallel.mesh import all_over_ranks
 from .fit import Adam, CapturedSteps, _sqrt_rn
 
 __all__ = ["natgrad_step", "natgrad_polish", "fit_natgrad_adam", "NatgradSteps"]
@@ -120,10 +121,12 @@ def natgrad_step(model, x, y, gamma: float = 0.1, num_data: int | None = None):
 
 def _finite(model, loss, extra=()) -> torch.Tensor:
     """Whether the loss and every raw leaf of the model (and ``extra``)
-    are finite: a 0-d bool on their device."""
+    are finite: a 0-d bool on their device.  For a model whose sources are
+    split over ranks, on every rank: all skip a step where one rank's
+    leaves are not finite, as one process does."""
     flat = [loss.detach().reshape(-1)] + [t.detach().reshape(-1) for t in extra]
     flat += [p.raw.detach().reshape(-1) for _, p in named_params(model)]
-    return torch.isfinite(torch.cat(flat)).all()
+    return all_over_ranks(torch.isfinite(torch.cat(flat)).all(), model.source_group)
 
 
 class NatgradSteps(CapturedSteps):

@@ -206,16 +206,21 @@ class ModGP:
             mean_c, var_c = self._bank("com", x)
             fmu = torch.cat([mean_a, mean_c], dim=1)
             fvar = torch.cat([var_a, var_c], dim=1)
+        kl = self.prior_kl()
         reduce = None
         if self.source_group is not None:
             from ..parallel.mesh import sum_over_ranks
+            summed = []
 
             def reduce(t):
-                return sum_over_ranks(t, self.source_group)
+                # the likelihood's sums and the KL in one all-reduce
+                both = sum_over_ranks(torch.cat([t.reshape(-1), kl.reshape(1)]),
+                                      self.source_group)
+                summed.append(both[-1])
+                return both[:-1].reshape(t.shape)
         var_exp = self.likelihood.variational_expectations(fmu, fvar, y, reduce=reduce)
         scale = 1.0 if num_data is None else num_data / x.shape[0]
-        kl = self.prior_kl()
-        return var_exp.sum() * scale - (kl if reduce is None else reduce(kl))
+        return var_exp.sum() * scale - (kl if reduce is None else summed[0])
 
     def build_prior_kl(self):
         """The reference's name for ``prior_kl``."""

@@ -28,7 +28,7 @@ from typing import Any
 
 import torch
 
-from ..core.params import Param, map_params, trainable_tensors
+from ..core.params import Param, map_params, named_params, trainable_tensors
 
 __all__ = ["make_mesh", "shard_leading_axis", "replicate", "pad_bank_windows",
            "shard_bank", "shard_modgp_sources", "init_multihost",
@@ -108,17 +108,39 @@ def comm_device(group) -> torch.device:
     return torch.device("cpu")
 
 
+def on_host(group) -> bool:
+    """Whether the group's collectives run on the host (gloo)."""
+    return comm_device(group).type == "cpu"
+
+
+# The split captures in progress (``models.fit.CapturedSteps``), innermost
+# last: each a callable (x, group) -> the tensor that stands for x's sum in
+# the graph captured next (see ``_SumOverRanks``).
+HOST_POINTS: list = []
+
+
 class _SumOverRanks(torch.autograd.Function):
     """An all-reduce (sum) whose output every rank holds and differentiates
     alike: the cotangent of each rank's input is the output's own, as for
     JAX's psum under shard_map with a replicated output.
     ``torch.distributed.nn.functional.all_reduce`` would all-reduce the
     cotangent in the backward too, which suits a loss that is the sum of the
-    ranks' losses and gives size x the gradient of a replicated one."""
+    ranks' losses and gives size x the gradient of a replicated one.
+
+    A card tensor under a CUDA graph's capture: NCCL's all-reduce is
+    recorded into the graph.  gloo's is host work, which no graph can hold:
+    inside a split capture (``HOST_POINTS``) the capture ends here and the
+    next graph's starts, and each replay all-reduces on the host between
+    the two; any other capture raises."""
 
     @staticmethod
     def forward(ctx, x, group):
         import torch.distributed as dist
+        if x.is_cuda and on_host(group) and torch.cuda.is_current_stream_capturing():
+            if not HOST_POINTS:
+                raise RuntimeError("a gloo all-reduce cannot be captured in a CUDA graph: "
+                                   "run the step in a split capture (models.fit.CapturedSteps)")
+            return HOST_POINTS[-1](x.detach().contiguous(), group)
         buf = x.detach().to(comm_device(group), copy=True).contiguous()
         dist.all_reduce(buf, group=group)
         return buf.to(x.device)
@@ -132,6 +154,36 @@ def sum_over_ranks(x: torch.Tensor, group) -> torch.Tensor:
     """Differentiable sum of ``x`` over the ranks of ``group`` (see
     ``_SumOverRanks``)."""
     return _SumOverRanks.apply(x, group)
+
+
+def all_over_ranks(flag: torch.Tensor, group) -> torch.Tensor:
+    """Whether the 0-d bool ``flag`` holds on every rank of ``group`` (on
+    the flag's device; the flag itself where ``group`` is None)."""
+    if group is None:
+        return flag
+    return sum_over_ranks((~flag).to(torch.float32).reshape(1), group)[0] == 0
+
+
+def source_row_reduce(model):
+    """For a ModGP whose sources are split over ranks (``source_group``
+    set), ``reduce(x)``: the sums over the ranks of the rows of x (B, D),
+    whose columns are the model's trainable leaves in
+    ``trainable_tensors`` order.  A replicated leaf (the likelihood's) is
+    counted on the group's first rank only, so it enters each sum once, as
+    in one process.  None for a model that is not split."""
+    group = getattr(model, "source_group", None)
+    if group is None:
+        return None
+    import torch.distributed as dist
+    first = dist.get_rank(group) == 0
+    keep = torch.cat([torch.full((p.raw.numel(),), first or not name.startswith(".likelihood."),
+                                 device=p.raw.device)
+                      for name, p in named_params(model) if p.trainable])
+
+    def reduce(x: torch.Tensor) -> torch.Tensor:
+        return sum_over_ranks(torch.where(keep, x, 0.0).sum(-1), group)
+
+    return reduce
 
 
 def _map_tensors(tree, fn):

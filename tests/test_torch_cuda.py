@@ -733,3 +733,92 @@ def test_cuda_captured_natgrad_adam_with_skips_matches_eager(cuda):
     assert int(runs[0].adam.t) == int(runs[1].adam.t) == int(np.isfinite(cap).sum())
     for (name, a), (_, b) in zip(named_params(runs[0].model), named_params(runs[1].model)):
         assert torch.equal(a.raw, b.raw), name
+
+
+# ------------------------------------------------------------ the HMC runner
+def _hmc_noise(init, chains, total, seed, device):
+    gen = torch.Generator().manual_seed(seed)
+
+    def normal(shape, v):
+        return torch.randn(shape + tuple(v.shape), generator=gen).to(device)
+
+    return ({k: normal((chains,), v) for k, v in init.items()},
+            {k: normal((total, chains), v) for k, v in init.items()},
+            torch.rand((total, chains), generator=gen).to(device))
+
+
+def _hmc_routes(cuda):
+    """Both model_logprob_fn routes on the card in f32, (logprob, init):
+    the small bank's kernel leaves, the chains folded into its windows (the
+    Cholesky kernel and the fused pair), and a 2-source ModGP's component
+    lengthscales and variances, the chains vmapped."""
+    from gpitch_tpu_torch.core.params import named_params, with_raw
+    from gpitch_tpu_torch.kernels import Matern32, MercerMatern12sm
+    from gpitch_tpu_torch.models import ModGP, model_logprob_fn
+    bank = _lbfgs_bank(cuda, torch.float32)
+    raws = dict(named_params(bank))
+    bank_init = {k: raws[k].raw.detach().clone()
+                 for k in (".kern.stacked.variance", ".kern.stacked.lengthscales")}
+    z = np.linspace(0, 1, 8).reshape(-1, 1)
+    model = ModGP.create(z=[[z] * 2, [z] * 2],
+                         kern=[[Matern32.create(1.0, 0.3) for _ in range(2)],
+                               [MercerMatern12sm.create(1.0, 0.5, [1.0], [5.0 * (i + 1)])
+                                for i in range(2)]], device=cuda)
+    x = torch.linspace(0, 1, 64, device=cuda)[:, None]
+    y = 0.5 * torch.sin(2 * np.pi * 5.0 * x)
+    raws = dict(named_params(model))
+    modgp_init = {k: raws[k].raw.detach().clone()
+                  for k in (".kern_com.lengthscales", ".kern_com.variance")}
+    return [(model_logprob_fn(bank, with_raw, prior_scale=10.0), bank_init),
+            (model_logprob_fn(model, with_raw, x, y, prior_scale=10.0), modgp_init)]
+
+
+@pytest.mark.parametrize("route", [0, 1], ids=["bank", "modgp"])
+def test_cuda_captured_hmc_matches_eager(cuda, monkeypatch, route):
+    """models.hmc.HmcSteps on each route, 2 chains, 3 leapfrog steps, 20 +
+    10 iterations in f32: its three phases captured (3 graphs) and replayed
+    give the eager iterations' samples and rates bit for bit; the eager
+    iterations run under torch's sync debug mode 'error' (no host read);
+    on the bank the Cholesky kernel and kernels A and B launch."""
+    from gpitch_tpu_torch.linalg import _cuda
+    from gpitch_tpu_torch.models import fit
+    from gpitch_tpu_torch.models.hmc import HmcSteps
+    fn, init = _hmc_routes(cuda)[route]
+    noise = _hmc_noise(init, 2, 30, 11, cuda)
+    args = (fn, init, *noise, 20, 10, 3, 0.05, 0.8, 0.01, True)
+    _cuda.reset_launches()
+    runner = HmcSteps(*args)
+    got_s, got_r = runner.run()
+    assert _cuda.GRAPHS["graphs"] == 3
+    assert all(p.graph is not None for p in runner.phases.values())
+    if route == 0:
+        launches = _cuda.device_launches()
+        assert all(launches[k] > 0 for k in ("cholesky_batched", "fused_whiten",
+                                             "fused_whiten_bwd")), launches
+    monkeypatch.setattr(fit.CapturedSteps, "run", fit.CapturedSteps.eager)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        want_s, want_r = HmcSteps(*args).run()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(got_r, want_r)
+    for k in want_s:
+        assert torch.equal(got_s[k], want_s[k]), k
+    assert bool(torch.isfinite(got_r).all())
+
+
+def test_cuda_hmc_capture_that_fails_raises(cuda):
+    """A log density that reads the host cannot be captured: HmcSteps
+    raises (it has no eager fallback)."""
+    from gpitch_tpu_torch.models.hmc import HmcSteps
+
+    def logprob(q):
+        x = q["x"]
+        float(x.sum())
+        return -0.5 * x.square().sum(-1)
+
+    init = {"x": torch.zeros(2, device=cuda)}
+    with pytest.raises(RuntimeError):
+        HmcSteps(logprob, init, *_hmc_noise(init, 2, 10, 0, cuda), 5, 5, 2, 0.1, 0.8, 0.1,
+                 False).run()

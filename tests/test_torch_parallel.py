@@ -189,3 +189,37 @@ def test_torch_modgp_sources_on_two_ranks_match(two_ranks):
     for name, g in _grads(model, loss).items():
         got = two_ranks[f"modgp_grad{name}"].reshape(g.shape)
         close(got, g.numpy())
+
+
+@pytest.mark.parametrize("case", list(worker.MODGP_FITS))
+def test_torch_modgp_fit_on_two_ranks_matches_one_process(two_ranks, case):
+    """fit_modgp on the 8-source ModGP split over 2 ranks (4 sources a
+    rank) against one process on the whole model, 10 steps of each method
+    (Adam full batch and minibatch 16: every rank draws one process's
+    indices; natgrad_adam; natgrad_adam where Adam's proposal for a source
+    of rank 1 goes NaN at step 4, the loss finite, and every rank skips the
+    step; L-BFGS, whose inner products and
+    finite tests are taken over the ranks): every loss and every leaf
+    (per-source leaves gathered in rank order, the replicated noise
+    variance on each rank) within 1e-10 of max|ref|."""
+    model, x, y = worker.modgp_data()
+    with pytest.MonkeyPatch.context() as monkey:
+        if case == "natgrad_adam_skip":
+            worker.nan_source_at(monkey, 0)
+        from gpitch_tpu_torch.models import fit_modgp
+        fitted, losses = fit_modgp(model, x, y, **worker.MODGP_FITS[case])
+    got = two_ranks[f"fit_{case}_losses"]
+    skipped = np.isnan(losses)
+    assert np.array_equal(np.isnan(got), skipped)
+    assert skipped.sum() == (1 if case == "natgrad_adam_skip" else 0)
+    if case == "natgrad_adam_skip":
+        assert skipped[worker.SKIP_STEP]
+    close(got[~skipped], losses[~skipped])
+    for name, p in named_params(fitted):
+        want = p.raw.detach().numpy()
+        have = two_ranks[f"fit_{case}{name}"]
+        if name.startswith(".likelihood."):
+            for rank_value in have:
+                close(rank_value, want)
+        else:
+            close(have, want)

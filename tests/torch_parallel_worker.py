@@ -5,7 +5,7 @@
 Joins the group through a file store (no port), runs every case on the
 CPU in f64 and, on rank 0, writes what the test compares into <out.npz>.
 The workloads are built here, and the test builds the same ones for the
-unsharded runs.  Imports torch and the port only.
+unsharded runs.  Imports torch, the port and pytest's MonkeyPatch.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ import os
 import sys
 
 import numpy as np
+import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
@@ -75,6 +76,62 @@ def modgp_data(s=8):
     return model, torch.as_tensor(x), torch.as_tensor(y)
 
 
+# fit_modgp's methods on the 8-source ModGP, by case name: the two ranks'
+# source-sharded fits against one process's (tests/test_torch_parallel.py)
+MODGP_FITS = {
+    "adam": dict(method="adam", num_steps=10, learning_rate=0.01, minibatch_size=None),
+    "adam_minibatch": dict(method="adam", num_steps=10, learning_rate=0.01,
+                           minibatch_size=16),
+    "natgrad_adam": dict(method="natgrad_adam", num_steps=10, learning_rate=0.01,
+                         minibatch_size=None),
+    "natgrad_adam_skip": dict(method="natgrad_adam", num_steps=10, learning_rate=0.01,
+                              minibatch_size=None),
+    "lbfgs": dict(method="lbfgs", num_steps=10, minibatch_size=None),
+}
+# natgrad_adam_skip: Adam's proposal for the first hyperparameter leaf of
+# this source (rank 1's second of its 4) goes NaN at this step, the loss
+# and the natural step staying finite
+SKIP_SOURCE, SKIP_STEP = 5, 4
+
+
+def nan_source_at(monkey, first_source: int):
+    """Patch ``Adam.propose`` (through ``monkey``, a pytest MonkeyPatch) so
+    that at its call SKIP_STEP, the proposed first leaf (kern_act's
+    variance, a leading source axis) of global source SKIP_SOURCE is NaN
+    where this process holds it (its sources start at ``first_source``)."""
+    from gpitch_tpu_torch.models.fit import Adam
+    real, calls = Adam.propose, [0]
+
+    def propose(self, grads):
+        params, m, v = real(self, grads)
+        local = SKIP_SOURCE - first_source
+        if calls[0] == SKIP_STEP and 0 <= local < params[0].shape[0]:
+            params = list(params)
+            params[0] = params[0].clone()
+            params[0][local] = float("nan")
+        calls[0] += 1
+        return params, m, v
+
+    monkey.setattr(Adam, "propose", propose)
+
+
+def gathered_leaves(model, group) -> dict:
+    """Every raw leaf of a source-sharded ModGP: the per-source leaves
+    gathered in rank order, the replicated ones (the likelihood's) as each
+    rank holds them, stacked (world, ...)."""
+    from gpitch_tpu_torch.core.params import named_params
+    from gpitch_tpu_torch.parallel.mesh import gather_rows
+    out = {}
+    for n, p in named_params(model):
+        raw = p.raw.detach()
+        if n.startswith(".likelihood."):
+            out[n] = gather_rows(raw.reshape(1, -1), group).reshape((-1,) + raw.shape)
+        else:
+            rows = gather_rows(raw.reshape(raw.shape[0], -1), group)
+            out[n] = rows.reshape((-1,) + raw.shape[1:])
+    return {n: v.numpy() for n, v in out.items()}
+
+
 def trainable_grads(model, loss) -> list:
     from gpitch_tpu_torch.core.params import named_params
     names = [n for n, p in named_params(model) if p.trainable]
@@ -132,6 +189,18 @@ def main() -> int:
         per_source = g.dim() >= 1 and n != ".likelihood.variance"
         res[f"modgp_grad{n}"] = (gather_rows(g.reshape(g.shape[0], -1), group).numpy()
                                  if per_source else g.numpy())
+
+    # fit_modgp on the source-sharded model, each method
+    from gpitch_tpu_torch.models import fit_modgp
+    for name, kw in MODGP_FITS.items():
+        local, _ = shard_modgp_sources(model, mesh)
+        with pytest.MonkeyPatch.context() as monkey:
+            if name == "natgrad_adam_skip":
+                nan_source_at(monkey, rank * local.num_sources)
+            fitted, losses = fit_modgp(local, x, y, **kw)
+        res[f"fit_{name}_losses"] = np.asarray(losses)
+        for n, v in gathered_leaves(fitted, group).items():
+            res[f"fit_{name}{n}"] = v
     dist.barrier()
     if rank == 0:
         np.savez(out, **res)
