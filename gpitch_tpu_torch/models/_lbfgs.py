@@ -35,6 +35,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..utils.profiling import span
+
 __all__ = ["LbfgsState", "LbfgsSteps", "lbfgs_run", "LbfgsStats"]
 
 # optax.lbfgs's linesearch: scale_by_zoom_linesearch defaults
@@ -486,23 +488,25 @@ class LbfgsSteps:
             if self.graphs is None:
                 warm = min(n, self.WARMUP - self.eager_iterations)
                 if warm > 0:
-                    side = torch.cuda.Stream(self.w.device)
-                    side.wait_stream(torch.cuda.current_stream())
-                    with torch.cuda.stream(side):
-                        for _ in range(warm):
-                            self.iteration()
-                    torch.cuda.current_stream().wait_stream(side)
+                    with span("gpitch.fit.warmup"):
+                        side = torch.cuda.Stream(self.w.device)
+                        side.wait_stream(torch.cuda.current_stream())
+                        with torch.cuda.stream(side):
+                            for _ in range(warm):
+                                self.iteration()
+                        torch.cuda.current_stream().wait_stream(side)
                     self.eager_iterations += warm
                     n -= warm
                 if n == 0:
                     return
                 self._capture()
             head, trial, tail = self.graphs
-            for _ in range(n):
-                head.replay()
-                for _ in range(MAX_LINESEARCH_STEPS):
-                    trial.replay()
-                tail.replay()
+            with span("gpitch.fit.replay"):
+                for _ in range(n):
+                    head.replay()
+                    for _ in range(MAX_LINESEARCH_STEPS):
+                        trial.replay()
+                    tail.replay()
 
     def _capture(self) -> None:
         from ..linalg import _cuda
@@ -513,23 +517,24 @@ class LbfgsSteps:
         pool = torch.cuda.graph_pool_handle()
         parts = self.parts
         t0 = time.perf_counter()
-        for name, part in (("need", self._head_need), ("evaluation", self._evaluate_need),
-                           ("head", self._head), ("trial", self._trial),
-                           ("tail", self._tail)):
-            graph = torch.cuda.CUDAGraph(keep_graph=True)
-            before = _cuda.launch_counts()
-            with torch.cuda.graph(graph, pool=pool):
-                part()
-            after = _cuda.launch_counts()
-            self.calls[name] = {k: n - before.get(k, 0) for k, n in after.items()
-                                if n != before.get(k, 0)}
-            _cuda.record_capture(self.calls[name])
-            parts[name] = graph
-        self.graphs = (_cuda.GraphChain([(parts["need"], None),
-                                         (parts["evaluation"], self.any_need),
-                                         (parts["head"], None)]),
-                       _cuda.GraphChain([(parts["trial"], self.any_active)]),
-                       _cuda.GraphChain([(parts["tail"], None)]))
+        with span("gpitch.fit.capture"):
+            for name, part in (("need", self._head_need), ("evaluation", self._evaluate_need),
+                               ("head", self._head), ("trial", self._trial),
+                               ("tail", self._tail)):
+                graph = torch.cuda.CUDAGraph(keep_graph=True)
+                before = _cuda.launch_counts()
+                with torch.cuda.graph(graph, pool=pool):
+                    part()
+                after = _cuda.launch_counts()
+                self.calls[name] = {k: n - before.get(k, 0) for k, n in after.items()
+                                    if n != before.get(k, 0)}
+                _cuda.record_capture(self.calls[name])
+                parts[name] = graph
+            self.graphs = (_cuda.GraphChain([(parts["need"], None),
+                                             (parts["evaluation"], self.any_need),
+                                             (parts["head"], None)]),
+                           _cuda.GraphChain([(parts["trial"], self.any_active)]),
+                           _cuda.GraphChain([(parts["tail"], None)]))
         self.capture_s = time.perf_counter() - t0
 
     @torch.no_grad()
@@ -550,8 +555,9 @@ class LbfgsSteps:
         [losses, *more] as numpy."""
         from ..linalg import _cuda
         n = stop - start
-        host = _readback(self.losses[:, start:stop], self.counts,
-                         self.trials[start:stop], *more)
+        with span("gpitch.fit.fence"):
+            host = _readback(self.losses[:, start:stop], self.counts,
+                             self.trials[start:stop], *more)
         counts = host[1]
         delta = counts - self.counted
         self.counted = counts.copy()

@@ -36,6 +36,7 @@ import torch
 
 from ..core.params import Param, copy_params, map_params, named_params, trainable_tensors
 from ..linalg import _cuda
+from ..utils.profiling import span
 from ._lbfgs import lbfgs_run
 
 __all__ = ["Adam", "CapturedSteps", "AdamSteps", "adam_step_fn", "minibatch_fn",
@@ -206,6 +207,10 @@ class CapturedSteps:
     two, copies the all-reduce's input into pinned host memory, waits on
     one event, all-reduces there and copies the sum into the static tensor
     the next graph reads: one fence a host point (``host_points``).
+
+    Counters of the run (never of a step): ``eager_steps`` (the card's
+    warm-up; every step on the CPU), ``warmup_s`` (the host seconds of the
+    card's warm-up), ``captures``, ``capture_s`` and ``replays``.
     """
 
     WARMUP = 3
@@ -213,7 +218,10 @@ class CapturedSteps:
     def __init__(self, losses: torch.Tensor, batch_fn: Callable | None = None):
         self.losses, self.batch_fn = losses, batch_fn
         self.at = 0                    # the count, as the host knows it
-        self.eager_steps = 0
+        self.eager_steps = 0           # steps ``run`` ran eagerly
+        self.warmup_s = 0.0            # host seconds of the card's warm-up
+        self.captures = 0
+        self.replays = 0
         self.graphs = []               # the captured step's graphs, in their order
         self.points = []               # the host all-reduces between them
         self.pool = None               # the graphs' memory pool (None: their own)
@@ -248,24 +256,30 @@ class CapturedSteps:
         """``n`` more steps, with no host fence but one at each host point
         of a split step."""
         if not self.losses.is_cuda:
+            self.eager_steps += n
             return self.eager(n)
         self.at += n
         if self.graph is None:
             warm = min(n, self.WARMUP - self.eager_steps)
             if warm > 0:
-                side = _side_stream(self.losses.device)
-                side.wait_stream(torch.cuda.current_stream())
-                with torch.cuda.stream(side):
-                    for _ in range(warm):
-                        self.step()
-                torch.cuda.current_stream().wait_stream(side)
+                t0 = time.perf_counter()
+                with span("gpitch.fit.warmup"):
+                    side = _side_stream(self.losses.device)
+                    side.wait_stream(torch.cuda.current_stream())
+                    with torch.cuda.stream(side):
+                        for _ in range(warm):
+                            self.step()
+                    torch.cuda.current_stream().wait_stream(side)
+                self.warmup_s += time.perf_counter() - t0
                 self.eager_steps += warm
                 n -= warm
             if n == 0:
                 return
             self._capture()
-        for _ in range(n):
-            self.replay()
+        with span("gpitch.fit.replay"):
+            for _ in range(n):
+                self.replay()
+        self.replays += n
         _cuda.record_replays(self.calls, n)
 
     def replay(self) -> None:
@@ -295,33 +309,35 @@ class CapturedSteps:
 
         before = _cuda.launch_counts()
         t0 = time.perf_counter()
-        # as torch.cuda.graph does: no garbage left whose freeing inside the
-        # capture would query events of other streams; and no collection
-        # during it
-        torch.cuda.synchronize()
-        gc.collect()
-        torch.cuda.empty_cache()
-        collecting = gc.isenabled()
-        gc.disable()
-        side = _side_stream(self.losses.device)
-        side.wait_stream(torch.cuda.current_stream())
-        mesh.HOST_POINTS.append(split)
-        try:
-            with torch.cuda.stream(side):
-                graph.capture_begin(pool=pool)
-                try:
-                    self.step()
-                finally:
-                    graphs[-1].capture_end()
-        finally:
-            mesh.HOST_POINTS.pop()
-            if collecting:
-                gc.enable()
-        torch.cuda.current_stream().wait_stream(side)
-        for g in graphs:
-            g.instantiate()
+        with span("gpitch.fit.capture"):
+            # as torch.cuda.graph does: no garbage left whose freeing inside
+            # the capture would query events of other streams; and no
+            # collection during it
+            torch.cuda.synchronize()
+            gc.collect()
+            torch.cuda.empty_cache()
+            collecting = gc.isenabled()
+            gc.disable()
+            side = _side_stream(self.losses.device)
+            side.wait_stream(torch.cuda.current_stream())
+            mesh.HOST_POINTS.append(split)
+            try:
+                with torch.cuda.stream(side):
+                    graph.capture_begin(pool=pool)
+                    try:
+                        self.step()
+                    finally:
+                        graphs[-1].capture_end()
+            finally:
+                mesh.HOST_POINTS.pop()
+                if collecting:
+                    gc.enable()
+            torch.cuda.current_stream().wait_stream(side)
+            for g in graphs:
+                g.instantiate()
         self.graphs, self.points = graphs, points
         self.capture_s = time.perf_counter() - t0
+        self.captures += 1
         after = _cuda.launch_counts()
         self.calls = {k: n - before.get(k, 0) for k, n in after.items()
                       if n != before.get(k, 0)}
@@ -396,7 +412,8 @@ class AdamSteps(CapturedSteps):
             t0 = time.perf_counter()
             n = min(segment, num_steps - start)
             self.run(n)
-            host[start:start + n] = self.losses[self.at - n:self.at].cpu().numpy()
+            with span("gpitch.fit.fence"):
+                host[start:start + n] = self.losses[self.at - n:self.at].cpu().numpy()
             seconds.append(time.perf_counter() - t0)
         return host, seconds
 

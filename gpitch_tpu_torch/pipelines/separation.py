@@ -23,6 +23,7 @@ from ..audio.spectrum import init_cparam
 from ..audio.windowing import merged_mean, merged_variance, window_stack
 from ..config import DEFAULT_DEVICE, resolve_device
 from ..utils.math import find_ideal_f0
+from ..utils.profiling import span
 from .init import init_kern_com, init_liv_robust
 from .kernel_learning import fit_kernels, sample_cov
 from .windowed_sgpr import (build_window_bank, optimize_bank, pad_inducing,
@@ -43,42 +44,43 @@ def learn_pitch_params(train_signals, names, fs, mode: str = "fft",
     (None for 'load').  ``timings``: a dict that receives per-pitch
     seconds, 'sample_cov' and 'fit' lists ('fit': the batched solve the
     pitch was in)."""
-    if mode == "load":
-        if saved is None:
-            raise ValueError("mode='load' requires saved params")
-        return saved, None
-    if mode not in ("fft", "train"):
-        raise ValueError(f"unknown kernel mode {mode!r}")
-    params = [[], [], []]
-    xk, sk = [], []
-    if mode == "train":
-        for y in train_signals:
-            t0 = time.perf_counter()
-            _, kern_sampled, _ = sample_cov(np.asarray(y).reshape(-1), num_sam=num_sam,
-                                            size=covsize)
+    with span("gpitch.pitch_params"):
+        if mode == "load":
+            if saved is None:
+                raise ValueError("mode='load' requires saved params")
+            return saved, None
+        if mode not in ("fft", "train"):
+            raise ValueError(f"unknown kernel mode {mode!r}")
+        params = [[], [], []]
+        xk, sk = [], []
+        if mode == "train":
+            for y in train_signals:
+                t0 = time.perf_counter()
+                _, kern_sampled, _ = sample_cov(np.asarray(y).reshape(-1), num_sam=num_sam,
+                                                size=covsize)
+                if timings is not None:
+                    timings.setdefault("sample_cov", []).append(time.perf_counter() - t0)
+                sk.append(kern_sampled)
+                xk.append(np.linspace(0.0, (covsize - 1.0) / fs, covsize).reshape(-1, 1))
+            fits, seconds = fit_kernels(sk, train_signals, names, max_par, fs,
+                                        device=device, dtype=dtype)
+            for p, _, _ in fits:
+                for k in range(3):
+                    params[k].append(p[k])
             if timings is not None:
-                timings.setdefault("sample_cov", []).append(time.perf_counter() - t0)
-            sk.append(kern_sampled)
+                timings.setdefault("fit", []).extend(seconds)
+            return params, [xk, sk]
+        for i, y in enumerate(train_signals):
+            y = np.asarray(y).reshape(-1)
+            f0 = find_ideal_f0([names[i]])[0]
+            p = init_cparam(y, fs=fs, maxh=max_par, ideal_f0=f0)
+            params[0].append(np.array(0.1))
+            params[1].append(p[1])
+            params[2].append(p[0])
+            spec = np.fft.ifft(np.abs(np.fft.fft(y)))[:covsize].real
+            sk.append((spec / np.max(spec)).reshape(-1, 1))
             xk.append(np.linspace(0.0, (covsize - 1.0) / fs, covsize).reshape(-1, 1))
-        fits, seconds = fit_kernels(sk, train_signals, names, max_par, fs,
-                                    device=device, dtype=dtype)
-        for p, _, _ in fits:
-            for k in range(3):
-                params[k].append(p[k])
-        if timings is not None:
-            timings.setdefault("fit", []).extend(seconds)
         return params, [xk, sk]
-    for i, y in enumerate(train_signals):
-        y = np.asarray(y).reshape(-1)
-        f0 = find_ideal_f0([names[i]])[0]
-        p = init_cparam(y, fs=fs, maxh=max_par, ideal_f0=f0)
-        params[0].append(np.array(0.1))
-        params[1].append(p[1])
-        params[2].append(p[0])
-        spec = np.fft.ifft(np.abs(np.fft.fft(y)))[:covsize].real
-        sk.append((spec / np.max(spec)).reshape(-1, 1))
-        xk.append(np.linspace(0.0, (covsize - 1.0) / fs, covsize).reshape(-1, 1))
-    return params, [xk, sk]
 
 
 def load_mixture_from_sources(test_path, instrument, names=("_C_", "_E_", "_G_"),
@@ -109,34 +111,36 @@ class SoSp:
                  max_par: int = 1, num_inducing: int | None = None,
                  saved_params=None, reg: bool = False, dec: int = 1,
                  device=DEFAULT_DEVICE, dtype: torch.dtype = torch.float32):
-        self.device = resolve_device(device)
-        self.dtype = dtype
-        self.fs = fs
-        self.window_size = window_size
-        self.train_names = list(train_names)
-        self.num_pitches = len(train_signals)
-        self.params, self.kern_sampled = learn_pitch_params(
-            train_signals, train_names, fs, mode=kernel_mode, max_par=max_par,
-            saved=saved_params, device=self.device, dtype=dtype)
+        with span("gpitch.sosp.init"):
+            self.device = resolve_device(device)
+            self.dtype = dtype
+            self.fs = fs
+            self.window_size = window_size
+            self.train_names = list(train_names)
+            self.num_pitches = len(train_signals)
+            self.params, self.kern_sampled = learn_pitch_params(
+                train_signals, train_names, fs, mode=kernel_mode, max_par=max_par,
+                saved=saved_params, device=self.device, dtype=dtype)
 
-        self.x = np.asarray(mixture[0]).reshape(-1, 1)
-        self.y = np.asarray(mixture[1]).reshape(-1, 1)
-        self.xw = window_stack(self.x, window_size)      # (nw, ws)
-        self.yw = window_stack(self.y, window_size)
-        self.nwin = self.xw.shape[0]
+            self.x = np.asarray(mixture[0]).reshape(-1, 1)
+            self.y = np.asarray(mixture[1]).reshape(-1, 1)
+            with span("gpitch.windows"):
+                self.xw = window_stack(self.x, window_size)      # (nw, ws)
+                self.yw = window_stack(self.y, window_size)
+                self.nwin = self.xw.shape[0]
 
-        # inducing points at each window's extrema, uniform for silent windows
-        z_list = [init_liv_robust(self.xw[i], self.yw[i], dec=dec)
-                  for i in range(self.nwin)]
-        self.grid_dt = 1.0 / fs
-        self.z = pad_inducing(z_list, num_inducing, grid_dt=self.grid_dt)
-        self.reg = reg
-        self.bank = self._build_bank()
-        self.matrix_var = None
-        self.opt_info = None
-        self.esource = None
-        self.mean = None
-        self.var = None
+                # inducing points at each window's extrema, uniform for silent windows
+                z_list = [init_liv_robust(self.xw[i], self.yw[i], dec=dec)
+                          for i in range(self.nwin)]
+                self.grid_dt = 1.0 / fs
+                self.z = pad_inducing(z_list, num_inducing, grid_dt=self.grid_dt)
+            self.reg = reg
+            self.bank = self._build_bank()
+            self.matrix_var = None
+            self.opt_info = None
+            self.esource = None
+            self.mean = None
+            self.var = None
 
     def _kern_builder(self):
         kerns = init_kern_com(self.num_pitches, self.params[0], self.params[1],
@@ -170,24 +174,27 @@ class SoSp:
                             method=method, timed=timed, window_chunk=window_chunk,
                             mesh=mesh, mesh_axis=mesh_axis, return_info=True)
         self.bank, losses, self.opt_info = out[0], out[1], out[-1]
-        self.matrix_var = pitch_variances(self.bank).cpu().numpy()
+        with span("gpitch.fit.fence"):
+            self.matrix_var = pitch_variances(self.bank).cpu().numpy()
         return (losses, out[2]) if timed else losses
 
     def predict_f(self, batch_size: int = 8):
         """Mixture posterior per window: mean, var (nw, ws) numpy."""
         mean, var = predict_bank_mixture(self.bank, self.xw, batch_size)
-        self.mean, self.var = mean.cpu().numpy(), var.cpu().numpy()
+        with span("gpitch.predict.merge"):
+            self.mean, self.var = mean.cpu().numpy(), var.cpu().numpy()
         return self.mean, self.var
 
     def predict_s(self, batch_size: int = 8):
         """Per-source Hann overlap-add merge: [[mean (n, 1), var (n, 1)] per
         source]."""
         smean, svar = predict_bank_sources(self.bank, self.xw, batch_size)
-        smean, svar = smean.cpu().numpy(), svar.cpu().numpy()
-        n = self.x.shape[0]
-        self.esource = [[merged_mean(smean[i], self.window_size, n),
-                         merged_variance(svar[i], self.window_size, n)]
-                        for i in range(smean.shape[0])]
+        with span("gpitch.predict.merge"):
+            smean, svar = smean.cpu().numpy(), svar.cpu().numpy()
+            n = self.x.shape[0]
+            self.esource = [[merged_mean(smean[i], self.window_size, n),
+                             merged_variance(svar[i], self.window_size, n)]
+                            for i in range(smean.shape[0])]
         return self.esource
 
     def compute_rmse(self, real_sources: Sequence[np.ndarray]) -> float:

@@ -19,6 +19,7 @@ import torch
 from ..audio.pianoroll import Pianoroll
 from ..audio.windowing import window_stack
 from ..config import DEFAULT_DEVICE, resolve_device
+from ..utils.profiling import span
 from .init import init_kern_com, init_liv_robust
 from .separation import learn_pitch_params
 from .windowed_sgpr import (build_window_bank, optimize_bank, pad_inducing,
@@ -82,32 +83,34 @@ class AMT:
                  saved_params=None, reg: bool = False, dec: int = 3,
                  y_scale: float = 20.0, pianoroll: Pianoroll | None = None,
                  device=DEFAULT_DEVICE, dtype: torch.dtype = torch.float32):
-        self.device = resolve_device(device)
-        self.dtype = dtype
-        self.fs = fs
-        self.pitches = list(pitches)
-        self.window_size = window_size
-        self.y_scale = y_scale
-        self.piano_roll = pianoroll
-        self.params, self.kern_sampled = learn_pitch_params(
-            train_signals, train_names, fs, mode=kernel_mode, max_par=max_par,
-            saved=saved_params, device=self.device, dtype=dtype)
+        with span("gpitch.amt.init"):
+            self.device = resolve_device(device)
+            self.dtype = dtype
+            self.fs = fs
+            self.pitches = list(pitches)
+            self.window_size = window_size
+            self.y_scale = y_scale
+            self.piano_roll = pianoroll
+            self.params, self.kern_sampled = learn_pitch_params(
+                train_signals, train_names, fs, mode=kernel_mode, max_par=max_par,
+                saved=saved_params, device=self.device, dtype=dtype)
 
-        self.x = np.asarray(test[0]).reshape(-1, 1)
-        self.y = np.asarray(test[1]).reshape(-1, 1)
-        self.xw = window_stack(self.x, window_size)
-        self.yw = window_stack(self.y, window_size)
-        self.nwin = self.xw.shape[0]
+            self.x = np.asarray(test[0]).reshape(-1, 1)
+            self.y = np.asarray(test[1]).reshape(-1, 1)
+            with span("gpitch.windows"):
+                self.xw = window_stack(self.x, window_size)
+                self.yw = window_stack(self.y, window_size)
+                self.nwin = self.xw.shape[0]
 
-        # inducing points at each window's extrema, uniform for silent windows
-        z_list = [init_liv_robust(self.xw[i], self.yw[i], dec=dec)
-                  for i in range(self.nwin)]
-        self.grid_dt = 1.0 / fs
-        self.z = pad_inducing(z_list, num_inducing, grid_dt=self.grid_dt)
-        self.reg = reg
-        self.bank = self._build_bank()
-        self.matrix_var = np.zeros((len(self.pitches), self.nwin))
-        self.opt_info = None
+                # inducing points at each window's extrema, uniform for silent windows
+                z_list = [init_liv_robust(self.xw[i], self.yw[i], dec=dec)
+                          for i in range(self.nwin)]
+                self.grid_dt = 1.0 / fs
+                self.z = pad_inducing(z_list, num_inducing, grid_dt=self.grid_dt)
+            self.reg = reg
+            self.bank = self._build_bank()
+            self.matrix_var = np.zeros((len(self.pitches), self.nwin))
+            self.opt_info = None
 
     def _kern_builder(self):
         kerns = init_kern_com(len(self.pitches), self.params[0], self.params[1],
@@ -142,7 +145,8 @@ class AMT:
                             window_chunk=window_chunk, mesh=mesh,
                             mesh_axis=mesh_axis, return_info=True)
         self.bank, losses, self.opt_info = out[0], out[1], out[-1]
-        self.matrix_var = pitch_variances(self.bank).cpu().numpy()
+        with span("gpitch.fit.fence"):
+            self.matrix_var = pitch_variances(self.bank).cpu().numpy()
         return (losses, out[2]) if timed else losses
 
     def pianoroll_estimate(self, threshold: float = 0.02,

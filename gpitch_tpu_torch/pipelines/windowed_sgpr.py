@@ -23,6 +23,7 @@ from ..kernels.base import StackedSum, Sum, stack_modules
 from ..models._lbfgs import LbfgsSteps
 from ..models.fit import AdamSteps, ParamRows, first_segment_excess
 from ..models.sgpr import SGPRSS, check_on_grid
+from ..utils.profiling import span
 
 __all__ = ["sum_kernel", "pad_inducing", "build_window_bank", "bank_loss",
            "optimize_bank", "predict_bank_sources", "predict_bank_mixture",
@@ -146,55 +147,56 @@ def build_window_bank(x_windows, y_windows, z_windows, kern_builder: Callable,
     ``grid_dt``) takes the table route, one table length for the whole
     bank; ``y_scale`` scales the targets.
     """
-    xw = np.asarray(x_windows, dtype=np.float64)
-    xw = xw.reshape(xw.shape[0], -1)
-    yw = y_scale * np.asarray(y_windows, dtype=np.float64).reshape(xw.shape[0], -1)
-    zw = np.asarray(z_windows, dtype=np.float64).reshape(xw.shape[0], -1)
-    nw = xw.shape[0]
-    mk = None
-    xmin = xw.min(axis=1)
-    if masks is not None:
-        mk = np.asarray(masks, dtype=np.float64).reshape(nw, -1)
-        valid = mk > 0
-        xmin = np.where(valid.any(axis=1),
-                        np.min(np.where(valid, xw, np.inf), axis=1), xmin)
-    x0 = np.minimum(xmin, zw.min(axis=1))
-    x0_hi = x0.astype(np.float32).astype(np.float64)
-    x0_lo = x0 - x0_hi
-    Xc = xw - x0[:, None]
-    Zc = zw - x0[:, None]
-    num_lags = None
-    if grid_dt is not None:
-        check_on_grid(Xc, Zc, grid_dt)
-        if lag_table:
-            # one table length for the stacked bank: the largest per-window
-            # index span max - min (not max alone: centering on the valid
-            # samples leaves masked leading samples at negative positions,
-            # and the table's offset starts at the least of all of them)
-            xv, zv = Xc / grid_dt, Zc / grid_dt
-            hi = np.maximum(xv.max(axis=1), zv.max(axis=1))
-            lo = np.minimum(xv.min(axis=1), zv.min(axis=1))
-            num_lags = int(np.round((hi - lo).max())) + 1
-    device = resolve_device(device)
+    with span("gpitch.bank.build"):
+        xw = np.asarray(x_windows, dtype=np.float64)
+        xw = xw.reshape(xw.shape[0], -1)
+        yw = y_scale * np.asarray(y_windows, dtype=np.float64).reshape(xw.shape[0], -1)
+        zw = np.asarray(z_windows, dtype=np.float64).reshape(xw.shape[0], -1)
+        nw = xw.shape[0]
+        mk = None
+        xmin = xw.min(axis=1)
+        if masks is not None:
+            mk = np.asarray(masks, dtype=np.float64).reshape(nw, -1)
+            valid = mk > 0
+            xmin = np.where(valid.any(axis=1),
+                            np.min(np.where(valid, xw, np.inf), axis=1), xmin)
+        x0 = np.minimum(xmin, zw.min(axis=1))
+        x0_hi = x0.astype(np.float32).astype(np.float64)
+        x0_lo = x0 - x0_hi
+        Xc = xw - x0[:, None]
+        Zc = zw - x0[:, None]
+        num_lags = None
+        if grid_dt is not None:
+            check_on_grid(Xc, Zc, grid_dt)
+            if lag_table:
+                # one table length for the stacked bank: the largest per-window
+                # index span max - min (not max alone: centering on the valid
+                # samples leaves masked leading samples at negative positions,
+                # and the table's offset starts at the least of all of them)
+                xv, zv = Xc / grid_dt, Zc / grid_dt
+                hi = np.maximum(xv.max(axis=1), zv.max(axis=1))
+                lo = np.minimum(xv.min(axis=1), zv.min(axis=1))
+                num_lags = int(np.round((hi - lo).max())) + 1
+        device = resolve_device(device)
 
-    template = SGPRSS.create(
-        Xc[0], yw[0], kern_builder(), Z=Zc[0], noise_variance=noise_variance,
-        mask=None if mk is None else mk[0], reg=reg, grid_dt=grid_dt,
-        num_lags=num_lags, lag_table=lag_table, center=False, dtype=dtype)
+        template = SGPRSS.create(
+            Xc[0], yw[0], kern_builder(), Z=Zc[0], noise_variance=noise_variance,
+            mask=None if mk is None else mk[0], reg=reg, grid_dt=grid_dt,
+            num_lags=num_lags, lag_table=lag_table, center=False, dtype=dtype)
 
-    def tile(p: Param) -> Param:
-        return Param(p.raw.detach().expand((nw,) + tuple(p.raw.shape)).clone(),
-                     p.transform, p.trainable)
+        def tile(p: Param) -> Param:
+            return Param(p.raw.detach().expand((nw,) + tuple(p.raw.shape)).clone(),
+                         p.transform, p.trainable)
 
-    def data(value) -> Param:
-        return Param.create(value, trainable=False, dtype=dtype)
+        def data(value) -> Param:
+            return Param.create(value, trainable=False, dtype=dtype)
 
-    bank = map_params(template, tile)
-    bank.X, bank.Y, bank.Z = data(Xc[..., None]), data(yw[..., None]), data(Zc[..., None])
-    bank.x0, bank.x0_lo = data(x0_hi), data(x0_lo)
-    if mk is not None:
-        bank.mask = data(mk)
-    return to_device(bank, device)
+        bank = map_params(template, tile)
+        bank.X, bank.Y, bank.Z = data(Xc[..., None]), data(yw[..., None]), data(Zc[..., None])
+        bank.x0, bank.x0_lo = data(x0_hi), data(x0_lo)
+        if mk is not None:
+            bank.mask = data(mk)
+        return to_device(bank, device)
 
 
 def bank_loss(bank) -> torch.Tensor:
@@ -222,6 +224,9 @@ def optimize_bank(bank, num_steps: int = 500, learning_rate: float = 0.01,
     no compile step, so first_s is the first segment's excess over the
     median of all later segments (of every chunk), and run_s the rest of
     the wall time, the split the JAX package makes for its chunked runs.
+    The Adam route's info: its host fences (``syncs``), and its steps'
+    ``captures``, ``capture_s``, ``warmup_s``, ``eager_steps`` and
+    ``replays`` over all its chunks (``models.fit.CapturedSteps``).
 
     ``mesh`` (a DeviceMesh of ``parallel.make_mesh``): the windows split
     over the ranks of its ``mesh_axis``, each rank training its own
@@ -235,12 +240,14 @@ def optimize_bank(bank, num_steps: int = 500, learning_rate: float = 0.01,
     """
     if method not in ("adam", "lbfgs"):
         raise ValueError(f"unknown method {method!r}")
-    if mesh is not None:
-        bank, losses, seconds, info = _optimize_bank_mesh(
-            bank, num_steps, learning_rate, method, segment, window_chunk, mesh, mesh_axis)
-    else:
-        bank, losses, seconds, info = _optimize_windows(
-            bank, num_steps, learning_rate, method, segment, window_chunk)
+    with span("gpitch.fit"):
+        if mesh is not None:
+            bank, losses, seconds, info = _optimize_bank_mesh(
+                bank, num_steps, learning_rate, method, segment, window_chunk, mesh,
+                mesh_axis)
+        else:
+            bank, losses, seconds, info = _optimize_windows(
+                bank, num_steps, learning_rate, method, segment, window_chunk)
     out = (bank, losses) + ((first_segment_excess(seconds),) if timed else ())
     return out + (info,) if return_info else out
 
@@ -288,7 +295,9 @@ def _optimize_windows(bank, num_steps: int, learning_rate: float, method: str,
     chunk, nc, bank, w_all = _chunk_plan(bank, window_chunk, weights)
     w = None if w_all is None else w_all[:chunk].clone()
     loss_fn = bank_loss if w is None else _weighted_loss(w)
-    run = AdamSteps(take_windows(bank, slice(0, chunk)), loss_fn, num_steps, learning_rate)
+    with span("gpitch.fit.build"):
+        run = AdamSteps(take_windows(bank, slice(0, chunk)), loss_fn, num_steps,
+                        learning_rate)
     segment = segment or num_steps
     banks, losses, seconds = [], np.zeros(num_steps), []
     for ci in range(nc):
@@ -302,7 +311,9 @@ def _optimize_windows(bank, num_steps: int, learning_rate: float, method: str,
         losses += ls
         seconds += secs
     bank = banks[0] if nc == 1 else take_windows(cat_windows(banks), slice(0, nw))
-    return bank, losses, seconds, {"syncs": len(seconds)}
+    return bank, losses, seconds, {
+        "syncs": len(seconds), "captures": run.captures, "capture_s": run.capture_s,
+        "warmup_s": run.warmup_s, "eager_steps": run.eager_steps, "replays": run.replays}
 
 
 def _optimize_bank_mesh(bank, num_steps: int, learning_rate: float, method: str,
@@ -446,12 +457,13 @@ def predict_bank_sources(bank, x_windows, batch_size: int = 8,
     ``y_scale`` undoes the bank's target scaling (mean / y_scale, variance
     / y_scale^2)."""
     means, variances = [], []
-    for part, x, at_x in _chunks(bank, x_windows, batch_size):
-        m, v = part.predict_s(x, pre_centered=True, xnew_is_x=at_x)
-        means.append(torch.stack([mm[..., 0] for mm in m], dim=0))
-        variances.append(torch.stack([vv[..., 0] for vv in v], dim=0))
-    return (torch.cat(means, dim=1) / y_scale,
-            torch.cat(variances, dim=1) / (y_scale ** 2))
+    with span("gpitch.predict"):
+        for part, x, at_x in _chunks(bank, x_windows, batch_size):
+            m, v = part.predict_s(x, pre_centered=True, xnew_is_x=at_x)
+            means.append(torch.stack([mm[..., 0] for mm in m], dim=0))
+            variances.append(torch.stack([vv[..., 0] for vv in v], dim=0))
+        return (torch.cat(means, dim=1) / y_scale,
+                torch.cat(variances, dim=1) / (y_scale ** 2))
 
 
 @torch.no_grad()
@@ -460,11 +472,12 @@ def predict_bank_mixture(bank, x_windows, batch_size: int = 8,
     """Per-window mixture posterior: mean, var each (nw, ws), with the
     target scaling undone as in ``predict_bank_sources``."""
     means, variances = [], []
-    for part, x, _ in _chunks(bank, x_windows, batch_size):
-        m, v = part.predict_f(x, pre_centered=True)
-        means.append(m[..., 0])
-        variances.append(v[..., 0])
-    return torch.cat(means) / y_scale, torch.cat(variances) / (y_scale ** 2)
+    with span("gpitch.predict"):
+        for part, x, _ in _chunks(bank, x_windows, batch_size):
+            m, v = part.predict_f(x, pre_centered=True)
+            means.append(m[..., 0])
+            variances.append(v[..., 0])
+        return torch.cat(means) / y_scale, torch.cat(variances) / (y_scale ** 2)
 
 
 def pitch_variances(bank) -> torch.Tensor:

@@ -1,11 +1,10 @@
 """The port's tooling surface against gpitch_tpu's: file helpers, the
-profiling models and timers, the numerics settings, the plots, the demos
-and the exported names.
+timers and the trace, the numerics settings, the plots, the demos and the
+exported names.
 
 ``utils/files.py`` gives the JAX package's results exactly (the same
 directory, archives and result lists; ``append_sources`` within 1e-12, the
-two packages' tanh); the FLOPs and bytes models are the
-same integers; ``Timer`` runs on the CPU; ``set_jitter``/``set_jitter_rel``
+two packages' tanh); ``Timer`` and ``trace`` run on the CPU; ``set_jitter``/``set_jitter_rel``
 override the dtype defaults and ``None`` restores them; every ``viz``
 function draws on the Agg backend from tensors; each demo's ``main`` runs
 with tiny arguments on the CPU, and exits 1 when its threshold is missed;
@@ -27,7 +26,6 @@ import pytest  # noqa: E402
 import torch  # noqa: E402
 
 from gpitch_tpu.utils import files as jfiles  # noqa: E402
-from gpitch_tpu.utils import profiling as jprof  # noqa: E402
 from gpitch_tpu_torch import config  # noqa: E402
 from gpitch_tpu_torch import viz  # noqa: E402
 from gpitch_tpu_torch.utils import files as tfiles  # noqa: E402
@@ -42,7 +40,9 @@ F64 = torch.float64
 # port has no such choice and no fallback: its hand kernels always run on
 # the card, its matmuls are always f32-exact, and nothing is compiled at a
 # call.  zero_untrainable_grads: an untrainable Param of the port holds a
-# tensor that needs no gradient, so autograd gives it none to zero.
+# tensor that needs no gradient, so autograd gives it none to zero.  The
+# FLOPs models, the utilization report and the JSONL metrics logger: the
+# benchmark's own counts (benchmark/counts.py) replaced them.
 JAX_ONLY = {
     "config": {"jit", "precision_scope", "matmul_precision", "set_matmul_precision",
                "enable_persistent_compilation_cache", "use_pallas_specmix",
@@ -50,6 +50,8 @@ JAX_ONLY = {
                "use_tri_inv_blocked", "set_tri_inv_blocked"},
     "core": {"zero_untrainable_grads"},
     "": {"zero_untrainable_grads"},
+    "utils": {"MetricsLogger", "utilization_report", "flops_specmix", "flops_cholesky",
+              "flops_trisolve", "flops_gh_expectations", "flops_svgp_step"},
 }
 # the subpackages, and the modules that carry an __all__ of their own
 SUBPACKAGES = ["", "config", "core", "models", "utils", "pipelines", "kernels", "linalg",
@@ -139,35 +141,13 @@ def test_torch_file_helpers_match_jax(tmp_path):
 
 
 # --------------------------------------------------------------- profiling
-@pytest.mark.parametrize("args", [(2001, 112, 5), (64, 8, 1), (44100, 160, 10)])
-def test_torch_flops_and_bytes_models_equal_jax(args):
-    n, m, p = args
-    for name, a in (("flops_specmix", (n, m, p)), ("flops_cholesky", (m, 7)),
-                    ("flops_trisolve", (m, n, 3)), ("flops_gh_expectations", (n, p, 20)),
-                    ("flops_sgpr_bank_step", (222, n, m, 3, p)),
-                    ("flops_svgp_step", (100, m, 2, p)), ("bank_step_bytes", (43, n, m, 8))):
-        assert getattr(tprof, name)(*a) == getattr(jprof, name)(*a), name
-
-
 def test_torch_timer_and_reports_on_the_cpu(tmp_path):
     x = torch.ones(64, 64, dtype=F64)
     t = tprof.Timer.time_fn(lambda a: a @ a, x, iters=3, warmup=1)
     assert t > 0
-    t_loop = tprof.Timer.time_fn_loop(lambda eps: (x + eps) @ x, loop_iters=8, reps=2)
-    assert t_loop > 0
     with tprof.Timer() as timer:
         x @ x
     assert timer.elapsed > 0
-    rep = tprof.utilization_report(tprof.flops_svgp_step(100, 128, 1, 3), t,
-                                   device_kind="cpu")
-    assert rep["mfu"] >= 0 and rep["peak_flops"] == 1e11
-    ach = tprof.achievable_report(10 ** 9, 10 ** 9, 1e-3, device_kind="NVIDIA H100 80GB HBM3")
-    assert ach["t_flops_floor_ms"] == round(1e9 / 67e12 * 1e3, 3)
-    assert ach["t_bandwidth_floor_ms"] == round(1e9 / 3.35e12 * 1e3, 3)
-    log = tprof.MetricsLogger(path=str(tmp_path / "m.jsonl"))
-    log.log(step=1, elbo=-5.0)
-    assert log.summary()["elbo"] == -5.0
-    assert open(tmp_path / "m.jsonl").read().count("\n") == 1
     with tprof.trace(str(tmp_path / "trace")) as logdir:
         x @ x
     assert os.path.getsize(os.path.join(logdir, "trace.json")) > 0
