@@ -805,6 +805,7 @@ def phase_full(dev):
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / 20 * 1e3
     launches = _fused_launches()
+    roles = _launches("fused_whiten_bwd_roles")["fused_whiten_bwd_roles"]
     trained = _leaf_rows(model.bank)          # the distributed phase's reference
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -816,12 +817,15 @@ def phase_full(dev):
            "predict_s_s": predict_s,
            "predict_peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
            "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
-           "rmse_after_22_steps": rmse, "launches_in_20_steps": launches}
+           "rmse_after_22_steps": rmse, "launches_in_20_steps": launches,
+           "role_split_launches_in_20_steps": roles}
     emit(out)
     assert np.isfinite(losses).all() and np.isfinite(rmse)
-    # one launch of each a step: 3 eager steps, 17 replays of the captured one
+    # one launch of each a step: 3 eager steps, 17 replays of the captured one;
+    # at M 112 kernel B takes its role-split body
     assert launches == {"fused_whiten": 20, "fused_whiten_bwd": 20}, \
         f"the fused pair did not run once a step: {launches}"
+    assert roles == 20, f"kernel B's role-split body did not run once a step: {roles}"
     return model, losses, trained
 
 
@@ -886,6 +890,7 @@ def _amt_bank_steps(name, model, window_chunk) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _fused_launches()
+    roles = _launches("fused_whiten_bwd_roles")["fused_whiten_bwd_roles"]
     out = {"phase": "amt_full", "case": name, "windows": model.nwin,
            "pitches": len(model.pitches), "stacked": hasattr(model.bank.kern, "stacked"),
            "window_chunk": window_chunk, "warmup_2_steps_s": warmup_s,
@@ -894,9 +899,12 @@ def _amt_bank_steps(name, model, window_chunk) -> dict:
            "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
            "losses_finite": bool(np.isfinite(losses).all()),
            "matrix_var_finite": bool(np.isfinite(model.matrix_var).all()),
-           "fused": model.bank.fused_eligible(), "launches_in_10_steps": launches}
+           "fused": model.bank.fused_eligible(), "launches_in_10_steps": launches,
+           "role_split_launches_in_10_steps": roles}
     emit(out)
     assert out["losses_finite"] and out["matrix_var_finite"], f"{name}: not finite"
+    # M 160: kernel B keeps its present body
+    assert roles == 0, f"{name}: the role-split body ran at M 160: {roles}"
     # a stacked bank takes the fused pair; a Sum of kernels does not
     assert out["fused"] == out["stacked"], out
     assert all((n > 0) == out["fused"] for n in launches.values()), out

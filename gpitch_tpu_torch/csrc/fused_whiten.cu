@@ -167,16 +167,62 @@
 // record that a second kernel adds in a fixed order (no atomics: a run is
 // bit-for-bit reproducible); M is padded to MP = 16 RU (RU in 1, 2, 4, 7,
 // 10: M <= 160) with zeros.  Kernel A takes 256 threads as 16 x 16.
-// Later work for B: the build and the per-source sums, ~43% of a tile's
-// cycles at M 112 and ~70% at M 160 (the z features copied from device
-// memory twice a tile, because they share the tiles' space; the x
-// features' sincosf; the butterflies); the tensor cores only with a plan
-// that keeps two blocks an SM at M 112.  64-sample tiles do not fit beside
-// G at two blocks an SM (2 x 30 KB more), nor a transposed copy of the
-// triangle for dK (+30 KB; +58 KB at M 160).
+// The present body's build and sums took ~43% of a tile's cycles at M 112
+// and ~70% at M 160 (the z features copied twice a tile, the x features'
+// sincosf, the butterflies), and between its phases every warp waited for
+// every other with 8 warps an SM to hide it.
+//
+// Kernel B's role-split body, which serves M <= 112 (RU <= 7) where every
+// pair's features fit: one persistent block of 12 warps on each SM in place
+// of two 4-warp blocks.  Warps 0-7 (the consumers, 256 threads) run a tile's
+// four products, then the per-source sums of dK's first cons_rows(RU) block
+// rows from their registers; warps 8-11 (the producers, 128 threads) run
+// the rest of the sums of the tile before it and then build the tile after
+// it, into a two-slot ring in shared memory.  The roles meet only at their
+// handoffs, named barriers of all 384 threads: Kuf stored (the producers
+// arrive, the consumers wait) and dK stored over Kuf in the same slot (the
+// consumers arrive, the producers wait); within a role, named barriers of
+// its own warps.  What a window's tiles share stays resident while the
+// block works on the window: the triangle, G, both sets of z features
+// (formed in shared memory when the window starts: no workspace, no
+// z-feature launch), the parameters.  A tile is 64 samples, its x features
+// formed once for the build and the sums.  The plan, byte by byte, is
+// beside make_role_layout.  A block walks a contiguous range of the bank's
+// (window, tile) pairs, an even share over the SMs; a window spans at most
+// `splits` blocks, each writing its own record slot, and
+// reduce_splits_kernel adds them in a fixed order.  The arithmetic is the
+// present body's: every product an f32 FMA in PR 11's association, sincosf
+// and expf, the ragged zeros; the build's z features carry var_s e_q.
+// Clocks (phase_clocks.py --bwd, H100 at 700 W, 222 windows, M 112, N 2001,
+// 3 x 5): the present body takes 67,432 cycles a 32-sample tile in each of
+// the two blocks on an SM (build 10,902, A 8,990, G A 10,835, dLinv 8,920,
+// dK 10,132, sums 17,653); the role-split body ~61,600 a 64-sample tile
+// alone on its SM.  Consumers: A 11,259, G A 11,258, dLinv 10,692, dK with
+// their share of the sums, the store and the handoff 15,567, and 11,555
+// waiting for Kuf.  Producers: sums 46,575, build 12,534, and 2,479 waiting
+// for dK.  The producers bound it: with the consumers idle their sums of
+// all rows take 20,632 cycles, and with two of seven rows given to the
+// consumers they take as long as with none, so they run on what the
+// consumers leave of each scheduler's issue.
+// Built and measured, slower (kernel B ms at the same sizes, against
+// 1.71-1.73 with the producers summing every row): 16 warps, 8 producers at
+// 2 columns a thread, with or without setmaxnreg moving registers to the
+// consumers (1.80-1.98); the build moved to the consumers (1.90); dLinv in
+// 3xTF32 mma.sync, its operands split every tile (1.81); the sums summed
+// over rows first (1.78), one pair at a time (1.74), or dinvl's through the
+// mixture (2.05, spills); A unrolled over its block pairs (1.75); the
+// producers as the scheduler's elder warps 0-3 (1.73-1.76); one block row
+// to the consumers (1.99, spills).  By the SASS's instruction counts each
+// scheduler issues ~0.63 instructions a cycle whichever way the work is
+// split.  At RU 10 (M 160, the AMT width) G (102 KB) and the triangle (59
+// KB) leave no room for the slots; the present body stays there.
+// Later work for B: fewer producer instructions (the sums' butterflies, the
+// envelope that the build and the sums both form); the products on the
+// tensor cores only where their operands need no split every tile.
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <atomic>
 #include <cstdint>
 
@@ -186,6 +232,18 @@
 #ifndef GPITCH_LAUNCH
 #define GPITCH_LAUNCH(kernel, grid, block, smem, stream) kernel<<<grid, block, smem, stream>>>
 #define GPITCH_DYNAMIC_SHARED(name) extern __shared__ __align__(16) float name[]
+#endif
+
+// Warp roles.  Named barriers: `count` threads (whole warps) meet at
+// barrier `id` (1-15; 0 is __syncthreads); named_arrive counts the calling
+// warp in and goes on.  The emulation defines its own.
+#ifndef GPITCH_WARP_ROLES
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
 #endif
 
 namespace {
@@ -561,7 +619,8 @@ struct BwdArgs {
   float* ws;            // (nw, wsz): the z features
   float* part;          // (nw, splits, rec): [dLinv (M M), dvar (S), dinvl (S), de, df]
   float* sums;          // (nw, rec): the splits' sum (part itself when splits == 1)
-  int e_stride, v_stride, M, N, S, P, splits, rec, wsz, mp, chunk_sources;
+  int e_stride, v_stride, M, N, S, P, splits, rec, wsz, mp, chunk_sources, nw;
+  int64_t per;          // the role-split body's tiles per block
 };
 
 // Floats per window of kernel B's workspace: the z features cos, sin
@@ -1051,6 +1110,549 @@ cudaError_t reduce_splits(const float* part, float* out, int nw, int rec, int sp
   return cudaGetLastError();
 }
 
+// ------------------------------------------- kernel B, the role-split body
+// One block of 12 warps per SM walks a contiguous range of the bank's
+// (window, 64-sample tile) pairs; warps 0-7 (consumers) run the four
+// products of tile t and the per-source sums of dK's first block rows,
+// while warps 8-11 (producers) run the rest of the sums of tile t - 1 and
+// then build tile t + 1.  Plan and handoffs: the header.
+constexpr int kRTile = 64;                 // samples per tile
+constexpr int kRP = kRTile + 4;            // pitch of the (MP, kRTile) tiles
+constexpr int kCons = 256;                 // consumer threads
+constexpr int kProd = 128;                 // producer threads
+constexpr int kRoleThreads = kCons + kProd;
+constexpr int kBarKuf = 1;                 // + slot: Kuf's tile and its x stored
+constexpr int kBarDk = 3;                  // + slot: dK's tile stored over Kuf's
+constexpr int kBarCons = 5;                // the consumers among themselves
+constexpr int kBarProd = 6;                // the producers among themselves
+constexpr int kRedSlots = kRoleThreads / 32;  // each warp's sums in `red`
+struct RoleSplit {};                       // selects the body at a launch
+
+// The widths that have the role-split body: RU 10's G and triangle leave
+// no room for the two slots (header).
+__host__ __device__ constexpr bool role_split(int ru) { return ru <= 7; }
+
+// The block rows of dK whose per-source sums the consumers take, from their
+// registers, so that the roles' work a tile balances (header).
+__host__ __device__ constexpr int cons_rows(int ru) { return (ru + 1) / 4; }
+
+struct RoleLayout {
+  int tri, g, gp, at, zf, zfe, z, dv, pe, pf, pv, pil, red, slot, slot_size;
+  int kt, xf, x, err;   // offsets inside a slot
+  int total;
+};
+
+// Shared memory of the role-split body (floats; every array 16-byte
+// aligned), the sizes at RU 7 and 3 x 5 in bytes:
+//   tri   Linv's lower triangle by block rows, as kernel A          30,464
+//   g     G = dU + dU^T, MP rows at a pitch of MP + 4               51,968
+//   at    A, then dA (MP x kRP), the consumers' own                 30,464
+//   zf    cos, sin(2 pi f_q z_i) of every pair q, interleaved       13,440
+//   zfe   the same times var_s e_q (the build's)                    13,440
+//   z, dv, e_q, f_q, var_s, il_s                                     1,056
+//   red   each warp's sums, 3 per pair                               2,160
+//   slot  x 2: Kuf's tile, then dK's (MP x kRP)                 2 x 30,464
+//              cos, sin(2 pi f_q x_t) of the tile, per pair      2 x  7,680
+//              x and err of the tile                             2 x    512
+// 220,304 of the 232,448 a block may have; 19 pairs fit at RU 7.
+__host__ __device__ inline RoleLayout make_role_layout(int ru, int S, int P) {
+  const int mp = 16 * ru, pairs = S * P;
+  RoleLayout l;
+  int o = 0;
+  l.tri = o;  o += tri_offset(ru);
+  l.gp = mp + 4;
+  l.g = o;    o += mp * l.gp;
+  l.at = o;   o += mp * kRP;
+  l.zf = o;   o += pairs * mp * 2;
+  l.zfe = o;  o += pairs * mp * 2;
+  l.z = o;    o += mp;
+  l.dv = o;   o += mp;
+  l.pe = o;   o += round4(pairs);
+  l.pf = o;   o += round4(pairs);
+  l.pv = o;   o += round4(S);
+  l.pil = o;  o += round4(S);
+  l.red = o;  o += round4(kRedSlots * pairs * 3);
+  l.kt = 0;
+  l.xf = mp * kRP;
+  l.x = l.xf + pairs * 2 * kRTile;
+  l.err = l.x + kRTile;
+  l.slot_size = l.err + kRTile;
+  l.slot = o; o += 2 * l.slot_size;
+  l.total = o;
+  return l;
+}
+
+// Whether kernel B takes the role-split body at these sizes: RU allows it
+// and every pair's features fit beside the slots.
+inline bool bwd_roles(int M, int S, int P) {
+  const int ru = padded_m(M) / 16;
+  return role_split(ru) && 4 * make_role_layout(ru, S, P).total <= kSmemLimit;
+}
+
+// Blocks covering window w's tiles [w tpw, (w + 1) tpw) at `per` tiles a
+// block, and the most of any window.
+__host__ __device__ inline int role_blocks(int w, int tpw, int64_t per) {
+  const int64_t a = static_cast<int64_t>(w) * tpw;
+  return static_cast<int>((a + tpw - 1) / per - a / per + 1);
+}
+
+inline int role_records(int nw, int tpw, int64_t per) {
+  int most = 1;
+  for (int w = 0; w < nw; ++w) {
+    const int b = role_blocks(w, tpw, per);
+    most = b > most ? b : most;
+  }
+  return most;
+}
+
+// Window w's operands, the same for every tile: the triangle, G, z, dv,
+// the parameters and the z features (all threads); the producers' sums
+// zeroed.
+template <int RU>
+__device__ void role_window(const BwdArgs& a, float* sm, const RoleLayout& l, int w) {
+  constexpr int MP = 16 * RU;
+  const int M = a.M, P = a.P, pairs = a.S * P, tid = threadIdx.x;
+  const int64_t mm = static_cast<int64_t>(w) * M * M;
+#pragma unroll
+  for (int r = 0; r < RU; ++r) {
+    const int cols = 16 * (r + 1);
+    float* dst = sm + l.tri + tri_offset(r);
+    for (int idx = tid; idx < 16 * cols; idx += kRoleThreads) {
+      const int ii = idx / cols, k = idx - ii * cols, i = 16 * r + ii;
+      dst[ii * tri_pitch(r) + k] = (k <= i && i < M) ? a.linv[mm + i * M + k] : 0.f;
+    }
+  }
+  for (int idx = tid; idx < MP * MP; idx += kRoleThreads) {
+    const int i = idx / MP, k = idx - i * MP;
+    sm[l.g + i * l.gp + k] =
+        (i < M && k < M) ? a.du[mm + i * M + k] + a.du[mm + k * M + i] : 0.f;
+  }
+  const float* z = a.zc + static_cast<int64_t>(w) * M;
+  for (int i = tid; i < MP; i += kRoleThreads) {
+    sm[l.z + i] = i < M ? z[i] : 0.f;
+    sm[l.dv + i] = i < M ? a.dv[static_cast<int64_t>(w) * M + i] : 0.f;
+  }
+  const float* e = a.energy + static_cast<int64_t>(w) * a.e_stride;
+  const float* f = a.freq + static_cast<int64_t>(w) * a.e_stride;
+  const float* v = a.var + static_cast<int64_t>(w) * a.v_stride;
+  const float* il = a.inv_l + static_cast<int64_t>(w) * a.v_stride;
+  for (int q = tid; q < pairs; q += kRoleThreads) {
+    sm[l.pe + q] = e[q];
+    sm[l.pf + q] = f[q];
+  }
+  for (int s = tid; s < a.S; s += kRoleThreads) {
+    sm[l.pv + s] = v[s];
+    sm[l.pil + s] = il[s];
+  }
+  for (int idx = tid; idx < pairs * MP; idx += kRoleThreads) {
+    const int q = idx / MP, i = idx - q * MP;
+    float sn = 0.f, cs = 0.f;
+    if (i < M) sincosf((kTwoPi * z[i]) * f[q], &sn, &cs);
+    const float ev = v[q / P] * e[q];
+    sm[l.zf + 2 * idx] = cs;
+    sm[l.zf + 2 * idx + 1] = sn;
+    sm[l.zfe + 2 * idx] = ev * cs;
+    sm[l.zfe + 2 * idx + 1] = ev * sn;
+  }
+  for (int q = tid; q < kRedSlots * pairs * 3; q += kRoleThreads) sm[l.red + q] = 0.f;
+}
+
+// The per-source sums of dK's elements (rb + 16 r, col + c), R0 <= r < R1,
+// c < 4, of the tile in `slot`, into slot `rs` of `red`, as the present body
+// forms them: dK E, dK E (z - x) and, by the latter's sign, dK E |z - x|
+// against each pair's cos and sin, summed over the warp.
+template <int RU, int R0, int R1>
+__device__ __forceinline__ void tile_sums(const BwdArgs& a, float* sm, const RoleLayout& l,
+                                          const float* slot, const float (&dk)[RU][4], int rb,
+                                          int col, int rs) {
+  constexpr int MP = 16 * RU;
+  const int lane = threadIdx.x % 32, P = a.P, pairs = a.S * P;
+  float zr[RU], xt[4];
+#pragma unroll
+  for (int r = R0; r < R1; ++r) zr[r] = sm[l.z + rb + 16 * r];
+  load_cols<4>(slot + l.x + col, xt);
+  for (int sl = 0; sl < a.S; ++sl) {
+    const float il = sm[l.pil + sl];
+    float av[RU][4], ad[RU][4];
+#pragma unroll
+    for (int r = R0; r < R1; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float d = zr[r] - xt[c];
+        av[r][c] = dk[r][c] * expf(-fabsf(d) * il);
+        ad[r][c] = av[r][c] * d;
+      }
+    for (int p0 = 0; p0 < P; p0 += 4) {
+      float part[4][3];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        part[j][0] = part[j][1] = part[j][2] = 0.f;
+        const int q = sl * P + p0 + j;
+        if (p0 + j >= P) continue;
+        float cx[4], sx[4];
+        load_cols<4>(slot + l.xf + 2 * q * kRTile + col, cx);
+        load_cols<4>(slot + l.xf + (2 * q + 1) * kRTile + col, sx);
+        const float* zq = sm + l.zf + 2 * (q * MP + rb);
+#pragma unroll
+        for (int r = R0; r < R1; ++r) {
+          const float2 z2 = *reinterpret_cast<const float2*>(zq + 32 * r);
+          const float cz = z2.x, sz = z2.y;
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const float c0 = cz * cx[c] + sz * sx[c];
+            part[j][0] += av[r][c] * c0;
+            part[j][1] += copysignf(ad[r][c], av[r][c]) * c0;
+            part[j][2] += ad[r][c] * (sz * cx[c] - cz * sx[c]);
+          }
+        }
+      }
+      // the 12 sums, (j, k) in order, four to a butterfly
+      const float* pv = &part[0][0];
+#pragma unroll
+      for (int m = 0; m < 3; ++m) {
+        const float sum = warp_sum4(pv[4 * m], pv[4 * m + 1], pv[4 * m + 2], pv[4 * m + 3], lane);
+        const int f = 4 * m + lane / 8;
+        if (lane % 8 == 0 && p0 + f / 3 < P) sm[l.red + (rs * pairs + sl * P + p0) * 3 + f] += sum;
+      }
+    }
+  }
+}
+
+// The consumers: per tile, A = tril(Linv) Kuf, dA = G A + dv err^T, dLinv
+// += dA Kuf^T and dK = tril(Linv)^T dA, dK stored over Kuf in its slot.
+// Thread (ty, tx), a warp 8 ty x 4 tx, owns the elements (ty + 16 r, 4 tx
+// + c) of A, dA and dK, and dLinv's (16 a + ty, 16 b + tx) across the
+// tiles; the loads and their bank-conflict-free pitches are those of the
+// present body at C 4 (header).
+template <int RU>
+__device__ void role_consumer(const BwdArgs& a, float* sm, const RoleLayout& l, int tb, int te,
+                              float* rec) {
+  constexpr int MP = 16 * RU, KC = 8;
+  const int cid = threadIdx.x, lane = cid % 32, cw = cid / 32;
+  const int ty = (lane & 7) + 8 * (cw & 1), tx = (lane >> 3) + 4 * (cw >> 1), col = 4 * tx;
+  float dl[RU][RU];
+#pragma unroll
+  for (int u = 0; u < RU; ++u)
+#pragma unroll
+    for (int b = 0; b < RU; ++b) dl[u][b] = 0.f;
+  float* at = sm + l.at;
+  for (int t = tb; t < te; ++t) {
+    const int s = (t - tb) & 1;
+    float* kt = sm + l.slot + s * l.slot_size + l.kt;
+    // ---- consumers wait for Kuf
+    named_sync(kBarKuf + s, kRoleThreads);
+    // ---- A = tril(Linv) Kuf: for each 16-block kb of k, KC rows of Kuf at
+    // a time against the block rows r >= kb
+    float acc[RU][4];
+#pragma unroll
+    for (int r = 0; r < RU; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+#pragma unroll 1
+    for (int kb = 0; kb < RU; ++kb) {
+#pragma unroll
+      for (int k0 = 0; k0 < 16; k0 += KC) {
+        float kv[KC][4];
+#pragma unroll
+        for (int j = 0; j < KC; ++j) load_cols<4>(kt + (16 * kb + k0 + j) * kRP + col, kv[j]);
+#pragma unroll
+        for (int r = 0; r < RU; ++r) {
+          if (r < kb) continue;
+          const float* row = sm + l.tri + tri_offset(r) + ty * tri_pitch(r) + 16 * kb + k0;
+#pragma unroll
+          for (int k4 = 0; k4 < KC; k4 += 4) {
+            const float4 lv = *reinterpret_cast<const float4*>(row + k4);
+            const float lk[4] = {lv.x, lv.y, lv.z, lv.w};
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+#pragma unroll
+              for (int c = 0; c < 4; ++c) acc[r][c] += lk[j] * kv[k4 + j][c];
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < RU; ++r) store_cols<4>(at + (ty + 16 * r) * kRP + col, acc[r]);
+    named_sync(kBarCons, kCons);
+    // ---- dA = G A + dv err^T
+    {
+      float e[4];
+      load_cols<4>(sm + l.slot + s * l.slot_size + l.err + col, e);
+#pragma unroll
+      for (int r = 0; r < RU; ++r) {
+        const float dvr = sm[l.dv + ty + 16 * r];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[r][c] = dvr * e[c];
+      }
+    }
+#pragma unroll 2
+    for (int k = 0; k < MP; k += 4) {
+      float av[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) load_cols<4>(at + (k + j) * kRP + col, av[j]);
+#pragma unroll
+      for (int r = 0; r < RU; ++r) {
+        const float4 gv = *reinterpret_cast<const float4*>(sm + l.g + (ty + 16 * r) * l.gp + k);
+        const float gr[4] = {gv.x, gv.y, gv.z, gv.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[r][c] += gr[j] * av[j][c];
+      }
+    }
+    named_sync(kBarCons, kCons);    // every reader of A is done: dA takes its place
+#pragma unroll
+    for (int r = 0; r < RU; ++r) store_cols<4>(at + (ty + 16 * r) * kRP + col, acc[r]);
+    named_sync(kBarCons, kCons);
+    // ---- dLinv += dA Kuf^T, 4 samples at a time
+#pragma unroll 1
+    for (int t4 = 0; t4 < kRTile; t4 += 4) {
+      float4 rv[RU];
+#pragma unroll
+      for (int u = 0; u < RU; ++u)
+        rv[u] = *reinterpret_cast<const float4*>(at + (16 * u + ty) * kRP + t4);
+#pragma unroll
+      for (int b = 0; b < RU; ++b) {
+        const float4 cv = *reinterpret_cast<const float4*>(kt + (16 * b + tx) * kRP + t4);
+#pragma unroll
+        for (int u = 0; u < RU; ++u) {
+          dl[u][b] += rv[u].x * cv.x;
+          dl[u][b] += rv[u].y * cv.y;
+          dl[u][b] += rv[u].z * cv.z;
+          dl[u][b] += rv[u].w * cv.w;
+        }
+      }
+    }
+    // ---- dK = tril(Linv)^T dA: for each 16-block kb of k, KC rows of dA
+    // at a time against the block rows r <= kb (Linv's columns read down
+    // the triangle's block row kb), unrolled over the block pairs so that
+    // no branch stands between a load and its use
+#pragma unroll
+    for (int r = 0; r < RU; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+#pragma unroll
+    for (int kb = 0; kb < RU; ++kb) {
+      const float* blk = sm + l.tri + tri_offset(kb) + ty;
+      const int pitch = tri_pitch(kb);
+#pragma unroll
+      for (int k0 = 0; k0 < 16; k0 += KC) {
+        float dak[KC][4];
+#pragma unroll
+        for (int j = 0; j < KC; ++j) load_cols<4>(at + (16 * kb + k0 + j) * kRP + col, dak[j]);
+#pragma unroll
+        for (int r = 0; r <= kb; ++r) {
+#pragma unroll
+          for (int j = 0; j < KC; ++j) {
+            const float lv = blk[(k0 + j) * pitch + 16 * r];
+#pragma unroll
+            for (int c = 0; c < 4; ++c) acc[r][c] += lv * dak[j][c];
+          }
+        }
+      }
+    }
+    // ---- consumers' share of the sums: dK's first cons_rows(RU) block rows
+    if constexpr (cons_rows(RU) > 0)
+      tile_sums<RU, 0, cons_rows(RU)>(a, sm, l, sm + l.slot + s * l.slot_size, acc, ty, col,
+                                      kProd / 32 + cw);
+    named_sync(kBarCons, kCons);    // Kuf's last readers are done: dK takes its place
+#pragma unroll
+    for (int r = 0; r < RU; ++r) store_cols<4>(kt + (ty + 16 * r) * kRP + col, acc[r]);
+    __threadfence_block();
+    named_arrive(kBarDk + s, kRoleThreads);
+  }
+  // ---- consumers' record
+  const int M = a.M;
+#pragma unroll
+  for (int u = 0; u < RU; ++u)
+#pragma unroll
+    for (int b = 0; b < RU; ++b) {
+      const int i = 16 * u + ty, j = 16 * b + tx;
+      if (i < M && j < M) rec[i * M + j] = dl[u][b];
+    }
+}
+
+// A producer's rows and columns: thread (py, px) = (pid / 8, pid % 8) owns
+// (py + 16 r, 32 h + 4 px + c) of each half h of a tile, a warp 4 py x 8 px.
+// The build of tile t into slot `s`: the tile's x, err and x features, then
+// Kuf = sum_s E_s sum_q (var_s e_q cos, sin z_q) . (cos, sin x_q).
+template <int RU>
+__device__ void role_build(const BwdArgs& a, float* sm, const RoleLayout& l, int w, int t,
+                           int s) {
+  constexpr int MP = 16 * RU;
+  const int pid = threadIdx.x - kCons, py = pid / 8, px = pid % 8;
+  const int M = a.M, N = a.N, P = a.P, pairs = a.S * P, t0 = t * kRTile;
+  float* slot = sm + l.slot + s * l.slot_size;
+  const float* xg = a.xc + static_cast<int64_t>(w) * N;
+  named_sync(kBarProd, kProd);    // the slot's last readers (tile t - 2's sums) are done
+  for (int idx = pid; idx < pairs * kRTile; idx += kProd) {
+    const int q = idx / kRTile, c = idx - q * kRTile, tt = t0 + c;
+    float sn, cs;
+    sincosf((kTwoPi * (tt < N ? xg[tt] : 0.f)) * sm[l.pf + q], &sn, &cs);
+    slot[l.xf + 2 * q * kRTile + c] = cs;
+    slot[l.xf + (2 * q + 1) * kRTile + c] = sn;
+  }
+  if (pid < kRTile) {
+    const int tt = t0 + pid;
+    slot[l.x + pid] = tt < N ? xg[tt] : 0.f;
+    slot[l.err + pid] = tt < N ? a.err[static_cast<int64_t>(w) * N + tt] : 0.f;
+  }
+  named_sync(kBarProd, kProd);
+  float zr[RU];
+#pragma unroll
+  for (int r = 0; r < RU; ++r) zr[r] = sm[l.z + py + 16 * r];
+#pragma unroll 1
+  for (int h = 0; h < 2; ++h) {
+    const int col = 32 * h + 4 * px;
+    float xt[4];
+    load_cols<4>(slot + l.x + col, xt);
+    float kacc[RU][4];
+#pragma unroll
+    for (int r = 0; r < RU; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) kacc[r][c] = 0.f;
+    for (int sl = 0; sl < a.S; ++sl) {
+      float mix[RU][4];
+#pragma unroll
+      for (int r = 0; r < RU; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) mix[r][c] = 0.f;
+      for (int p = 0; p < P; ++p) {
+        const int q = sl * P + p;
+        float cx[4], sx[4];
+        load_cols<4>(slot + l.xf + 2 * q * kRTile + col, cx);
+        load_cols<4>(slot + l.xf + (2 * q + 1) * kRTile + col, sx);
+        const float* zq = sm + l.zfe + 2 * (q * MP + py);
+#pragma unroll
+        for (int r = 0; r < RU; ++r) {
+          const float2 z2 = *reinterpret_cast<const float2*>(zq + 32 * r);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            mix[r][c] += z2.x * cx[c];
+            mix[r][c] += z2.y * sx[c];
+          }
+        }
+      }
+      const float il = sm[l.pil + sl];
+#pragma unroll
+      for (int r = 0; r < RU; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) kacc[r][c] += expf(-fabsf(zr[r] - xt[c]) * il) * mix[r][c];
+    }
+#pragma unroll
+    for (int r = 0; r < RU; ++r) {
+      const int i = py + 16 * r;
+      float v[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) v[c] = (i < M && t0 + col + c < N) ? kacc[r][c] : 0.f;
+      store_cols<4>(slot + l.kt + i * kRP + col, v);
+    }
+  }
+  __threadfence_block();
+  named_arrive(kBarKuf + s, kRoleThreads);
+}
+
+// The producers' share of the sums of the tile in slot `s`: dK's block rows
+// from cons_rows(RU) on.  Thread (py, px) = (pid / 8, pid % 8) owns (py +
+// 16 r, 32 h + 4 px + c) of each half h of the tile, a warp 4 py x 8 px.
+template <int RU>
+__device__ void role_sums(const BwdArgs& a, float* sm, const RoleLayout& l, int s) {
+  constexpr int R0 = cons_rows(RU);
+  const int pid = threadIdx.x - kCons, py = pid / 8, px = pid % 8;
+  const float* slot = sm + l.slot + s * l.slot_size;
+#pragma unroll 1
+  for (int h = 0; h < 2; ++h) {
+    const int col = 32 * h + 4 * px;
+    float dk[RU][4];
+#pragma unroll
+    for (int r = R0; r < RU; ++r) load_cols<4>(slot + l.kt + (py + 16 * r) * kRP + col, dk[r]);
+    tile_sums<RU, R0, RU>(a, sm, l, slot, dk, py, col, pid / 32);
+  }
+}
+
+// The producers: tiles tb and tb + 1 built, then per tile t the sums of
+// its dK and the build of tile t + 2 into the slot they free; last the
+// record's dvar, dinvl, de, df from the warps' sums (bwd_flush's formulas).
+template <int RU>
+__device__ void role_producer(const BwdArgs& a, float* sm, const RoleLayout& l, int w, int tb,
+                              int te, float* rec) {
+  for (int t = tb; t < te && t < tb + 2; ++t) role_build<RU>(a, sm, l, w, t, t - tb);
+  for (int t = tb; t < te; ++t) {
+    const int s = (t - tb) & 1;
+    // ---- producers wait for dK
+    named_sync(kBarDk + s, kRoleThreads);
+    // ---- per-source sums of dK
+    role_sums<RU>(a, sm, l, s);
+    // ---- the build of tile t + 2
+    if (t + 2 < te) role_build<RU>(a, sm, l, w, t + 2, s);
+  }
+  // ---- producers' record
+  const int pid = threadIdx.x - kCons, S = a.S, P = a.P, pairs = S * P;
+  float* red = sm + l.red;
+  float* rsrc = rec + a.M * a.M;
+  float* rde = rsrc + 2 * S;
+  float* rdf = rde + pairs;
+  named_sync(kBarProd, kProd);
+  for (int q = pid; q < pairs; q += kProd) {
+    float sa = 0.f, sd = 0.f, sf = 0.f;
+    for (int v = 0; v < kRedSlots; ++v) {
+      const float* r = red + (v * pairs + q) * 3;
+      sa += r[0];
+      sd += r[1];
+      sf += r[2];
+    }
+    const float e = sm[l.pe + q], vs = sm[l.pv + q / P];
+    rde[q] = vs * sa;
+    rdf[q] = -kTwoPi * e * vs * sf;
+    red[q * 3] = e * sa;
+    red[q * 3 + 1] = e * sd;
+  }
+  named_sync(kBarProd, kProd);
+  for (int sl = pid; sl < S; sl += kProd) {
+    float sv = 0.f, si = 0.f;
+    for (int p = 0; p < P; ++p) {
+      sv += red[(sl * P + p) * 3];
+      si += red[(sl * P + p) * 3 + 1];
+    }
+    rsrc[sl] = sv;
+    rsrc[S + sl] = -sm[l.pv + sl] * si;
+  }
+}
+
+// Block b takes the tiles [b per, (b + 1) per) of the bank's nw tpw
+// (window, tile) pairs, window by window (an item); its record of window w
+// is slot b - (the first block of w) of w's `splits`, and the first block
+// of w zeroes the slots that no block covers.  An item loads the window's
+// operands, then the roles run it to its end.
+template <int RU>
+__global__ void __launch_bounds__(kRoleThreads, 1) fused_whiten_bwd_kernel(BwdArgs a, RoleSplit) {
+  GPITCH_DYNAMIC_SHARED(sm);
+  const RoleLayout l = make_role_layout(RU, a.S, a.P);
+  const int tpw = (a.N + kRTile - 1) / kRTile;
+  const int64_t total = static_cast<int64_t>(a.nw) * tpw, per = a.per;
+  const int64_t g0 = static_cast<int64_t>(blockIdx.x) * per;
+  const int64_t g1 = g0 + per < total ? g0 + per : total;
+  for (int64_t g = g0; g < g1;) {
+    const int w = static_cast<int>(g / tpw);
+    const int tb = static_cast<int>(g - static_cast<int64_t>(w) * tpw);
+    const int te = g1 - g < tpw - tb ? tb + static_cast<int>(g1 - g) : tpw;
+    g += te - tb;
+    const int first = static_cast<int>(static_cast<int64_t>(w) * tpw / per);
+    const int slot = static_cast<int>(blockIdx.x) - first;
+    float* rec = a.part + (static_cast<int64_t>(w) * a.splits + slot) * a.rec;
+    __syncthreads();    // the last item's readers of the window's operands are done
+    role_window<RU>(a, sm, l, w);
+    if (slot == 0) {
+      float* unused = a.part + (static_cast<int64_t>(w) * a.splits + role_blocks(w, tpw, per)) * a.rec;
+      const int64_t n = static_cast<int64_t>(a.splits - role_blocks(w, tpw, per)) * a.rec;
+      for (int64_t k = threadIdx.x; k < n; k += kRoleThreads) unused[k] = 0.f;
+    }
+    __syncthreads();
+    if (threadIdx.x < kCons) role_consumer<RU>(a, sm, l, tb, te, rec);
+    else role_producer<RU>(a, sm, l, w, tb, te, rec);
+  }
+}
+
 // Raises `fn`'s dynamic shared-memory limit to `smem` bytes, once per device.
 cudaError_t allow_shared(const void* fn, int smem, std::atomic<int>* allowed) {
   int device = 0;
@@ -1136,13 +1738,63 @@ int fwd_dispatch(Args a, int nw, void* out, void* stream, int* splits_out = null
   return static_cast<int>(err);
 }
 
-// Kernel B: the z features per window, the main kernel and the splits'
-// sum; or, with `splits_out`, only the split that `plan_splits` picks for
-// the main kernel.
+// Kernel B's role-split body: one block an SM over the bank's tiles, then
+// the records' sum; or, with `splits_out`, the records a window takes when
+// the tiles are shared evenly.  Given `splits` records a window, a block
+// takes the even share, or, where a window would span more blocks than
+// that, the fewest tiles that keep every window within `splits` blocks
+// (window-aligned at 1).
+template <int RU>
+cudaError_t bwd_roles_run(BwdArgs a, int nw, cudaStream_t stream, int* splits_out) {
+  static std::atomic<int> allowed[kMaxDevices];
+  const void* fn = reinterpret_cast<const void*>(
+      static_cast<void (*)(BwdArgs, RoleSplit)>(&fused_whiten_bwd_kernel<RU>));
+  const int smem = static_cast<int>(sizeof(float) * make_role_layout(RU, a.S, a.P).total);
+  cudaError_t err = allow_shared(fn, smem, allowed);
+  int device = 0, sms = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const int tpw = (a.N + kRTile - 1) / kRTile;
+  const int64_t total = static_cast<int64_t>(nw) * tpw, even = (total + sms - 1) / sms;
+  if (splits_out) {
+    *splits_out = tpw > 0 ? role_records(nw, tpw, even) : 1;
+    return cudaSuccess;
+  }
+  if (tpw == 0) {   // no samples: every gradient is 0
+    err = cudaMemsetAsync(a.sums, 0, sizeof(float) * nw * a.rec, stream);
+    return err;
+  }
+  int64_t per = even;
+  if (role_records(nw, tpw, per) > a.splits) {
+    if (a.splits == 1) per = tpw * ((even + tpw - 1) / tpw);
+    else per = std::max<int64_t>(even, (tpw - 1 + a.splits - 2) / (a.splits - 1));
+  }
+  a.per = per;
+  a.nw = nw;
+  const unsigned blocks = static_cast<unsigned>((total + per - 1) / per);
+  GPITCH_LAUNCH(fused_whiten_bwd_kernel<RU>, blocks, kRoleThreads, smem, stream)(a, RoleSplit{});
+  err = cudaGetLastError();
+  if (err != cudaSuccess || a.splits == 1) return err;
+  return reduce_splits(a.part, a.sums, nw, a.rec, a.splits, stream);
+}
+
+// Kernel B: the role-split body where it serves the sizes (bwd_roles);
+// else the z features per window, the present body and the splits' sum;
+// or, with `splits_out`, only the split that `plan_splits` picks for the
+// present body.
 template <int RU>
 cudaError_t bwd_run(BwdArgs a, int nw, cudaStream_t stream, int* splits_out) {
+  if constexpr (role_split(RU)) {
+    if (bwd_roles(a.M, a.S, a.P)) return bwd_roles_run<RU>(a, nw, stream, splits_out);
+  }
+  a.chunk_sources =
+      chunk_sources(a.S, [&](int sc) { return 4 * make_bwd_layout(RU, sc, a.P).total; });
+  if (a.chunk_sources == 0) return cudaErrorInvalidValue;
   static std::atomic<int> allowed[kMaxDevices];
-  const void* fn = reinterpret_cast<const void*>(&fused_whiten_bwd_kernel<RU>);
+  const void* fn = reinterpret_cast<const void*>(
+      static_cast<void (*)(BwdArgs)>(&fused_whiten_bwd_kernel<RU>));
   const int smem = static_cast<int>(sizeof(float) * make_bwd_layout(RU, a.chunk_sources, a.P).total);
   cudaError_t err = allow_shared(fn, smem, allowed);
   if (err != cudaSuccess) return err;
@@ -1162,9 +1814,6 @@ int bwd_dispatch(BwdArgs a, int nw, void* stream, int* splits_out = nullptr) {
   if (splits_out) *splits_out = 1;
   if (nw == 0 || a.M == 0) return 0;
   a.mp = padded_m(a.M);
-  a.chunk_sources =
-      chunk_sources(a.S, [&](int sc) { return 4 * make_bwd_layout(a.mp / 16, sc, a.P).total; });
-  if (a.chunk_sources == 0) return static_cast<int>(cudaErrorInvalidValue);
   a.rec = a.M * a.M + 2 * a.S + 2 * a.S * a.P;
   a.wsz = bwd_workspace(a.M, a.S, a.P);
   if (a.splits == 1) a.sums = a.part;
@@ -1272,8 +1921,14 @@ int gpitch_fused_whiten_bwd(const void* zc, const void* xc, const void* err, con
                       nw, stream);
 }
 
-// Floats per window of kernel B's scratch `ws`.
-int gpitch_fused_whiten_bwd_workspace(int M, int S, int P) { return bwd_workspace(M, S, P); }
+// Floats per window of kernel B's scratch `ws` (none for the role-split
+// body, which forms its z features in shared memory).
+int gpitch_fused_whiten_bwd_workspace(int M, int S, int P) {
+  return bwd_roles(M, S, P) ? 0 : bwd_workspace(M, S, P);
+}
+
+// 1 where kernel B takes its role-split body at these sizes, else 0.
+int gpitch_fused_whiten_bwd_roles(int M, int S, int P) { return bwd_roles(M, S, P) ? 1 : 0; }
 
 // The split `splits` that the launches of kernel A (bwd 0) or B (bwd 1) take
 // at these sizes by default, on the current device.

@@ -12,10 +12,11 @@ import ctypes
 import os
 import shutil
 import subprocess
+import types
 from pathlib import Path
 
 __all__ = ["CSRC_DIR", "BUILD_DIR", "build", "load", "check", "counted",
-           "launch_counts", "record_capture", "record_replays", "device_launches",
+           "counter", "launch_counts", "record_capture", "record_replays", "device_launches",
            "reset_launches", "graph_nodes", "GraphChain"]
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
@@ -36,12 +37,14 @@ SIGNATURES = {
     # inputs, partial sums, output, scratch (the backward: partial records,
     # their sum, scratch); window strides of (S, P) and (S,)
     # parameters; nw, M, N, S, P, splits; stream.  The split plan: backward?,
-    # nw, M, N, S, P -> splits; each kernel's scratch floats per window: M, S, P
+    # nw, M, N, S, P -> splits; each kernel's scratch floats per window: M, S, P;
+    # whether kernel B takes its role-split body: M, S, P
     "fused_whiten": {"gpitch_fused_whiten_fwd": [_P] * 11 + [_I] * 8 + [_P],
                      "gpitch_fused_whiten_fwd_workspace": [_I] * 3,
                      "gpitch_fused_whiten_bwd": [_P] * 13 + [_I] * 8 + [_P],
                      "gpitch_fused_whiten_bwd_workspace": [_I] * 3,
-                     "gpitch_fused_whiten_splits": [_I] * 6 + [ctypes.POINTER(_I)]},
+                     "gpitch_fused_whiten_splits": [_I] * 6 + [ctypes.POINTER(_I)],
+                     "gpitch_fused_whiten_bwd_roles": [_I] * 3},
     # a graph's top-level nodes; the chain of n parts (graphs, conditions,
     # the new graph and its executable out); launch (executable, stream); free
     "graphs": {"gpitch_graph_nodes": [_P, ctypes.POINTER(ctypes.c_longlong)],
@@ -138,6 +141,12 @@ def counted(fn):
     fn.launches = 0
     COUNTED[fn.__name__] = fn
     return fn
+
+
+def counter(name: str):
+    """A launch count registered as ``counted`` registers a wrapper's, for
+    a kernel body that a wrapper chooses: its ``launches`` set to 0."""
+    return counted(types.SimpleNamespace(__name__=name))
 
 
 def launch_counts() -> dict:

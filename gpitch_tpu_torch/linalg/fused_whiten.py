@@ -34,10 +34,17 @@ import torch
 from . import _cuda
 
 __all__ = ["fused_whiten", "fused_whiten_flat", "fused_whiten_bwd",
-           "fused_whiten_plain", "fused_whiten_bwd_plain", "MAX_M", "TILE_T"]
+           "fused_whiten_bwd_roles", "fused_whiten_plain", "fused_whiten_bwd_plain",
+           "MAX_M", "TILE_T", "ROLE_TILE_T"]
 
 MAX_M = 160      # the largest kernel instance (csrc/fused_whiten.cu, kRows)
-TILE_T = 32      # samples per tile in both kernels (csrc/fused_whiten.cu, kTile)
+TILE_T = 32      # samples per tile of kernel A and B's present body (kTile)
+ROLE_TILE_T = 64  # samples per tile of kernel B's role-split body (kRTile)
+
+# Kernel B's launches that took its role-split body (csrc/fused_whiten.cu:
+# M <= 112 where every pair's features fit), a part of fused_whiten_bwd's.
+fused_whiten_bwd_roles = _cuda.counter("fused_whiten_bwd_roles")
+
 _TWO_PI = 2.0 * math.pi
 
 
@@ -156,6 +163,12 @@ def _splits(bwd: bool, sizes, device_index: int) -> int:
     return splits.value
 
 
+@functools.lru_cache(maxsize=256)
+def _roles(m: int, s: int, p: int) -> bool:
+    """Whether kernel B takes its role-split body at these sizes."""
+    return bool(_cuda.load("fused_whiten").gpitch_fused_whiten_bwd_roles(m, s, p))
+
+
 def _prepare(zc, xc, err, linv, energy, freq, var, inv_l, du=None, dv=None):
     """Check a CUDA call; returns (sizes, contiguous inputs, window strides
     of the (S, P) and (S,) parameters)."""
@@ -213,9 +226,10 @@ def _forward_kernel(zc, xc, err, linv, energy, freq, var, inv_l, splits=None):
 def _backward_kernel(zc, xc, err, linv, du, dv, energy, freq, var, inv_l,
                      splits=None):
     """Kernel B on CUDA tensors; ``splits`` overrides the plan of its main
-    kernel.  The record of a block is [dLinv (M M), dvar (S), dinvl (S),
-    de (S P), df (S P)].  Like kernel A it reads Linv's lower triangle
-    only."""
+    kernel: the records a window takes (the present body: its blocks; the
+    role-split body: at most that many blocks cover a window).  The record
+    of a block is [dLinv (M M), dvar (S), dinvl (S), de (S P), df (S P)].
+    Like kernel A it reads Linv's lower triangle only."""
     sizes, tensors, strides = _prepare(zc, xc, err, linv, energy, freq, var,
                                        inv_l, du, dv)
     nw, m, _, s, p = sizes
@@ -251,6 +265,8 @@ def fused_whiten_bwd(zc, xc, err, linv, du, dv, energy, freq, var, inv_l):
                                       var, inv_l)
     out = _backward_kernel(zc, xc, err, linv, du, dv, energy, freq, var, inv_l)
     fused_whiten_bwd.launches += 1
+    if _roles(zc.shape[1], *energy.shape[-2:]):
+        fused_whiten_bwd_roles.launches += 1
     return out
 
 

@@ -30,7 +30,21 @@ dA Kuf^T (``// ---- dLinv += dA Kuf^T``), dK = tril(Linv)^T dA (``// ----
 dK = tril(Linv)^T dA``) and the per-source sums (``// ---- per-source
 sums``): the cycles per tile of warps 0 and 2 from each comment to the
 next (the first from the tile's start, the last to its end); the counters
-overwrite dLinv[w, 0, :12].  Needs a CUDA card.
+overwrite dLinv[w, 0, :12].  Where a tree's kernel B has the role-split
+body (``fused_whiten_bwd_kernel(BwdArgs a, RoleSplit)``, which serves the
+SoSp width; the AMT width keeps the present body), that body is clocked by
+role at its own comments instead, at its own plan of blocks: warp 0 of the
+consumers in the wait for Kuf (``// ---- consumers wait for Kuf``), A
+(``// ---- A = tril(Linv) Kuf``), G A (``// ---- dA = G A``), dLinv
+(``// ---- dLinv += dA Kuf^T``) and dK with its store and handoff (``//
+---- dK = tril(Linv)^T dA``), into dLinv[w, 0, :5]; warp 0 of the
+producers in the wait for dK (``// ---- producers wait for dK``), the sums
+(``// ---- per-source sums of dK``) and the builds (``// ---- the build of
+tile t + 2``, and the two before the loop), into de[w].  A wait is settled
+by a shared load before its clock is read (a barrier's wait is deferred to
+a later instruction).  Each counter is summed over the blocks that cover a
+window (the records' sum) and divided by the window's tiles: cycles a
+64-sample tile of one block, alone on its SM.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -113,11 +127,22 @@ phases = ("build", "A", "GA", "dLinv", "dK", "sums")
 out = {}
 for k, d in cases.items():
     args = [torch.as_tensor(np.array(d[n]), dtype=torch.float32, device=dev) for n in names]
+    roles = hasattr(fw, "_roles") and fw._roles(args[0].shape[1], *args[6].shape[-2:])
     for _ in range(2):
-        dl = fw._backward_kernel(*args, splits=1)[0]
+        rec = fw._backward_kernel(*args, splits=None if roles else 1)
     torch.cuda.synchronize()
+    if roles:
+        tiles = -(-args[1].shape[-1] // fw.ROLE_TILE_T)
+        c = np.median(rec[0][:, 0, :5].double().cpu().numpy() / tiles, 0).round(0).tolist()
+        q = rec[3].reshape(len(rec[3]), -1)[:, :3].double().cpu().numpy() / tiles
+        q = np.median(q, 0).round(0).tolist()
+        out[k] = {"samples_per_tile": fw.ROLE_TILE_T,
+                  "consumer_warp0": dict(zip(("wait_kuf", "A", "GA", "dLinv",
+                                              "dK_store_handoff"), c)),
+                  "producer_warp0": dict(zip(("wait_dk", "sums", "build"), q))}
+        continue
     tiles = -(-args[1].shape[-1] // fw.TILE_T)
-    c = dl[:, 0, :12].double().cpu().numpy() / tiles
+    c = rec[0][:, 0, :12].double().cpu().numpy() / tiles
     out[k] = {"warp0": dict(zip(phases, np.median(c[:, :6], 0).round(0).tolist())),
               "warp2": dict(zip(phases, np.median(c[:, 6:], 0).round(0).tolist()))}
 print(json.dumps(out))
@@ -150,6 +175,70 @@ def instrument_bwd(src: str) -> str:
             "    for (int q = 0; q < 6; ++q) rec[(threadIdx.x == 0 ? 0 : 6) + q] = (float)tp[q];"
             + body[k:])
     return head + pre + body + tail
+
+
+# A barrier's wait is deferred to a later instruction (BAR.SYNC.DEFER_BLOCKING):
+# a shared load that a branch depends on settles it before the clock is read
+_SETTLE = "    if (*reinterpret_cast<volatile float*>(sm + l.z) == 1.25e30f) c0 -= 1;\n"
+_ROLE_CONS = ("    // ---- consumers wait for Kuf", "    // ---- A = tril(Linv) Kuf",
+              "    // ---- dA = G A", "    // ---- dLinv += dA Kuf^T", "    // ---- dK = tril(Linv)^T dA")
+_ROLE_PROD = ("    // ---- producers wait for dK", "    // ---- per-source sums of dK",
+              "    // ---- the build of tile t + 2")
+
+
+def instrument_roles(src: str) -> str:
+    """kernel B's role-split body with its counters by role (the source
+    unchanged where it has no such body); raises if an anchor is missing."""
+    start = src.find("__device__ void role_consumer(")
+    if start < 0:
+        return src
+    end = src.index("fused_whiten_bwd_kernel(BwdArgs a, RoleSplit)")
+    head, body, tail = src[:start], src[start:end], src[end:]
+
+    def at(text, anchor, before, frm):
+        i = text.find(anchor, frm)
+        if i < 0:
+            raise ValueError(f"anchor not found: {anchor.strip()!r}")
+        return text[:i] + before + text[i:]
+
+    def close(text, frm, record, last, write):
+        """the last phase closed at the end of the tile loop before
+        `record`, and `write` added at the end of the function"""
+        rec = text.index(record, frm)
+        k = text.rindex("  }\n", frm, rec)
+        text = text[:k] + f"    {last} += clock64() - c0;\n" + text[k:]
+        fin = text.index("\n}\n", text.index(record, frm))
+        return text[:fin] + write + text[fin:]
+
+    # consumers: the wait for Kuf and the four products
+    n = len(_ROLE_CONS)
+    cons = body.index("__device__ void role_consumer(")
+    body = at(body, "  float* at = sm + l.at;\n", f"  long long tp[{n}] = {{}}, c0 = 0, c1;\n", cons)
+    body = at(body, _ROLE_CONS[0], "    c0 = clock64();\n", cons)
+    for k, anchor in enumerate(_ROLE_CONS[1:]):
+        body = at(body, anchor, (_SETTLE if k == 0 else "")
+                  + f"    c1 = clock64(); tp[{k}] += c1 - c0; c0 = c1;\n", cons)
+    body = close(body, cons, "  // ---- consumers' record", f"tp[{n - 1}]",
+                 "\n  named_sync(kBarCons, kCons);\n  if (threadIdx.x == CONS_FIRST)\n"
+                 f"    for (int q = 0; q < {n}; ++q) rec[q] = (float)tp[q];")
+    # producers: the wait for dK, the sums and the builds (the first two too)
+    prod = body.index("__device__ void role_producer(")
+    body = at(body, "  for (int t = tb; t < te && t < tb + 2; ++t)",
+              "  long long tq[3] = {}, c0 = clock64(), c1;\n", prod)
+    body = at(body, "  for (int t = tb; t < te; ++t) {\n", "  c1 = clock64(); tq[2] += c1 - c0;\n",
+              prod)
+    body = at(body, _ROLE_PROD[0], "    c0 = clock64();\n", prod)
+    body = at(body, _ROLE_PROD[1], _SETTLE + "    c1 = clock64(); tq[0] += c1 - c0; c0 = c1;\n",
+              prod)
+    body = at(body, _ROLE_PROD[2], "    c1 = clock64(); tq[1] += c1 - c0; c0 = c1;\n", prod)
+    body = close(body, prod, "  // ---- producers' record", "tq[2]",
+                 "\n  named_sync(kBarProd, kProd);\n  if (threadIdx.x == PROD_FIRST)\n"
+                 "    for (int q = 0; q < 3; ++q) rde[q] = (float)tq[q];")
+    # the first thread of each role, where the body names it
+    cons_first, prod_first = (("kConsFirst", "kProdFirst") if "kConsFirst" in src
+                              else ("0", "kCons"))
+    body = body.replace("CONS_FIRST", cons_first).replace("PROD_FIRST", prod_first)
+    return head + body + tail
 
 
 def instrument(src: str) -> str:
@@ -190,7 +279,7 @@ def main() -> int:
         with open(cu) as fh:
             src = fh.read()
         with open(cu, "w") as fh:
-            fh.write(instrument_bwd(src) if bwd else instrument(src))
+            fh.write(instrument_roles(instrument_bwd(src)) if bwd else instrument(src))
         res = subprocess.run([sys.executable, "-c", _BWD_CHILD if bwd else _CHILD, dst],
                              capture_output=True,
                              text=True, timeout=600, cwd=dst)

@@ -2,7 +2,9 @@
 // uses, so that the tests can run its kernels' own code on the CPU (a CUDA
 // kernel has no interpret mode): g++ -std=c++20 -I tests/cuda_emulation.
 // Each CUDA thread is an OS thread and the blocks of a launch run one after
-// another; __syncthreads is a barrier of the block's threads and a warp
+// another; __syncthreads is a barrier of the block's threads, a named
+// barrier (bar.sync / bar.arrive with an id and a thread count) a counter
+// that releases its waiting threads when the count has arrived, and a warp
 // shuffle an exchange through memory between two barriers of the warp's
 // 32 threads.  Dynamic shared memory starts as NaN at every block.  Only
 // what the kernels compute is emulated: not their speed, their occupancy
@@ -10,12 +12,15 @@
 #pragma once
 
 #include <algorithm>
+#include <atomic>
 #include <barrier>
 #include <cmath>
+#include <condition_variable>
 #include <cstdint>
 #include <cstring>
 #include <functional>
 #include <memory>
+#include <mutex>
 #include <thread>
 #include <vector>
 
@@ -64,6 +69,10 @@ inline cudaError_t cudaGetDevice(int* d) {
   return cudaSuccess;
 }
 inline cudaError_t cudaFuncSetAttribute(const void*, int, int) { return cudaSuccess; }
+inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
+  std::memset(p, v, n);
+  return cudaSuccess;
+}
 inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) {
   *v = 132;
   return cudaSuccess;
@@ -81,6 +90,29 @@ inline std::barrier<>* block_barrier = nullptr;
 inline std::vector<std::unique_ptr<std::barrier<>>> warp_barriers;
 inline std::vector<float> lanes;
 
+// A named barrier of the running block: `count` threads arrive, those that
+// sync wait for the last of them.
+struct Named {
+  std::mutex m;
+  std::condition_variable cv;
+  int arrived = 0;
+  unsigned phase = 0;
+};
+inline Named named[16];
+
+inline void named_barrier(int id, int count, bool wait) {
+  Named& b = named[id];
+  std::unique_lock<std::mutex> lock(b.m);
+  const unsigned phase = b.phase;
+  if (++b.arrived == count) {
+    b.arrived = 0;
+    ++b.phase;
+    b.cv.notify_all();
+  } else if (wait) {
+    b.cv.wait(lock, [&] { return b.phase != phase; });
+  }
+}
+
 // Runs fn once per thread of each block of the grid, the blocks in order.
 inline void run(dim3 grid, dim3 block, const std::function<void()>& fn) {
   const int nt = static_cast<int>(block.x);
@@ -92,6 +124,7 @@ inline void run(dim3 grid, dim3 block, const std::function<void()>& fn) {
       for (int w = 0; w < (nt + 31) / 32; ++w)
         warp_barriers.emplace_back(new std::barrier<>(std::min(32, nt - 32 * w)));
       lanes.assign(static_cast<size_t>(32) * warp_barriers.size(), 0.f);
+      for (Named& b : named) b.arrived = 0;
       std::memset(shared, 0xff, sizeof(shared));
       std::vector<std::thread> threads;
       threads.reserve(nt);
@@ -124,6 +157,11 @@ Launch<K> launch(dim3 grid, dim3 block, K kernel) {
 }  // namespace emu
 
 inline void __syncthreads() { emu::block_barrier->arrive_and_wait(); }
+inline void __threadfence_block() { std::atomic_thread_fence(std::memory_order_seq_cst); }
+
+#define GPITCH_WARP_ROLES
+inline void named_sync(int id, int count) { emu::named_barrier(id, count, true); }
+inline void named_arrive(int id, int count) { emu::named_barrier(id, count, false); }
 
 inline float __shfl_xor_sync(unsigned, float v, int off) {
   const int t = static_cast<int>(threadIdx.x), w = t / 32, lane = t % 32;

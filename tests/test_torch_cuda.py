@@ -329,6 +329,52 @@ def test_cuda_fused_whiten_bwd_kernel_at_splits_matches_f64_and_f32_plain(cuda, 
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+@pytest.mark.parametrize("shape,roles", [((4, 112, 2001, 3, 5), True),
+                                         ((3, 30, 257, 3, 3), True),
+                                         ((3, 160, 1001, 8, 10), False),
+                                         ((2, 40, 77, 17, 20), False)])
+def test_cuda_fused_whiten_bwd_counts_its_role_split_launches(cuda, shape, roles):
+    """fused_whiten's backward launches kernel B once; ``fused_whiten_bwd_roles``
+    counts it where the role-split body serves the sizes (the SoSp width,
+    M 30), not at M 160 nor where the pairs' features do not fit."""
+    from gpitch_tpu_torch.linalg.fused_whiten import (fused_whiten, fused_whiten_bwd,
+                                                      fused_whiten_bwd_roles)
+    args = _whiten_args(cuda, *shape, per_window=True)
+    leaves = [a.clone().requires_grad_(True) for a in args[3:]]
+    before = (fused_whiten_bwd.launches, fused_whiten_bwd_roles.launches)
+    u, v = fused_whiten(*args[:3], *leaves)
+    (u.sum() + v.sum()).backward()
+    torch.cuda.synchronize()
+    assert fused_whiten_bwd.launches == before[0] + 1
+    assert fused_whiten_bwd_roles.launches == before[1] + int(roles)
+    assert all(bool(torch.isfinite(x.grad).all()) for x in leaves)
+
+
+def test_cuda_fused_whiten_bwd_role_split_layouts_agree(cuda):
+    """The role-split body over 40 windows of 32 tiles (1280 tiles, more
+    than the card's SMs) at its plan and at 1, 2 and 3 records a window:
+    each within ``_bwd_rows`` at 1e-4 of max|ref| of the f64 and f32 plain
+    backward and 1e-5 of the plan's (sums over 2001 samples in another
+    order; ~1.8e-6 seen), and bit for bit over two launches."""
+    from gpitch_tpu_torch.linalg.fused_whiten import _backward_kernel, fused_whiten_bwd_plain
+    args = _whiten_args(cuda, 40, 112, 2001, 3, 5, per_window=True, seed=5)
+    gen = torch.Generator().manual_seed(6)
+    du = (torch.randn(40, 112, 112, generator=gen) * 0.01).to(cuda)
+    dv = (torch.randn(40, 112, 1, generator=gen) * 0.01).to(cuda)
+    bwd = (*args[:4], du, dv, *args[4:])
+    want = fused_whiten_bwd_plain(*[a.double() for a in bwd])
+    plain32 = fused_whiten_bwd_plain(*bwd)
+    plan = _backward_kernel(*bwd)
+    for splits in (None, 1, 2, 3):
+        got = _backward_kernel(*bwd, splits=splits)
+        again = _backward_kernel(*bwd, splits=splits)
+        torch.cuda.synchronize()
+        _bwd_rows(got, want, plain32, rel=1e-4)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        for a, b in zip(got, plan):
+            assert _rel(a, b.double()) <= 1e-5
+
+
 @pytest.mark.parametrize("state", ["f64_lbfgs", "card_lbfgs"])
 def test_cuda_fused_whiten_bwd_kernel_at_the_trained_states(cuda, state):
     """Kernel B at the bound's own cotangent of the two saved L-BFGS states

@@ -69,8 +69,8 @@ def run_bwd(lib, a, du, dv, splits):
     nw, m = zc.shape[:2]
     n, (s, p) = xc.shape[-1], e.shape[-2:]
     rec = m * m + 2 * s + 2 * s * p
-    part = torch.zeros(nw, splits, rec)
-    sums = torch.zeros(nw, rec) if splits > 1 else part
+    part = torch.full((nw, splits, rec), float("nan"))    # every output must be written
+    sums = torch.full((nw, rec), float("nan")) if splits > 1 else part
     ws = torch.zeros(nw, lib.gpitch_fused_whiten_bwd_workspace(m, s, p))
     rc = lib.gpitch_fused_whiten_bwd(
         *(t.data_ptr() for t in (zc, xc, err, linv, e, f, v, il, du, dv)), part.data_ptr(),
@@ -106,9 +106,12 @@ def _rel(got, want):
 
 # (nw, M, N, S, P, splits): every instance (RU 1, 2, 4, 7, 10: M 16, 30, 40,
 # 112, 160), a ragged N, sources that take several feature chunks (S 17 x P
-# 20 at M 40, S 8 x P 10 at M 160), a window's tiles split over blocks
+# 20 at M 40, S 8 x P 10 at M 112 and 160), a window's tiles split over
+# blocks; kernel B's role-split body at RU 1, 2 and 7 (up to 19 pairs at
+# RU 7), its present body at the rest
 _SHAPES = [(2, 16, 70, 2, 3, 1), (2, 30, 100, 3, 3, 2), (1, 40, 77, 17, 20, 1),
-           (2, 112, 100, 3, 5, 1), (2, 112, 130, 3, 5, 3), (1, 160, 70, 8, 10, 2)]
+           (2, 112, 100, 3, 5, 1), (2, 112, 130, 3, 5, 3), (1, 160, 70, 8, 10, 2),
+           (1, 112, 90, 8, 10, 2), (2, 112, 150, 1, 19, 2)]
 
 
 @pytest.mark.parametrize("shape", _SHAPES)
@@ -145,6 +148,50 @@ def test_emulated_kernel_b_is_bit_for_bit_reproducible_and_split_invariant(lib, 
     for x, y, z in zip(first, again, one):
         assert torch.equal(x, y)
         assert _rel(x, z.double()) <= 1e-6
+
+
+def test_emulated_kernel_b_takes_the_role_split_body_where_its_plan_fits(lib):
+    """The role-split body serves M <= 112 where every pair's features fit
+    beside its slots (19 pairs at M 112); M 160 and more pairs keep the
+    present body."""
+    roles = {(m, s, p): lib.gpitch_fused_whiten_bwd_roles(m, s, p)
+             for m, s, p in [(16, 2, 3), (30, 3, 3), (40, 3, 5), (112, 3, 5), (112, 1, 19),
+                             (112, 1, 20), (112, 4, 5), (112, 8, 10), (40, 17, 20),
+                             (160, 8, 10), (160, 3, 5)]}
+    assert [k for k, v in roles.items() if v] == [(16, 2, 3), (30, 3, 3), (40, 3, 5),
+                                                  (112, 3, 5), (112, 1, 19)]
+    assert lib.gpitch_fused_whiten_bwd_workspace(112, 3, 5) == 0
+    assert lib.gpitch_fused_whiten_bwd_workspace(160, 8, 10) > 0
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 4, 5])
+def test_emulated_kernel_b_role_split_body_at_every_work_item_layout(lib, splits):
+    """The role-split body at M 112 over 3 windows of 4 tiles (the last
+    ragged: N 200 = 3 x 64 + 8) with at most ``splits`` blocks a window:
+    one window a block (1), blocks of 3 tiles that each end inside a
+    window so that one block runs two windows (2), blocks of 2 tiles with a
+    record slot no block covers (3, zeroed), one tile a block (4, 5).  Each
+    within 1e-5 of max|ref| of the f64 plain backward and 1e-6 of one
+    window a block; two launches give the same bits."""
+    a, du, dv = _inputs(3, 112, 200, 3, 5, seed=3)
+    want = fused_whiten_bwd_plain(*a[:4], du, dv, *a[4:])
+    got = run_bwd(lib, a, du, dv, splits)
+    again = run_bwd(lib, a, du, dv, splits)
+    one = run_bwd(lib, a, du, dv, 1)
+    for g, h, o, w in zip(got, again, one, want):
+        assert g.shape == w.shape and bool(torch.isfinite(g).all())
+        assert torch.equal(g, h)
+        assert _rel(g, w) <= 1e-5
+        assert _rel(g, o.double()) <= 1e-6
+
+
+@pytest.mark.parametrize("splits", [1, 2])
+def test_emulated_kernel_b_role_split_body_without_samples_gives_zeros(lib, splits):
+    """N 0 at M 112: no tile to walk; every output is 0, as the plain
+    backward's."""
+    a, du, dv = _inputs(2, 112, 0, 3, 5)
+    for g, w in zip(run_bwd(lib, a, du, dv, splits), fused_whiten_bwd_plain(*a[:4], du, dv, *a[4:])):
+        assert g.shape == w.shape and not bool(g.any()) and not bool(w.any())
 
 
 def test_emulated_kernel_b_reads_the_lower_triangle_of_linv_only(lib):
