@@ -891,6 +891,7 @@ def _amt_bank_steps(name, model, window_chunk) -> dict:
     wall = time.perf_counter() - t0
     launches = _fused_launches()
     roles = _launches("fused_whiten_bwd_roles")["fused_whiten_bwd_roles"]
+    from gpitch_tpu_torch.linalg.fused_whiten import fused_whiten_source_chunks as chunks
     out = {"phase": "amt_full", "case": name, "windows": model.nwin,
            "pitches": len(model.pitches), "stacked": hasattr(model.bank.kern, "stacked"),
            "window_chunk": window_chunk, "warmup_2_steps_s": warmup_s,
@@ -899,14 +900,16 @@ def _amt_bank_steps(name, model, window_chunk) -> dict:
            "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
            "losses_finite": bool(np.isfinite(losses).all()),
            "matrix_var_finite": bool(np.isfinite(model.matrix_var).all()),
-           "fused": model.bank.fused_eligible(), "launches_in_10_steps": launches,
-           "role_split_launches_in_10_steps": roles}
+           "fused": model.bank.fused_eligible(), "route": model.opt_info["route"],
+           "launches_in_10_steps": launches, "role_split_launches_in_10_steps": roles,
+           "source_chunks_last_launch": vars(chunks).copy()}
     emit(out)
     assert out["losses_finite"] and out["matrix_var_finite"], f"{name}: not finite"
     # M 160: kernel B keeps its present body
     assert roles == 0, f"{name}: the role-split body ran at M 160: {roles}"
     # a stacked bank takes the fused pair; a Sum of kernels does not
     assert out["fused"] == out["stacked"], out
+    assert out["route"] == ("fused" if out["fused"] else "sum"), out
     assert all((n > 0) == out["fused"] for n in launches.values()), out
     return out
 

@@ -353,6 +353,11 @@ int chunk_sources(int S, Bytes bytes) {
   return 0;
 }
 
+// Kernel A's sources a chunk at RU, S sources of P2 (even) partials.
+inline int fwd_chunk_sources(int ru, int S, int p2) {
+  return chunk_sources(S, [&](int sc) { return 4 * make_fwd_layout(ru, sc, p2).total; });
+}
+
 // The z features of every pair of window w, var_s e_sp cos and sin(2 pi
 // f_sp z_i), once per window into the workspace (0 for padded partials and
 // rows past M).
@@ -662,6 +667,11 @@ __host__ __device__ inline BwdLayout make_bwd_layout(int ru, int sc, int P) {
   l.red = o; o += round4(warps * pairs * 3);
   l.total = o;
   return l;
+}
+
+// Kernel B's present body: sources a chunk at RU, S sources of P partials.
+inline int bwd_chunk_sources(int ru, int S, int P) {
+  return chunk_sources(S, [&](int sc) { return 4 * make_bwd_layout(ru, sc, P).total; });
 }
 
 // The z features cos, sin(2 pi f_q z_i) of every pair q of window w, once
@@ -1722,8 +1732,7 @@ int fwd_dispatch(Args a, int nw, void* out, void* stream, int* splits_out = null
   if (nw == 0 || a.M == 0) return 0;
   a.mp = padded_m(a.M);
   a.p2 = (a.P + 1) & ~1;
-  a.chunk_sources = chunk_sources(
-      a.S, [&](int sc) { return 4 * make_fwd_layout(a.mp / 16, sc, a.p2).total; });
+  a.chunk_sources = fwd_chunk_sources(a.mp / 16, a.S, a.p2);
   if (a.chunk_sources == 0) return static_cast<int>(cudaErrorInvalidValue);
   a.rec = a.M * a.M + a.M;
   a.wsz = fwd_workspace(a.M, a.S, a.P);
@@ -1789,8 +1798,7 @@ cudaError_t bwd_run(BwdArgs a, int nw, cudaStream_t stream, int* splits_out) {
   if constexpr (role_split(RU)) {
     if (bwd_roles(a.M, a.S, a.P)) return bwd_roles_run<RU>(a, nw, stream, splits_out);
   }
-  a.chunk_sources =
-      chunk_sources(a.S, [&](int sc) { return 4 * make_bwd_layout(RU, sc, a.P).total; });
+  a.chunk_sources = bwd_chunk_sources(RU, a.S, a.P);
   if (a.chunk_sources == 0) return cudaErrorInvalidValue;
   static std::atomic<int> allowed[kMaxDevices];
   const void* fn = reinterpret_cast<const void*>(
@@ -1929,6 +1937,20 @@ int gpitch_fused_whiten_bwd_workspace(int M, int S, int P) {
 
 // 1 where kernel B takes its role-split body at these sizes, else 0.
 int gpitch_fused_whiten_bwd_roles(int M, int S, int P) { return bwd_roles(M, S, P) ? 1 : 0; }
+
+// The source chunks that one launch of kernel A (bwd 0) or B (bwd 1) walks
+// at these sizes: S over the sources a chunk its shared-memory plan holds,
+// rounded up (1 for kernel B's role-split body, which holds every source);
+// 0 where the kernel cannot take the sizes.
+int gpitch_fused_whiten_source_chunks(int bwd, int M, int S, int P) {
+  if (M < 1 || M > 160 || S < 1 || P < 1) return 0;
+  const int ru = padded_m(M) / 16;
+  int sc = 0;
+  if (!bwd) sc = fwd_chunk_sources(ru, S, (P + 1) & ~1);
+  else if (bwd_roles(M, S, P)) sc = S;
+  else sc = bwd_chunk_sources(ru, S, P);
+  return sc > 0 ? (S + sc - 1) / sc : 0;
+}
 
 // The split `splits` that the launches of kernel A (bwd 0) or B (bwd 1) take
 // at these sizes by default, on the current device.

@@ -28,14 +28,15 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import types
 
 import torch
 
 from . import _cuda
 
 __all__ = ["fused_whiten", "fused_whiten_flat", "fused_whiten_bwd",
-           "fused_whiten_bwd_roles", "fused_whiten_plain", "fused_whiten_bwd_plain",
-           "MAX_M", "TILE_T", "ROLE_TILE_T"]
+           "fused_whiten_bwd_roles", "fused_whiten_source_chunks", "fused_whiten_plain",
+           "fused_whiten_bwd_plain", "MAX_M", "TILE_T", "ROLE_TILE_T"]
 
 MAX_M = 160      # the largest kernel instance (csrc/fused_whiten.cu, kRows)
 TILE_T = 32      # samples per tile of kernel A and B's present body (kTile)
@@ -44,6 +45,13 @@ ROLE_TILE_T = 64  # samples per tile of kernel B's role-split body (kRTile)
 # Kernel B's launches that took its role-split body (csrc/fused_whiten.cu:
 # M <= 112 where every pair's features fit), a part of fused_whiten_bwd's.
 fused_whiten_bwd_roles = _cuda.counter("fused_whiten_bwd_roles")
+
+# The source chunks that one launch of kernel A (``fwd``) and of kernel B
+# (``bwd``) walks a tile, from the plan of the last launch on the card (its
+# shared memory holds so many sources' features at once; 1 where it holds
+# every source).  Set where a wrapper plans its launch, so a captured
+# step's replays leave it as its capture set it; 0 until a launch.
+fused_whiten_source_chunks = types.SimpleNamespace(fwd=0, bwd=0)
 
 _TWO_PI = 2.0 * math.pi
 
@@ -169,6 +177,12 @@ def _roles(m: int, s: int, p: int) -> bool:
     return bool(_cuda.load("fused_whiten").gpitch_fused_whiten_bwd_roles(m, s, p))
 
 
+@functools.lru_cache(maxsize=256)
+def _source_chunks(bwd: bool, m: int, s: int, p: int) -> int:
+    """The source chunks a launch of kernel A or B walks at these sizes."""
+    return _cuda.load("fused_whiten").gpitch_fused_whiten_source_chunks(int(bwd), m, s, p)
+
+
 def _prepare(zc, xc, err, linv, energy, freq, var, inv_l, du=None, dv=None):
     """Check a CUDA call; returns (sizes, contiguous inputs, window strides
     of the (S, P) and (S,) parameters)."""
@@ -210,6 +224,7 @@ def _forward_kernel(zc, xc, err, linv, energy, freq, var, inv_l, splits=None):
     dev = zc.device
     lib = _cuda.load("fused_whiten")
     splits = splits or _splits(False, sizes, dev.index)
+    fused_whiten_source_chunks.fwd = _source_chunks(False, m, s, p)
     part, out = _records(nw, splits, m * m + m, dev)
     ws = torch.empty((nw, lib.gpitch_fused_whiten_fwd_workspace(m, s, p)),
                      dtype=torch.float32, device=dev)
@@ -236,6 +251,7 @@ def _backward_kernel(zc, xc, err, linv, du, dv, energy, freq, var, inv_l,
     dev = zc.device
     lib = _cuda.load("fused_whiten")
     splits = splits or _splits(True, sizes, dev.index)
+    fused_whiten_source_chunks.bwd = _source_chunks(True, m, s, p)
     rec = m * m + 2 * s + 2 * s * p
     part, sums = _records(nw, splits, rec, dev)
     ws = torch.empty((nw, lib.gpitch_fused_whiten_bwd_workspace(m, s, p)),

@@ -22,7 +22,7 @@ from ..config import DEFAULT_DEVICE, resolve_device
 from ..utils.profiling import span
 from .init import init_kern_com, init_liv_robust
 from .separation import learn_pitch_params
-from .windowed_sgpr import (build_window_bank, optimize_bank, pad_inducing,
+from .windowed_sgpr import (bank_route, build_window_bank, optimize_bank, pad_inducing,
                             pitch_variances, sum_kernel)
 
 __all__ = ["AMT", "pianoroll_from_variances", "mad_pianoroll", "f_measure"]
@@ -138,13 +138,16 @@ class AMT:
         "lbfgs" (one solver per window, the reference's optimizer).
         Returns the per-step total loss (numpy), with ``timed=True``
         (losses, (first_s, run_s)); the run's counts are kept as
-        ``opt_info``."""
+        ``opt_info``, with the bound's ``route`` (``bank_route``: "fused"
+        where the dictionary stacked, "sum" where its pitches' partial
+        counts differ)."""
         out = optimize_bank(self.bank, num_steps=maxiter,
                             learning_rate=learning_rate, method=method,
                             timed=timed, segment=segment,
                             window_chunk=window_chunk, mesh=mesh,
                             mesh_axis=mesh_axis, return_info=True)
-        self.bank, losses, self.opt_info = out[0], out[1], out[-1]
+        self.bank, losses = out[0], out[1]
+        self.opt_info = dict(out[-1], route=bank_route(self.bank))
         with span("gpitch.fit.fence"):
             self.matrix_var = pitch_variances(self.bank).cpu().numpy()
         return (losses, out[2]) if timed else losses

@@ -25,14 +25,15 @@ from ..models.fit import AdamSteps, ParamRows, first_segment_excess
 from ..models.sgpr import SGPRSS, check_on_grid
 from ..utils.profiling import span
 
-__all__ = ["sum_kernel", "pad_inducing", "build_window_bank", "bank_loss",
+__all__ = ["sum_kernel", "bank_route", "pad_inducing", "build_window_bank", "bank_loss",
            "optimize_bank", "predict_bank_sources", "predict_bank_mixture",
            "pitch_variances", "chunked_vmap"]
 
 
 def sum_kernel(kerns):
     """Sum over per-pitch kernels: a StackedSum when they are homogeneous
-    (one batched op over the pitch axis), else a Sum."""
+    (one batched op over the pitch axis), else a Sum (pitches whose FFTs
+    gave different partial counts; ``bank_route`` reads "sum" then)."""
     kerns = list(kerns)
     if len(kerns) > 1:
         try:
@@ -40,6 +41,16 @@ def sum_kernel(kerns):
         except ValueError:
             pass
     return Sum(kern_list=tuple(kerns))
+
+
+def bank_route(bank) -> str:
+    """How the bank's bound is computed: "fused" (a StackedSum through the
+    fused pair, ``SGPR.fused_eligible``), "stacked" (a StackedSum on the
+    unfused route: a mask, a lag table, M > 160 or float64 on the card) or
+    "sum" (``sum_kernel``'s Sum: one covariance build a pitch)."""
+    if bank.fused_eligible():
+        return "fused"
+    return "stacked" if isinstance(bank.kern, StackedSum) else "sum"
 
 
 def _gap_fill_points(z_sorted: np.ndarray, need: int, grid_dt) -> np.ndarray:
