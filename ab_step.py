@@ -27,9 +27,11 @@ each run is the tree's own phase ``full`` (the 14 s SoSp mix, 222
 windows: 2 warm-up and 20 timed bank steps, then predict_s).  With
 ``--whiten`` each run times the tree's own fused pair
 (``chip_smoke._whiten_case``) at the SoSp width (222 windows, M 112, 3 x
-5) and the AMT width (43 windows, M 160, 8 x 10), then each kernel's
-device time by CUDA kernel (torch.profiler), and the summary is the median
-ms of kernels A and B at each.  Needs a CUDA card.
+5) and the AMT width (43 windows, M 160, 8 x 10), and kernels A and B
+alone at the transcription cell's width (``c_amt63``: 87 windows, M 160,
+63 x 20; no plain version, which does not fit the card there), then each
+kernel's device time by CUDA kernel (torch.profiler), and the summary is
+the median ms of kernels A and B at each.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -162,11 +164,20 @@ cases = {"a_sosp": cs._whiten_inputs(222, 2001, 112, cs._harmonics(sosp_f0, 5, 1
                                     44100.0)}
 with contextlib.redirect_stdout(io.StringIO()):
     out = {k: cs._whiten_case(k, d, dev, timing=True)["times"] for k, d in cases.items()}
-# then each kernel's device time by CUDA kernel (torch.profiler, 5 calls)
 import importlib
 from torch.profiler import ProfilerActivity, profile
 fw = importlib.import_module("gpitch_tpu_torch.linalg.fused_whiten")
 names = ("zc", "xc", "err", "linv", "du", "dv", "energy", "freq", "var", "inv_l")
+# the transcription cell's width: the kernels alone
+cases["c_amt63"] = cs._whiten_inputs(87, 2001, 160, cs._harmonics(
+    27.5 * 2 ** (np.arange(63) / 12), 20, 44100.0), 44100.0)
+args = [torch.as_tensor(np.array(cases["c_amt63"][n]), dtype=torch.float32, device=dev)
+        for n in names]
+with torch.no_grad():
+    out["c_amt63"] = {
+        "kernel_A_ms": cs.cuda_ms(lambda: fw.fused_whiten(*args[:4], *args[6:]), 5),
+        "kernel_B_ms": cs.cuda_ms(lambda: fw.fused_whiten_bwd(*args), 5)}
+# then each kernel's device time by CUDA kernel (torch.profiler, 5 calls)
 for k, d in cases.items():
     args = [torch.as_tensor(np.array(d[n]), dtype=torch.float32, device=dev) for n in names]
     for part, call in (("A", lambda: fw._forward_kernel(*args[:4], *args[6:])),
@@ -194,7 +205,8 @@ def main() -> int:
     args = sys.argv[1:]
     modes = {"--amt": (_AMT_CHILD, ("sounding", "piano88")),
              "--full": (_FULL_CHILD, ("full",)),
-             "--whiten": (_WHITEN_CHILD, ("a_sosp_A", "b_amt_A", "a_sosp_B", "b_amt_B"))}
+             "--whiten": (_WHITEN_CHILD, ("a_sosp_A", "b_amt_A", "c_amt63_A", "a_sosp_B",
+                                          "b_amt_B", "c_amt63_B"))}
     child, points = modes.get(args[0], (_CHILD, POINTS)) if args else (_CHILD, POINTS)
     names = args[1:] if args and args[0] in modes else args
     trees = [os.path.abspath(t) for t in names]

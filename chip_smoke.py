@@ -850,6 +850,8 @@ def phase_amt(dev) -> dict:
     torch.cuda.synchronize()
     opt_s = time.perf_counter() - t0
     launches = _all_launches()
+    phases = _launches("fused_whiten_bwd_phases")["fused_whiten_bwd_phases"]
+    from gpitch_tpu_torch.linalg.fused_whiten import fused_whiten_source_chunks as chunks
     model.piano_roll = Pianoroll(fs=20, duration=1.0, notes=events)
     p, r, f = model.evaluate(mode="mad")
     mv = model.matrix_var
@@ -863,6 +865,7 @@ def phase_amt(dev) -> dict:
            "timed_run_s": run_s, "ms_per_bank_step": opt_s / 100 * 1e3,
            "matrix_var_shape": list(mv.shape), "matrix_var_finite": bool(np.isfinite(mv).all()),
            "launches": launches, "chol_launches_per_step": launches["cholesky_batched"] / 100,
+           "two_phase_launches": phases, "source_chunks_last_launch": vars(chunks).copy(),
            "mad_pianoroll": {"precision": float(p), "recall": float(r), "f": float(f)}}
     emit(out)
     assert np.isfinite(losses).all(), "non-finite losses"
@@ -872,6 +875,9 @@ def phase_amt(dev) -> dict:
     assert out["matrix_var_shape"] == [8, 43] and out["matrix_var_finite"]
     assert all(launches[k] > 0 for k in ("cholesky_batched", "fused_whiten",
                                          "fused_whiten_bwd")), f"a kernel never ran: {launches}"
+    # M 160 over 2 build chunks (8 x 10): kernel B keeps its present body,
+    # faster there than its two phases (from 3 chunks on)
+    assert phases == 0, f"kernel B's two phases ran over 2 build chunks: {phases}"
     return out
 
 
@@ -891,6 +897,7 @@ def _amt_bank_steps(name, model, window_chunk) -> dict:
     wall = time.perf_counter() - t0
     launches = _fused_launches()
     roles = _launches("fused_whiten_bwd_roles")["fused_whiten_bwd_roles"]
+    phases = _launches("fused_whiten_bwd_phases")["fused_whiten_bwd_phases"]
     from gpitch_tpu_torch.linalg.fused_whiten import fused_whiten_source_chunks as chunks
     out = {"phase": "amt_full", "case": name, "windows": model.nwin,
            "pitches": len(model.pitches), "stacked": hasattr(model.bank.kern, "stacked"),
@@ -902,11 +909,13 @@ def _amt_bank_steps(name, model, window_chunk) -> dict:
            "matrix_var_finite": bool(np.isfinite(model.matrix_var).all()),
            "fused": model.bank.fused_eligible(), "route": model.opt_info["route"],
            "launches_in_10_steps": launches, "role_split_launches_in_10_steps": roles,
+           "two_phase_launches_in_10_steps": phases,
            "source_chunks_last_launch": vars(chunks).copy()}
     emit(out)
     assert out["losses_finite"] and out["matrix_var_finite"], f"{name}: not finite"
-    # M 160: kernel B keeps its present body
+    # M 160: no role-split body; nor two phases over 2 build chunks (8 x 10)
     assert roles == 0, f"{name}: the role-split body ran at M 160: {roles}"
+    assert phases == 0, f"{name}: kernel B's two phases ran: {phases}"
     # a stacked bank takes the fused pair; a Sum of kernels does not
     assert out["fused"] == out["stacked"], out
     assert out["route"] == ("fused" if out["fused"] else "sum"), out
@@ -2293,24 +2302,34 @@ def phase_fused_whiten(dev, sosp_model, full_model) -> dict:
     windows, N 2001, M 112, S 3, P 5, 16 kHz); (b) the AMT width (43
     windows, 44.1 kHz, M 160, 8 pitches from C4 x 10 harmonics); (c) an
     88-pitch dictionary (8 windows, M 160, S 88, P 20) against the f32
-    plain version (and kernel A also against the f64 one); (d) the trained
-    62- and 222-window SoSp banks' own bound, the launches counted over (d)
-    alone; (e) the 16 windows of TRAINED_STATE, the f32 gradient against
-    f64 (``_whiten_trained``); times at (a) and (b), and both kernels at
-    each split of a window's tiles over blocks at (a), at 62 windows of
-    (a)'s width, and at (b)."""
+    plain version (and kernel A also against the f64 one); (f) the AMT
+    width at 12 pitches (3 build chunks: kernel B's two-phase body, whose
+    launches are counted over (f) and must be all of kernel B's there); (d)
+    the trained 62- and 222-window SoSp banks' own bound, the launches
+    counted over (d) alone; (e) the 16 windows of TRAINED_STATE, the f32
+    gradient against f64 (``_whiten_trained``); times at (a), (b) and (f),
+    and both kernels at each split of a window's tiles over blocks at (a),
+    at 62 windows of (a)'s width, and at (b)."""
     sosp_f0 = 261.6 * 2 ** (np.array([0, 4, 7]) / 12)
-    amt_f0 = 261.6 * 2 ** (np.arange(8) / 12)
+    amt_f0 = 261.6 * 2 ** (np.arange(12) / 12)
     piano_f0 = 27.5 * 2 ** (np.arange(88) / 12)
     sosp = _harmonics(sosp_f0, 5, 16000.0)
     a = _whiten_inputs(222, 2001, 112, sosp, 16000.0)
-    b = _whiten_inputs(43, 2001, 160, _harmonics(amt_f0, 10, 44100.0), 44100.0)
+    b = _whiten_inputs(43, 2001, 160, _harmonics(amt_f0[:8], 10, 44100.0), 44100.0)
     cases = {
         "a_sosp": _whiten_case("a_sosp", a, dev, timing=True),
         "b_amt": _whiten_case("b_amt", b, dev, timing=True),
         "c_piano88": _whiten_case("c_piano88", _whiten_inputs(
             8, 2001, 160, _harmonics(piano_f0, 20, 44100.0), 44100.0), dev, arbiter=False),
     }
+    _zero_all()
+    cases["f_phases"] = _whiten_case("f_phases", _whiten_inputs(
+        43, 2001, 160, _harmonics(amt_f0, 10, 44100.0), 44100.0), dev, timing=True)
+    f_launches = _launches("fused_whiten_bwd", "fused_whiten_bwd_phases")
+    emit({"phase": "fused_whiten", "case": "launches_in_f", "launches": f_launches})
+    assert f_launches["fused_whiten_bwd_phases"] == f_launches["fused_whiten_bwd"] > 0, \
+        f"kernel B did not take its two phases at 12 x 10: {f_launches}"
+    cases["f_phases"]["launches"] = f_launches
     for name, d in (("a", a), ("62", _whiten_inputs(62, 2001, 112, sosp, 16000.0)),
                     ("b", b)):
         cases[f"splits_{name}"] = _whiten_splits(name, d, dev)
@@ -3506,6 +3525,12 @@ def main() -> int:
                         "shape_b": whiten["cases"]["b_amt"]["shape"], "ms_b": tb[timed],
                         "bound_ms_b": tb[f"bound_{k}_ms"],
                         "bound_fp32_ms_b": tb[f"bound_{k}_fp32_ms"]})
+    # (``*_f``: kernel B's two-phase body, case f; its launches there)
+    tf = whiten["cases"]["f_phases"]
+    kernels[-1].update({"shape_f": tf["shape"], "ms_f": tf["times"]["kernel_B_ms"],
+                        "bound_ms_f": tf["times"]["bound_B_ms"],
+                        "bound_fp32_ms_f": tf["times"]["bound_B_fp32_ms"],
+                        "launches_f": tf["launches"]["fused_whiten_bwd_phases"]})
     emit({"kernels": kernels})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(device["nvidia_smi"], flush=True)

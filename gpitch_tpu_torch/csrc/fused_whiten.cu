@@ -215,10 +215,67 @@
 // to the consumers (1.99, spills).  By the SASS's instruction counts each
 // scheduler issues ~0.63 instructions a cycle whichever way the work is
 // split.  At RU 10 (M 160, the AMT width) G (102 KB) and the triangle (59
-// KB) leave no room for the slots; the present body stays there.
+// KB) leave no room for the slots; the two-phase body serves it.
 // Later work for B: fewer producer instructions (the sums' butterflies, the
 // envelope that the build and the sums both form); the products on the
 // tensor cores only where their operands need no split every tile.
+//
+// Kernel B's two-phase body, which serves M 160 (RU 10) where the present
+// body's plan walks 3 source chunks or more (the transcription cell, 63 x
+// 20: 32 chunks of 2 sources) and P <= 40.  There the present body
+// held the features of 2 sources at a time, so every 32-sample tile copied
+// every source's z features twice (build and sums), ran bwd_flush 32 times
+// and kept dLinv's 100 accumulators in registers through the sums, at ~0.4
+// instructions a cycle a scheduler.  One launch, one persistent block an
+// SM, takes items from a queue in a fixed order (the section's head):
+//   * phase 1, a share of a window's tiles: the build and the four
+//     products (the prototype's association) as the present body runs
+//     them, dK's tile stored to the window's workspace (nw, tiles, MP, 32)
+//     instead of the sums.  Its
+//     build walks the sources one at a time through a ring of two slots of
+//     the chunk's space: while the block builds source s, source s + 1's z
+//     features arrive (cp.async, a row's cosine and sine side by side in
+//     the workspace) and its x features are formed from e and f loaded a
+//     step ahead; a thread holds 5 rows x 4 columns, so a pair takes 7
+//     shared loads for 40 FMAs (the present body: 12 for 40), and the
+//     mixture is a chain of FMAs as kernel A's.  dLinv lives in the item's
+//     record between tiles (read while G A runs, written after dA Kuf^T),
+//     so that the build has the registers dLinv held: with dLinv in
+//     registers nvcc fed every z load through one register pair;
+//   * phase 2, a range of a window's tiles for as many sources as give each
+//     of the 8 warps a group of 5 partials (2 sources of 20): the per-source
+//     sums as products over the samples (bwd_sums), 6 FMAs an element and
+//     partial, in 150 register accumulators a thread; the z features enter
+//     once per item.  Ranges split a window's tiles where windows x sources
+//     give the blocks too few items, each its own record slot.
+// Bounds on this card (phase_clocks.py --bwd, PERF.md section 6): phase 1's
+// build is bound by shared-memory wavefronts (a pair's 7 loads are 18
+// wavefronts a warp, against 40 FMAs a thread) and by the 1.6 MB of z
+// features a tile copies from L2; phase 2's products issue at ~0.85 a cycle
+// a scheduler, 85% of them FMAs, with 2 warps a scheduler (150 accumulators
+// a thread leave no room for more).
+// Built and measured, slower or lost (kernel B ms at (87, 160, 2001, 63, 20),
+// parent 32.5-32.8): the present build and chunk copies before phase 1
+// (25.0); that build re-tiled 5 x 4 with its chunks copied as they were
+// (the build 472k cycles a tile against 514k); the ring with the mixture as
+// (cz cx + sz sx) + mix, 3 instructions a pair and element (24.9, against
+// 21.7-21.9 as FMAs); dLinv in registers through the build (21.7-21.9,
+// against 20.2-20.6; but 1.44 ms at 8 x 10 against 1.52-1.55);
+// -|z - x| held across the sources (22.2); the build or phase 2 not inlined
+// (20.8-22.0); phase 2's products on the tensor cores in 3xTF32 mma.sync
+// m16n8k8 (22.9: 184 bytes of spills, and its outputs 1.3e-5 of max|ref|
+// from f64 against ~7e-7; the sums over a window's samples add up in the
+// tensor cores' accumulator, the cause not isolated).  A warp of the build over 32 rows and one column
+// quad, so that its x loads are uniform, read 20.49 against 20.58: not kept.
+// Two builds stay at M 160, each on the side of kPhaseChunks where it wins
+// (kernel B alone, ms, one card in turns): phase 1's ring build served the
+// present body too (dLinv in registers) and lost at 1 and 2 chunks, 0.780-
+// 0.785 against 0.730-0.731 at (43, 160, 2001, 3, 5), 1.005-1.024 against
+// 0.973-1.001 at 4 x 10 and 1.541-1.572 against 1.471-1.493 at 8 x 10 (the
+// two phases there: 1.558); from 3 chunks the two phases win over the
+// present body with either build: 1.952-1.963 against 2.014-2.015 (the
+// parent's chunks) and 2.053-2.062 (ring) at 12 x 10, 2.311-2.356 against
+// 2.511-2.514 and 2.550-2.552 at 16 x 10.
 
 #include <cuda_runtime.h>
 
@@ -243,6 +300,25 @@ __device__ __forceinline__ void named_sync(int id, int count) {
 }
 __device__ __forceinline__ void named_arrive(int id, int count) {
   asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+#endif
+
+// Copies from device to shared memory that run on while the thread goes on
+// (cp.async): 16 bytes, or 4 bytes that are zeros where `valid` is false;
+// copy_async_wait waits for all of the thread's.  The emulation defines
+// its own.
+#ifndef GPITCH_ASYNC_COPY
+__device__ __forceinline__ void copy16_async(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void copy4_async(float* dst, const float* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(d), "l"(src),
+               "r"(valid ? 4 : 0) : "memory");
+}
+__device__ __forceinline__ void copy_async_wait() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
 }
 #endif
 
@@ -278,11 +354,11 @@ __device__ __forceinline__ float warp_sum4(float v0, float v1, float v2, float v
   return m;
 }
 
-// The tiles [begin, end) of this block's share of a window's N samples.
-__device__ __forceinline__ void tile_range(int N, int splits, int* begin, int* end) {
+// The tiles [begin, end) of share `split` of a window's N samples.
+__device__ __forceinline__ void tile_range(int N, int splits, int split, int* begin, int* end) {
   const int tiles = (N + kTile - 1) / kTile;
   const int per = (tiles + splits - 1) / splits;
-  *begin = blockIdx.x * per;
+  *begin = split * per;
   *end = min(tiles, *begin + per);
 }
 
@@ -453,7 +529,7 @@ __global__ void __launch_bounds__(kThreads, RU >= 10 ? 1 : 2) fused_whiten_fwd_k
   for (int r = 0; r < RU; ++r) vacc[r] = 0.f;
   float* tile = sm + l.tile;
   int begin, end;
-  tile_range(N, a.splits, &begin, &end);
+  tile_range(N, a.splits, blockIdx.x, &begin, &end);
   // Every write below comes after a barrier that the last tile's readers of
   // the same array have passed, so the tile loop needs no barrier at its top.
   for (int tn = begin; tn < end; ++tn) {
@@ -621,16 +697,19 @@ struct BwdArgs {
   const float* inv_l;
   const float* du;      // (nw, M, M)
   const float* dv;      // (nw, M)
-  float* ws;            // (nw, wsz): the z features
+  float* ws;            // (nw, wsz): the z features (and the two-phase body's dK, counters)
   float* part;          // (nw, splits, rec): [dLinv (M M), dvar (S), dinvl (S), de, df]
   float* sums;          // (nw, rec): the splits' sum (part itself when splits == 1)
   int e_stride, v_stride, M, N, S, P, splits, rec, wsz, mp, chunk_sources, nw;
   int64_t per;          // the role-split body's tiles per block
+  int dk_off, ctr_off;  // the two-phase body: dK's tiles and the counters in a window's ws
+  int sum_sources;      // the two-phase body: sources a phase-2 item holds
+  int sum_ranges;       // the two-phase body: ranges of a window's tiles in phase 2
 };
 
-// Floats per window of kernel B's workspace: the z features cos, sin
-// (S P, 2, MP).
-__host__ __device__ inline int bwd_workspace(int M, int S, int P) {
+// Floats per window of the z features in kernel B's workspace: cos, sin(2
+// pi f_q z_i) side by side, (S P, MP, 2).
+__host__ __device__ inline int bwd_zfeat_floats(int M, int S, int P) {
   return S * P * 2 * padded_m(M);
 }
 
@@ -675,7 +754,8 @@ inline int bwd_chunk_sources(int ru, int S, int P) {
 }
 
 // The z features cos, sin(2 pi f_q z_i) of every pair q of window w, once
-// per window, into the workspace (rows past M are 0).
+// per window, into the workspace, a row's two side by side (rows past M
+// are 0).
 __global__ void bwd_zfeat_kernel(BwdArgs a) {
   const int w = blockIdx.y, mp = a.mp, n = a.S * a.P * mp;
   const float* z = a.zc + static_cast<int64_t>(w) * a.M;
@@ -686,8 +766,8 @@ __global__ void bwd_zfeat_kernel(BwdArgs a) {
     const int q = idx / mp, i = idx - q * mp;
     float sn = 0.f, cs = 0.f;
     if (i < a.M) sincosf((kTwoPi * z[i]) * f[q], &sn, &cs);
-    zf[2 * q * mp + i] = cs;
-    zf[(2 * q + 1) * mp + i] = sn;
+    zf[2 * (q * mp + i)] = cs;
+    zf[2 * (q * mp + i) + 1] = sn;
   }
 }
 
@@ -796,28 +876,166 @@ __device__ __forceinline__ void store_cols(float* p, const float (&v)[C]) {
   }
 }
 
-// The main kernel: per tile of 32 samples, Kuf's tile, A = tril(Linv) Kuf,
-// dA = G A + dv err^T, dLinv += dA Kuf^T, dK = tril(Linv)^T dA, then the
-// per-source sums of dK E against the features.  Thread (ty, tx) = (tid /
-// TX, tid % TX), TX = 32 / C, owns the elements (ty + 16 r, C tx + c) of
-// the build, of A, dA and dK and of the sums, and dLinv's entries (16 a +
-// ty, tx + TX b) in registers across the tiles.  M is padded to MP = 16 RU.
+constexpr int kPhaseMaxP = 40;   // the two-phase body's partials a source, at most
+
+// Phase 1's build of Kuf's tile t0 .. t0 + 31 of window w into Kuf's tile,
+// as the present body forms it, but for the mixture, a chain of FMAs as
+// kernel A's, over the sources in a ring of two slots of the chunk's space (the plan's chunk holds two
+// sources or more; one slot where it holds one): while the block computes
+// source s from its slot, source s + 1's z features are on their way to
+// the other (copied from the workspace as they lie, cp.async, issued a step
+// ahead) and its x features are formed after it, from e and f the threads
+// loaded a step ahead into registers.  Thread (ry, cx), ry = lane % 8 + 8
+// (warp % 4), cx = lane / 8 + 4 (warp / 4), holds rows ry + 32 k, k < MP /
+// 32, and columns 4 cx + c, c < 4, so that a pair's features take MP / 32
+// 8-byte loads of z features (a row's cosine and sine) and two 16-byte
+// loads of x features for 8 MP / 32 FMAs (the present body's RU x 2 tile:
+// RU + 2 loads for 4 RU FMAs); a warp's 8 rows and 4 column quads load
+// without bank conflicts.  Leaves the barrier after the store to the caller.
 template <int RU>
-__global__ void __launch_bounds__(bwd_threads(RU), RU >= 10 ? 1 : 2)
-    fused_whiten_bwd_kernel(BwdArgs a) {
+__device__ __forceinline__ void phase1_build(const BwdArgs& a, float* sm, const BwdLayout& l,
+                                             int w, int t0) {
+  constexpr int MP = 16 * RU, RB = MP / 32, NT = bwd_threads(RU);
+  constexpr int XQ = (kPhaseMaxP * kTile + NT - 1) / NT;   // x features a thread forms
+  const int M = a.M, N = a.N, P = a.P, S = a.S, ring = a.chunk_sources >= 2 ? 2 : 1;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int ry = lane % 8 + 8 * (warp % 4), col = 4 * (lane / 8 + 4 * (warp / 4));
+  const float* zw = a.ws + static_cast<int64_t>(w) * a.wsz;
+  const float* ew = a.energy + static_cast<int64_t>(w) * a.e_stride;
+  const float* fw = a.freq + static_cast<int64_t>(w) * a.e_stride;
+  const float* vw = a.var + static_cast<int64_t>(w) * a.v_stride;
+  const float* iw = a.inv_l + static_cast<int64_t>(w) * a.v_stride;
+  // source s's z features into slot `slot`, as they lie in the workspace
+  auto copy_z = [&](int s, int slot) {
+    const float* src = zw + static_cast<int64_t>(s) * P * 2 * MP;
+    float* dst = sm + l.zf + slot * P * 2 * MP;
+    for (int k = tid; k < P * MP / 2; k += NT) copy16_async(dst + 4 * k, src + 4 * k);
+  };
+  // e and f of the x features this thread forms for source s (P x 32 of them)
+  float en[XQ], fn[XQ];
+  auto load_ef = [&](int s) {
+#pragma unroll
+    for (int k = 0; k < XQ; ++k) {
+      const int q = (tid + k * NT) / kTile;
+      en[k] = q < P ? ew[s * P + q] : 0.f;
+      fn[k] = q < P ? fw[s * P + q] : 0.f;
+    }
+  };
+  // source s's x features, e_q cos and e_q sin(2 pi f_q x_t), into slot `slot`
+  auto xfeat = [&](int slot) {
+    float* xf = sm + l.xf + slot * P * 2 * kTile;
+#pragma unroll
+    for (int k = 0; k < XQ; ++k) {
+      const int idx = tid + k * NT, q = idx / kTile, t = idx - q * kTile;
+      if (q >= P) continue;
+      float sn, cs;
+      sincosf((kTwoPi * sm[l.x + t]) * fn[k], &sn, &cs);
+      xf[2 * q * kTile + t] = en[k] * cs;
+      xf[(2 * q + 1) * kTile + t] = en[k] * sn;
+    }
+  };
+  float zb[RB], xb[4], kacc[RB][4];
+#pragma unroll
+  for (int k = 0; k < RB; ++k) zb[k] = sm[l.z + ry + 32 * k];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int t = t0 + col + c;
+    xb[c] = t < N ? a.xc[static_cast<int64_t>(w) * N + t] : 0.f;
+  }
+#pragma unroll
+  for (int k = 0; k < RB; ++k)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) kacc[k][c] = 0.f;
+  __syncthreads();    // the tile's x is stored; the last readers of the chunk's space are done
+  copy_z(0, 0);
+  load_ef(0);
+  xfeat(0);
+  float vs = vw[0], il = iw[0];
+  copy_async_wait();
+  __syncthreads();
+  if (ring == 2 && S > 1) copy_z(1, 1);
+  for (int s = 0; s < S; ++s) {
+    const int slot = s % ring;
+    float vn = 0.f, ln = 0.f;
+    if (s + 1 < S) {
+      load_ef(s + 1);
+      vn = vw[s + 1];
+      ln = iw[s + 1];
+    }
+    float mix[RB][4];
+#pragma unroll
+    for (int k = 0; k < RB; ++k)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) mix[k][c] = 0.f;
+    const float* xf = sm + l.xf + slot * P * 2 * kTile;
+    const float* zf = sm + l.zf + slot * P * 2 * MP;
+#pragma unroll 2
+    for (int p = 0; p < P; ++p) {
+      float cx[4], sx[4];      // e_q cos, e_q sin of the tile's x
+      load_cols<4>(xf + 2 * p * kTile + col, cx);
+      load_cols<4>(xf + (2 * p + 1) * kTile + col, sx);
+#pragma unroll
+      for (int k = 0; k < RB; ++k) {
+        const float2 z2 = *reinterpret_cast<const float2*>(zf + 2 * (p * MP + ry + 32 * k));
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          mix[k][c] += z2.x * cx[c];
+          mix[k][c] += z2.y * sx[c];
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < RB; ++k)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) kacc[k][c] += vs * expf(-fabsf(zb[k] - xb[c]) * il) * mix[k][c];
+    if (s + 1 == S) break;
+    __syncthreads();    // every reader of source s's slot is done
+    if (ring == 1) copy_z(s + 1, 0);
+    xfeat((s + 1) % ring);
+    copy_async_wait();
+    __syncthreads();    // source s + 1's features are in its slot
+    if (ring == 2 && s + 2 < S) copy_z(s + 2, slot);
+    vs = vn;
+    il = ln;
+  }
+  __syncthreads();    // every reader of the features is done: Kuf's tile takes their place
+#pragma unroll
+  for (int k = 0; k < RB; ++k) {
+    const int i = ry + 32 * k;
+    float v[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) v[c] = (i < M && t0 + col + c < N) ? kacc[k][c] : 0.f;
+    store_cols<4>(sm + l.kt + i * kBP + col, v);
+  }
+}
+
+// The tiles of share `split` of window w: per tile of 32 samples, Kuf's
+// tile, A = tril(Linv) Kuf, dA = G A + dv err^T, dLinv += dA Kuf^T, dK =
+// tril(Linv)^T dA, then (Sums, the present body) the per-source sums of dK
+// E against the features, or (phase 1 of the two-phase body) dK's tile
+// stored to the window's workspace.  Thread (ty, tx) = (tid / TX, tid %
+// TX), TX = 32 / C, owns the elements (ty + 16 r, C tx + c) of the build,
+// of A, dA and dK and of the sums, and dLinv's entries (16 a + ty, tx + TX
+// b) across the tiles, in registers (phase 1: in its record between
+// tiles).  M is padded to MP = 16 RU.  Record
+// slot `split` of window w receives dLinv; phase 1 leaves the per-source
+// part of the first sum_ranges slots to phase 2 and zeroes that of the
+// others.
+template <int RU, bool Sums>
+__device__ __forceinline__ void bwd_tiles(const BwdArgs& a, float* sm, int w, int split) {
   constexpr int MP = 16 * RU, C = bwd_cols(RU), TX = kTile / C, NT = bwd_threads(RU);
   constexpr int NB = MP / TX;           // dLinv's columns a thread owns
   constexpr int KC = C == 2 ? 16 : 8;   // rows of Kuf or dA a product holds at once
-  GPITCH_DYNAMIC_SHARED(sm);
   const int M = a.M, N = a.N, P = a.P, S = a.S, sc = a.chunk_sources, cpairs = sc * P;
   const BwdLayout l = make_bwd_layout(RU, sc, P);
-  const int w = blockIdx.y, tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int ty = tid / TX, tx = tid % TX;
   const int nchunks = (S + sc - 1) / sc;
   const int64_t mm = static_cast<int64_t>(w) * M * M;
-  float* rec = a.part + (static_cast<int64_t>(w) * a.splits + blockIdx.x) * a.rec;
+  float* rec = a.part + (static_cast<int64_t>(w) * a.splits + split) * a.rec;
   float* rsrc = rec + M * M;
-  for (int q = tid; q < 2 * S + 2 * S * P; q += NT) rsrc[q] = 0.f;
+  if (Sums || split >= a.sum_ranges)
+    for (int q = tid; q < 2 * S + 2 * S * P; q += NT) rsrc[q] = 0.f;
 #pragma unroll
   for (int r = 0; r < RU; ++r) {
     const int cols = 16 * (r + 1);
@@ -848,7 +1066,7 @@ __global__ void __launch_bounds__(bwd_threads(RU), RU >= 10 ? 1 : 2)
   float* kt = sm + l.kt;
   float* at = sm + l.at;
   int begin, end;
-  tile_range(N, a.splits, &begin, &end);
+  tile_range(N, a.splits, split, &begin, &end);
   for (int tile = begin; tile < end; ++tile) {
     const int t0 = tile * kTile;
     __syncthreads();    // the last tile's readers of x, err and the features are done
@@ -865,53 +1083,58 @@ __global__ void __launch_bounds__(bwd_threads(RU), RU >= 10 ? 1 : 2)
       xt[c] = t < N ? a.xc[static_cast<int64_t>(w) * N + t] : 0.f;
     }
     // ---- the build: Kuf = sum_s var_s E_s mix_s
-    float kacc[RU][C];
+    if constexpr (!Sums) {
+      phase1_build<RU>(a, sm, l, w, t0);
+    } else {
+      float kacc[RU][C];
 #pragma unroll
-    for (int r = 0; r < RU; ++r)
+      for (int r = 0; r < RU; ++r)
 #pragma unroll
-      for (int c = 0; c < C; ++c) kacc[r][c] = 0.f;
-    for (int ck = 0; ck < nchunks; ++ck) {
-      const int s0 = ck * sc, ns = min(sc, S - s0);
-      if (ck > 0) __syncthreads();
-      bwd_chunk<NT>(a, sm, l, w, s0, ns);
-      __syncthreads();
-      bwd_xfeat<NT>(sm, l, ns * P, true);
-      __syncthreads();
-      for (int sl = 0; sl < ns; ++sl) {
-        float mix[RU][C];
+        for (int c = 0; c < C; ++c) kacc[r][c] = 0.f;
+      for (int ck = 0; ck < nchunks; ++ck) {
+        const int s0 = ck * sc, ns = min(sc, S - s0);
+        if (ck > 0) __syncthreads();
+        bwd_chunk<NT>(a, sm, l, w, s0, ns);
+        __syncthreads();
+        bwd_xfeat<NT>(sm, l, ns * P, true);
+        __syncthreads();
+        for (int sl = 0; sl < ns; ++sl) {
+          float mix[RU][C];
 #pragma unroll
-        for (int r = 0; r < RU; ++r)
+          for (int r = 0; r < RU; ++r)
 #pragma unroll
-          for (int c = 0; c < C; ++c) mix[r][c] = 0.f;
-        for (int p = 0; p < P; ++p) {
-          const int q = sl * P + p;
-          float cx[C], sx[C];      // e_q cos, e_q sin of the tile's x
-          load_cols<C>(sm + l.xf + 2 * q * kTile + C * tx, cx);
-          load_cols<C>(sm + l.xf + (2 * q + 1) * kTile + C * tx, sx);
+            for (int c = 0; c < C; ++c) mix[r][c] = 0.f;
+          for (int p = 0; p < P; ++p) {
+            const int q = sl * P + p;
+            float cx[C], sx[C];      // e_q cos, e_q sin of the tile's x
+            load_cols<C>(sm + l.xf + 2 * q * kTile + C * tx, cx);
+            load_cols<C>(sm + l.xf + (2 * q + 1) * kTile + C * tx, sx);
 #pragma unroll
-          for (int r = 0; r < RU; ++r) {
-            const float cz = sm[l.zf + 2 * q * MP + ty + 16 * r];
-            const float sz = sm[l.zf + (2 * q + 1) * MP + ty + 16 * r];
+            for (int r = 0; r < RU; ++r) {
+              const float2 z2 =
+                  *reinterpret_cast<const float2*>(sm + l.zf + 2 * (q * MP + ty + 16 * r));
+              const float cz = z2.x, sz = z2.y;
 #pragma unroll
-            for (int c = 0; c < C; ++c) mix[r][c] += cz * cx[c] + sz * sx[c];
+              for (int c = 0; c < C; ++c) mix[r][c] += cz * cx[c] + sz * sx[c];
+            }
           }
+          const float vs = sm[l.pv + sl], il = sm[l.pil + sl];
+#pragma unroll
+          for (int r = 0; r < RU; ++r)
+#pragma unroll
+            for (int c = 0; c < C; ++c)
+              kacc[r][c] += vs * expf(-fabsf(zr[r] - xt[c]) * il) * mix[r][c];
         }
-        const float vs = sm[l.pv + sl], il = sm[l.pil + sl];
-#pragma unroll
-        for (int r = 0; r < RU; ++r)
-#pragma unroll
-          for (int c = 0; c < C; ++c)
-            kacc[r][c] += vs * expf(-fabsf(zr[r] - xt[c]) * il) * mix[r][c];
       }
-    }
-    __syncthreads();    // every reader of the features is done: Kuf's tile takes their place
+      __syncthreads();    // every reader of the features is done: Kuf's tile takes their place
 #pragma unroll
-    for (int r = 0; r < RU; ++r) {
-      const int i = ty + 16 * r, t = t0 + C * tx;
-      float v[C];
+      for (int r = 0; r < RU; ++r) {
+        const int i = ty + 16 * r, t = t0 + C * tx;
+        float v[C];
 #pragma unroll
-      for (int c = 0; c < C; ++c) v[c] = (i < M && t + c < N) ? kacc[r][c] : 0.f;
-      store_cols<C>(kt + i * kBP + C * tx, v);
+        for (int c = 0; c < C; ++c) v[c] = (i < M && t + c < N) ? kacc[r][c] : 0.f;
+        store_cols<C>(kt + i * kBP + C * tx, v);
+      }
     }
     __syncthreads();
     // ---- A = tril(Linv) Kuf (kernel A's product): for each 16-block kb of
@@ -948,6 +1171,18 @@ __global__ void __launch_bounds__(bwd_threads(RU), RU >= 10 ? 1 : 2)
 #pragma unroll
     for (int r = 0; r < RU; ++r) store_cols<C>(at + (ty + 16 * r) * kBP + C * tx, acc[r]);
     __syncthreads();
+    // Phase 1 keeps dLinv in its record between tiles (its padded entries
+    // are 0), so that its accumulators hold no registers through the build;
+    // their loads are on their way while G A runs
+    if constexpr (!Sums) {
+#pragma unroll
+      for (int u = 0; u < RU; ++u)
+#pragma unroll
+        for (int b = 0; b < NB; ++b) {
+          const int i = 16 * u + ty, j = TX * b + tx;
+          dl[u][b] = tile > begin && i < M && j < M ? rec[i * M + j] : 0.f;
+        }
+    }
     // ---- dA = G A + dv err^T (registers; acc holds it)
     {
       float e[C];
@@ -998,6 +1233,15 @@ __global__ void __launch_bounds__(bwd_threads(RU), RU >= 10 ? 1 : 2)
         }
       }
     }
+    if constexpr (!Sums) {
+#pragma unroll
+      for (int u = 0; u < RU; ++u)
+#pragma unroll
+        for (int b = 0; b < NB; ++b) {
+          const int i = 16 * u + ty, j = TX * b + tx;
+          if (i < M && j < M) rec[i * M + j] = dl[u][b];
+        }
+    }
     // ---- dK = tril(Linv)^T dA: for each 16-block kb of k, KC rows of dA
     // at a time against the block rows r <= kb, Linv's columns read down the
     // triangle's block row kb (each float feeds C products)
@@ -1027,7 +1271,15 @@ __global__ void __launch_bounds__(bwd_threads(RU), RU >= 10 ? 1 : 2)
         }
       }
     }
-    // ---- per-source sums; the features take the tiles' place again
+    // ---- per-source sums (the present body; the features take the tiles'
+    // place again), or dK's tile to the workspace (phase 1)
+    if constexpr (!Sums) {
+      float* dkt = a.ws + static_cast<int64_t>(w) * a.wsz + a.dk_off +
+                   static_cast<int64_t>(tile) * MP * kTile;
+#pragma unroll
+      for (int r = 0; r < RU; ++r) store_cols<C>(dkt + (ty + 16 * r) * kTile + C * tx, dk[r]);
+      continue;
+    }
     for (int ck = 0; ck < nchunks; ++ck) {
       const int s0 = ck * sc, ns = min(sc, S - s0);
       __syncthreads();    // the tiles' readers (or the last flush) are done
@@ -1063,8 +1315,9 @@ __global__ void __launch_bounds__(bwd_threads(RU), RU >= 10 ? 1 : 2)
             load_cols<C>(sm + l.xf + (2 * q + 1) * kTile + C * tx, sx);
 #pragma unroll
             for (int r = 0; r < RU; ++r) {
-              const float cz = sm[l.zf + 2 * q * MP + ty + 16 * r];
-              const float sz = sm[l.zf + (2 * q + 1) * MP + ty + 16 * r];
+              const float2 z2 =
+                  *reinterpret_cast<const float2*>(sm + l.zf + 2 * (q * MP + ty + 16 * r));
+              const float cz = z2.x, sz = z2.y;
 #pragma unroll
               for (int c = 0; c < C; ++c) {
                 const float c0 = cz * cx[c] + sz * sx[c];
@@ -1090,14 +1343,25 @@ __global__ void __launch_bounds__(bwd_threads(RU), RU >= 10 ? 1 : 2)
     }
   }
   // (a block without a tile has no chunk's parameters loaded, and nothing to add)
-  if (nchunks == 1 && begin < end) bwd_flush<NT>(a, sm, l, rsrc, 0, S, cpairs);
+  if (Sums && nchunks == 1 && begin < end) bwd_flush<NT>(a, sm, l, rsrc, 0, S, cpairs);
+  // (phase 1's record holds dLinv already, unless the share has no tile)
+  if (Sums || begin >= end) {
 #pragma unroll
-  for (int u = 0; u < RU; ++u)
+    for (int u = 0; u < RU; ++u)
 #pragma unroll
-    for (int b = 0; b < NB; ++b) {
-      const int i = 16 * u + ty, j = TX * b + tx;
-      if (i < M && j < M) rec[i * M + j] = dl[u][b];
-    }
+      for (int b = 0; b < NB; ++b) {
+        const int i = 16 * u + ty, j = TX * b + tx;
+        if (i < M && j < M) rec[i * M + j] = dl[u][b];
+      }
+  }
+}
+
+// The present body: one block per (split, window).
+template <int RU>
+__global__ void __launch_bounds__(bwd_threads(RU), RU >= 10 ? 1 : 2)
+    fused_whiten_bwd_kernel(BwdArgs a) {
+  GPITCH_DYNAMIC_SHARED(sm);
+  bwd_tiles<RU, true>(a, sm, blockIdx.y, blockIdx.x);
 }
 
 // out[w][e] = sum over splits of part[w][split][e], splits in order.
@@ -1118,6 +1382,305 @@ cudaError_t reduce_splits(const float* part, float* out, int nw, int rec, int sp
   GPITCH_LAUNCH(reduce_splits_kernel, static_cast<unsigned>((total + 255) / 256), 256, 0,
                 stream)(part, out, total, rec, splits);
   return cudaGetLastError();
+}
+
+// ------------------------------------------- kernel B, the two-phase body
+// One persistent block an SM takes work items from a queue in device
+// memory, in a fixed order: first phase 1, the `splits` shares of each
+// window's tiles (bwd_tiles without the sums: the build and the four
+// products, dK's tiles to the window's workspace), then phase 2, each
+// window's sources in items of `sum_sources` (bwd_sums).  A phase-2 item
+// waits until every phase-1 item of its window has counted itself done;
+// those were taken before it, by blocks that are running, so no block
+// waits on one that has not started.  Plan and bounds: the header.
+constexpr int kSumCols = 5;                    // partials of a pair group: a warp's columns
+constexpr int kSumGroups = bwd_threads(10) / 32;  // pair groups of an item: one a warp
+constexpr int kWP = kTile + 1;                 // pitch of the dK E tiles
+constexpr int kXP = 12;                        // a group's floats a sample: cos 5, sin 5, x, 0
+constexpr int kPhaseItems = 4;                 // items a block, at least (the plan)
+constexpr int kPhaseChunks = 3;                // build chunks a tile, at least (2 lose: the header)
+struct Phases {};                              // selects the body at a launch
+
+struct SumLayout {
+  int w, xf, stage, xs, z, pe, pf, pv, pil, red, total;
+};
+
+// Shared memory of a phase-2 item (floats; every array 16-byte aligned):
+// dK E of each of its si sources (MP rows at a pitch of kWP), the tile's
+// x features per sample and pair group (cos of the group's 5 partials, sin
+// of them, x), the next tile's dK and x as they arrive, z, the groups' e
+// and f, the sources' var and il, and each pair's (e Sa, e Sd).
+__host__ __device__ inline SumLayout make_sum_layout(int mp, int si) {
+  SumLayout l;
+  int o = 0;
+  l.w = o;   o += round4(si * mp * kWP);
+  l.xf = o;  o += kTile * kSumGroups * kXP;
+  l.stage = o; o += mp * kTile;
+  l.xs = o;  o += kTile;
+  l.z = o;   o += mp;
+  l.pe = o;  o += round4(kSumGroups * kSumCols);
+  l.pf = o;  o += round4(kSumGroups * kSumCols);
+  l.pv = o;  o += round4(si);
+  l.pil = o; o += round4(si);
+  l.red = o; o += 2 * kSumGroups * kSumCols;
+  l.total = o;
+  return l;
+}
+
+// Sources a phase-2 item holds: as many as give each warp one pair group of
+// a source, ceil(P / 5) groups a source.
+__host__ __device__ inline int sum_sources(int P) {
+  return kSumGroups / ((P + kSumCols - 1) / kSumCols);
+}
+
+// The sources a phase-2 item holds where kernel B takes its two-phase body,
+// else 0: at M 160 (RU 10) where the present body's plan walks more than
+// one source chunk, and P <= 40 (a source's pair groups fit the warps).
+inline int bwd_phase_sources(int M, int S, int P) {
+  static_assert(kSumGroups * kSumCols == kPhaseMaxP, "a source's pair groups fit the warps");
+  if (M < 1 || M > 160 || S < 1 || P < 1 || P > kPhaseMaxP) return 0;
+  const int ru = padded_m(M) / 16, sc = bwd_chunk_sources(ru, S, P);
+  if (ru != 10 || sc == 0 || (S + sc - 1) / sc < kPhaseChunks) return 0;
+  const int si = sum_sources(P);
+  return 4 * (make_sum_layout(16 * ru, si).total + 4) <= kSmemLimit ? si : 0;
+}
+
+// Floats per window of kernel B's workspace: the z features, and for the
+// two-phase body dK's tiles (tiles, MP, kTile) and 4 floats that hold the
+// queue's counters (phase_counters).
+inline int bwd_workspace(int M, int N, int S, int P) {
+  const int z = bwd_zfeat_floats(M, S, P);
+  if (!bwd_phase_sources(M, S, P)) return z;
+  return z + (N + kTile - 1) / kTile * padded_m(M) * kTile + 4;
+}
+
+// Window w's two counters in its workspace: [0] its phase-1 items done;
+// window 0's [1] is the queue's next item.
+__device__ __forceinline__ int* phase_counters(const BwdArgs& a, int w) {
+  return reinterpret_cast<int*>(a.ws + static_cast<int64_t>(w) * a.wsz + a.ctr_off);
+}
+
+// Phase 2, one item: sources s0 .. s0 + ns - 1 of window w over its tiles
+// [tb, te), into record slot `slot`.  Warp v takes
+// pair group v: source v / gps (gps = ceil(P / 5)), partials 5 (v % gps) +
+// j, j < 5.  Lane l holds rows l + 32 k of three products over the window's
+// samples, 2 x 5 columns each (cos and sin of the group's partials),
+//   Y[m][p] = sum_t W[m][t] (cos, sin)(2 pi f_p x_t),
+// for W = dK E, dK E |z - x| and dK E (z - x), E = exp(-|z - x| il_s) of
+// the warp's source, per 32-sample tile: dK's tile read from the workspace,
+// W formed once into shared memory.  Then, once per item, the z features:
+//   Sa_p = sum_m cos(2 pi f_p z_m) Ya[m][cos p] + sin(2 pi f_p z_m) Ya[m][sin p],
+//   Sd_p the same of Yd, Sf_p = sum_m sin(..) Yf[m][cos p] - cos(..) Yf[m][sin p],
+// summed over the lanes, and bwd_flush's formulas into the record (the
+// slots' sum adds a window's ranges in a fixed order).
+template <int RU>
+__device__ void bwd_sums(const BwdArgs& a, float* sm, const SumLayout& l, int w, int s0, int tb,
+                         int te, int slot) {
+  constexpr int MP = 16 * RU, RM = MP / 32, NT = bwd_threads(RU);
+  constexpr int G = kSumGroups, J = kSumCols;
+  static_assert(MP % 32 == 0 && NT == 32 * G && MP * kTile / 4 % NT == 0 &&
+                kTile * G * J % NT == 0, "a phase-2 item's shape");
+  const int M = a.M, N = a.N, S = a.S, P = a.P;
+  const int tid = threadIdx.x, lane = tid % 32, v = tid / 32;
+  const int gps = (P + J - 1) / J, ns = min(a.sum_sources, S - s0);
+  const int sl = v / gps, g = v - sl * gps;
+  const bool active = sl < ns;
+  const float* e = a.energy + static_cast<int64_t>(w) * a.e_stride;
+  const float* f = a.freq + static_cast<int64_t>(w) * a.e_stride;
+  for (int q = tid; q < G * J; q += NT) {
+    const int s = q / J / gps, p = (q / J) % gps * J + q % J;
+    const bool on = s < ns && p < P;
+    sm[l.pe + q] = on ? e[(s0 + s) * P + p] : 0.f;
+    sm[l.pf + q] = on ? f[(s0 + s) * P + p] : 0.f;
+  }
+  const int64_t vb = static_cast<int64_t>(w) * a.v_stride + s0;
+  for (int s = tid; s < ns; s += NT) {
+    sm[l.pv + s] = a.var[vb + s];
+    sm[l.pil + s] = a.inv_l[vb + s];
+  }
+  const float* zw = a.zc + static_cast<int64_t>(w) * M;
+  const float* xw = a.xc + static_cast<int64_t>(w) * N;
+  for (int i = tid; i < MP; i += NT) sm[l.z + i] = i < M ? zw[i] : 0.f;
+  __syncthreads();
+  float zr[RM];
+#pragma unroll
+  for (int k = 0; k < RM; ++k) zr[k] = sm[l.z + lane + 32 * k];
+  float y[3][RM][2][J];
+#pragma unroll
+  for (int u = 0; u < 3; ++u)
+#pragma unroll
+    for (int k = 0; k < RM; ++k)
+#pragma unroll
+      for (int j = 0; j < J; ++j) y[u][k][0][j] = y[u][k][1][j] = 0.f;
+  const float* dkw = a.ws + static_cast<int64_t>(w) * a.wsz + a.dk_off;
+  // a tile's dK and x to the stage, while the last tile's products run
+  auto stage = [&](int tile) {
+    const float* src = dkw + static_cast<int64_t>(tile) * MP * kTile;
+#pragma unroll
+    for (int r = 0; r < MP * kTile / 4 / NT; ++r)
+      copy16_async(sm + l.stage + 4 * (tid + r * NT), src + 4 * (tid + r * NT));
+    const int t = tile * kTile + tid;
+    if (tid < kTile) copy4_async(sm + l.xs + tid, xw + (t < N ? t : 0), t < N);
+  };
+  if (tb < te) stage(tb);
+  for (int tile = tb; tile < te; ++tile) {
+    copy_async_wait();
+    __syncthreads();    // the tile is staged; the last tile's readers of W and the features are done
+    // ---- W = dK E of each source of the item (E as the present body forms it)
+#pragma unroll
+    for (int r = 0; r < MP * kTile / 4 / NT; ++r) {
+      const int q = tid + r * NT, m = q / (kTile / 4), c = 4 * (q % (kTile / 4));
+      const float4 d4 = *reinterpret_cast<const float4*>(sm + l.stage + 4 * q);
+      const float4 x4 = *reinterpret_cast<const float4*>(sm + l.xs + c);
+      const float dk[4] = {d4.x, d4.y, d4.z, d4.w};
+      const float zm = sm[l.z + m];
+      const float d[4] = {fabsf(zm - x4.x), fabsf(zm - x4.y), fabsf(zm - x4.z), fabsf(zm - x4.w)};
+      for (int s = 0; s < ns; ++s) {
+        const float il = sm[l.pil + s];
+        float* o = sm + l.w + (s * MP + m) * kWP + c;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) o[j] = dk[j] * expf(-d[j] * il);
+      }
+    }
+    // ---- the tile's x features of each pair group (as the present body forms them)
+#pragma unroll
+    for (int r = 0; r < kTile * G * J / NT; ++r) {
+      const int q = tid + r * NT, t = q / (G * J), k = q - t * (G * J), gv = k / J, j = k - gv * J;
+      const float x = sm[l.xs + t];
+      float sn, cs;
+      sincosf((kTwoPi * x) * sm[l.pf + k], &sn, &cs);
+      float* o = sm + l.xf + (t * G + gv) * kXP;
+      o[j] = cs;
+      o[J + j] = sn;
+      if (j == 0) {
+        o[2 * J] = x;
+        o[2 * J + 1] = 0.f;
+      }
+    }
+    __syncthreads();
+    if (tile + 1 < te) stage(tile + 1);
+    // ---- the three products, 6 FMAs an element and partial
+    if (active) {
+      const float* wr = sm + l.w + (sl * MP + lane) * kWP;
+      const float* xr = sm + l.xf + v * kXP;
+#pragma unroll 2
+      for (int t = 0; t < kTile; ++t) {
+        const float4 q0 = *reinterpret_cast<const float4*>(xr + t * G * kXP);
+        const float4 q1 = *reinterpret_cast<const float4*>(xr + t * G * kXP + 4);
+        const float4 q2 = *reinterpret_cast<const float4*>(xr + t * G * kXP + 8);
+        const float cx[J] = {q0.x, q0.y, q0.z, q0.w, q1.x};
+        const float sx[J] = {q1.y, q1.z, q1.w, q2.x, q2.y};
+#pragma unroll
+        for (int k = 0; k < RM; ++k) {
+          const float wv = wr[32 * k * kWP + t], d = zr[k] - q2.z;
+          const float wk[3] = {wv, wv * fabsf(d), wv * d};
+#pragma unroll
+          for (int u = 0; u < 3; ++u)
+#pragma unroll
+            for (int j = 0; j < J; ++j) {
+              y[u][k][0][j] += wk[u] * cx[j];
+              y[u][k][1][j] += wk[u] * sx[j];
+            }
+        }
+      }
+    }
+  }
+  // ---- the z features once, the lanes' sum, and the record
+  float* rsrc = a.part + (static_cast<int64_t>(w) * a.splits + slot) * a.rec + M * M;
+  float* rde = rsrc + 2 * S;
+  float* rdf = rde + S * P;
+  float* red = sm + l.red;
+  if (active) {
+    const float* zf = a.ws + static_cast<int64_t>(w) * a.wsz;   // cos, sin of a row side by side
+    float sa[J], sd[J], sf[J];
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      sa[j] = sd[j] = sf[j] = 0.f;
+      const int p = g * J + j;
+      if (p >= P) continue;
+      const float* zq = zf + 2 * static_cast<int64_t>((s0 + sl) * P + p) * MP;
+#pragma unroll
+      for (int k = 0; k < RM; ++k) {
+        const float2 z2 = *reinterpret_cast<const float2*>(zq + 2 * (lane + 32 * k));
+        const float cz = z2.x, sz = z2.y;
+        sa[j] += cz * y[0][k][0][j] + sz * y[0][k][1][j];
+        sd[j] += cz * y[1][k][0][j] + sz * y[1][k][1][j];
+        sf[j] += sz * y[2][k][0][j] - cz * y[2][k][1][j];
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        sa[j] += __shfl_xor_sync(0xffffffffu, sa[j], off);
+        sd[j] += __shfl_xor_sync(0xffffffffu, sd[j], off);
+        sf[j] += __shfl_xor_sync(0xffffffffu, sf[j], off);
+      }
+    if (lane == 0) {
+      const float vs = sm[l.pv + sl];
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const int p = g * J + j, q = (s0 + sl) * P + p;
+        if (p >= P) continue;
+        const float ep = sm[l.pe + v * J + j];
+        rde[q] = vs * sa[j];
+        rdf[q] = -kTwoPi * ep * vs * sf[j];
+        red[2 * (v * J + j)] = ep * sa[j];
+        red[2 * (v * J + j) + 1] = ep * sd[j];
+      }
+    }
+  }
+  __syncthreads();
+  for (int s = tid; s < ns; s += NT) {
+    float sv = 0.f, si = 0.f;
+    for (int p = 0; p < P; ++p) {
+      const int r = 2 * ((s * gps + p / J) * J + p % J);
+      sv += red[r];
+      si += red[r + 1];
+    }
+    rsrc[s0 + s] = sv;
+    rsrc[S + s0 + s] = -sm[l.pv + s] * si;
+  }
+}
+
+// The two-phase body.  Item i < nw splits: phase 1 of window i / splits,
+// share i % splits; then phase 2: with ipw = ceil(S / sum_sources) source
+// groups and R = sum_ranges ranges of tiles a window, item n1 + (w ipw + j)
+// R + k takes window w's sources from sum_sources j over its k-th range.
+template <int RU>
+__global__ void __launch_bounds__(bwd_threads(RU), 1) fused_whiten_bwd_kernel(BwdArgs a, Phases) {
+  GPITCH_DYNAMIC_SHARED(sm);
+  const int si = a.sum_sources, ipw = (a.S + si - 1) / si, R = a.sum_ranges;
+  const int tiles = (a.N + kTile - 1) / kTile, per = (tiles + R - 1) / R;
+  const int n1 = a.nw * a.splits, items = n1 + a.nw * ipw * R;
+  const SumLayout l = make_sum_layout(16 * RU, si);
+  int* taken = reinterpret_cast<int*>(
+      sm + max(make_bwd_layout(RU, a.chunk_sources, a.P).total, l.total));
+  int* head = phase_counters(a, 0) + 1;
+  for (;;) {
+    __syncthreads();    // the last item's readers of shared memory (and of `taken`) are done
+    if (threadIdx.x == 0) *taken = atomicAdd(head, 1);
+    __syncthreads();
+    const int item = *taken;
+    if (item >= items) break;
+    if (item < n1) {
+      const int w = item / a.splits;
+      bwd_tiles<RU, false>(a, sm, w, item - w * a.splits);
+      __threadfence();    // dK's tiles, before the count that hands them on
+      __syncthreads();
+      if (threadIdx.x == 0) atomicAdd(phase_counters(a, w), 1);
+    } else {
+      const int w = (item - n1) / (ipw * R), j = (item - n1) / R - w * ipw;
+      const int k = item - n1 - (w * ipw + j) * R;
+      if (threadIdx.x == 0) {
+        const volatile int* done = phase_counters(a, w);
+        while (*done < a.splits) __nanosleep(128);
+        __threadfence();
+      }
+      __syncthreads();
+      bwd_sums<RU>(a, sm, l, w, j * si, min(tiles, k * per), min(tiles, (k + 1) * per), k);
+    }
+  }
 }
 
 // ------------------------------------------- kernel B, the role-split body
@@ -1789,10 +2352,74 @@ cudaError_t bwd_roles_run(BwdArgs a, int nw, cudaStream_t stream, int* splits_ou
   return reduce_splits(a.part, a.sums, nw, a.rec, a.splits, stream);
 }
 
-// Kernel B: the role-split body where it serves the sizes (bwd_roles);
-// else the z features per window, the present body and the splits' sum;
-// or, with `splits_out`, only the split that `plan_splits` picks for the
-// present body.
+// Phase-1 items a window of the two-phase body: the fewest valid splits of
+// its tiles that give `blocks` resident blocks kPhaseItems items each, so
+// that a window's phase 1 ends early and its phase-2 items do not wait.
+inline int phase_splits(int nw, int tiles, int blocks) {
+  int splits = 1;
+  for (int s = 1; s <= tiles; ++s) {
+    const int per = (tiles + s - 1) / s;
+    if ((tiles + per - 1) / per != s) continue;
+    splits = s;
+    if (static_cast<int64_t>(nw) * s >= static_cast<int64_t>(kPhaseItems) * blocks) break;
+  }
+  return splits;
+}
+
+// Kernel B's two-phase body: the z features per window, the queue's
+// counters zeroed, one persistent block a resident slot (or one an item,
+// where there are fewer items), then the records' sum; or, with
+// `splits_out`, the phase-1 items a window (phase_splits).
+template <int RU>
+cudaError_t bwd_phases_run(BwdArgs a, int nw, cudaStream_t stream, int* splits_out) {
+  static std::atomic<int> allowed[kMaxDevices];
+  const void* fn = reinterpret_cast<const void*>(
+      static_cast<void (*)(BwdArgs, Phases)>(&fused_whiten_bwd_kernel<RU>));
+  const int floats = std::max(make_bwd_layout(RU, a.chunk_sources, a.P).total,
+                              make_sum_layout(16 * RU, a.sum_sources).total) + 4;
+  const int smem = static_cast<int>(sizeof(float)) * floats;
+  cudaError_t err = allow_shared(fn, smem, allowed);
+  int device = 0, sms = 0, resident = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, fn, bwd_threads(RU), smem);
+  if (err != cudaSuccess) return err;
+  const int slots = sms * (resident > 0 ? resident : 1), tiles = (a.N + kTile - 1) / kTile;
+  if (splits_out) {
+    *splits_out = phase_splits(nw, tiles, slots);
+    return cudaSuccess;
+  }
+  a.nw = nw;
+  a.dk_off = bwd_zfeat_floats(a.M, a.S, a.P);
+  a.ctr_off = a.dk_off + tiles * a.mp * kTile;
+  const int zblocks = (a.S * a.P * a.mp + 1023) / 1024;
+  GPITCH_LAUNCH(bwd_zfeat_kernel, dim3(zblocks, nw), kThreads, 0, stream)(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = cudaMemset2DAsync(a.ws + a.ctr_off, sizeof(float) * a.wsz, 0, 2 * sizeof(int), nw,
+                          stream);
+  if (err != cudaSuccess) return err;
+  // phase 2's ranges of a window's tiles: enough items for every block as
+  // phase 1 has them, each range a record slot
+  const int ipw = (a.S + a.sum_sources - 1) / a.sum_sources;
+  a.sum_ranges = 1;
+  while (a.sum_ranges < std::min(a.splits, tiles) &&
+         static_cast<int64_t>(nw) * ipw * a.sum_ranges < static_cast<int64_t>(kPhaseItems) * slots)
+    ++a.sum_ranges;
+  const int items = nw * (a.splits + ipw * a.sum_ranges);
+  GPITCH_LAUNCH(fused_whiten_bwd_kernel<RU>, std::min(slots, items), bwd_threads(RU), smem,
+                stream)(a, Phases{});
+  err = cudaGetLastError();
+  if (err != cudaSuccess || a.splits == 1) return err;
+  return reduce_splits(a.part, a.sums, nw, a.rec, a.splits, stream);
+}
+
+// Kernel B: the role-split body where it serves the sizes (bwd_roles), the
+// two-phase body where it does (bwd_phase_sources); else the z features
+// per window, the present body and the splits' sum; or, with `splits_out`,
+// only the plan of the body it takes.
 template <int RU>
 cudaError_t bwd_run(BwdArgs a, int nw, cudaStream_t stream, int* splits_out) {
   if constexpr (role_split(RU)) {
@@ -1800,6 +2427,10 @@ cudaError_t bwd_run(BwdArgs a, int nw, cudaStream_t stream, int* splits_out) {
   }
   a.chunk_sources = bwd_chunk_sources(RU, a.S, a.P);
   if (a.chunk_sources == 0) return cudaErrorInvalidValue;
+  if constexpr (RU == 10) {
+    a.sum_sources = bwd_phase_sources(a.M, a.S, a.P);
+    if (a.sum_sources > 0) return bwd_phases_run<RU>(a, nw, stream, splits_out);
+  }
   static std::atomic<int> allowed[kMaxDevices];
   const void* fn = reinterpret_cast<const void*>(
       static_cast<void (*)(BwdArgs)>(&fused_whiten_bwd_kernel<RU>));
@@ -1823,7 +2454,7 @@ int bwd_dispatch(BwdArgs a, int nw, void* stream, int* splits_out = nullptr) {
   if (nw == 0 || a.M == 0) return 0;
   a.mp = padded_m(a.M);
   a.rec = a.M * a.M + 2 * a.S + 2 * a.S * a.P;
-  a.wsz = bwd_workspace(a.M, a.S, a.P);
+  a.wsz = bwd_workspace(a.M, a.N, a.S, a.P);
   if (a.splits == 1) a.sums = a.part;
   auto* s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
@@ -1918,7 +2549,7 @@ int gpitch_fused_whiten_fwd_workspace(int M, int S, int P) { return fwd_workspac
 // and dv (nw, M, 1).  part (nw, splits, rec) receives each block's
 // [dLinv (M M), dvar (S), dinvl (S), de (S P), df (S P)] and sums (nw, rec)
 // their sum (unused when splits == 1); ws (nw,
-// gpitch_fused_whiten_bwd_workspace(M, S, P)) is scratch.
+// gpitch_fused_whiten_bwd_workspace(M, N, S, P)) is scratch.
 int gpitch_fused_whiten_bwd(const void* zc, const void* xc, const void* err, const void* linv,
                             const void* energy, const void* freq, const void* var,
                             const void* inv_l, const void* du, const void* dv, void* part,
@@ -1929,14 +2560,18 @@ int gpitch_fused_whiten_bwd(const void* zc, const void* xc, const void* err, con
                       nw, stream);
 }
 
-// Floats per window of kernel B's scratch `ws` (none for the role-split
-// body, which forms its z features in shared memory).
-int gpitch_fused_whiten_bwd_workspace(int M, int S, int P) {
-  return bwd_roles(M, S, P) ? 0 : bwd_workspace(M, S, P);
+// Floats per window of kernel B's scratch `ws` at N samples (none for the
+// role-split body, which forms its z features in shared memory).
+int gpitch_fused_whiten_bwd_workspace(int M, int N, int S, int P) {
+  return bwd_roles(M, S, P) ? 0 : bwd_workspace(M, N, S, P);
 }
 
 // 1 where kernel B takes its role-split body at these sizes, else 0.
 int gpitch_fused_whiten_bwd_roles(int M, int S, int P) { return bwd_roles(M, S, P) ? 1 : 0; }
+
+// The sources that one phase-2 item of kernel B's two-phase body holds at
+// these sizes, or 0 where kernel B does not take that body.
+int gpitch_fused_whiten_bwd_phases(int M, int S, int P) { return bwd_phase_sources(M, S, P); }
 
 // The source chunks that one launch of kernel A (bwd 0) or B (bwd 1) walks
 // at these sizes: S over the sources a chunk its shared-memory plan holds,

@@ -37,15 +37,17 @@ SIGNATURES = {
     # inputs, partial sums, output, scratch (the backward: partial records,
     # their sum, scratch); window strides of (S, P) and (S,)
     # parameters; nw, M, N, S, P, splits; stream.  The split plan: backward?,
-    # nw, M, N, S, P -> splits; each kernel's scratch floats per window: M, S, P;
-    # whether kernel B takes its role-split body: M, S, P; the source chunks a
-    # launch walks: backward?, M, S, P
+    # nw, M, N, S, P -> splits; each kernel's scratch floats per window: M, S, P
+    # (kernel B: M, N, S, P); whether kernel B takes its role-split body: M, S,
+    # P; the sources a phase-2 item of its two-phase body holds: M, S, P; the
+    # source chunks a launch walks: backward?, M, S, P
     "fused_whiten": {"gpitch_fused_whiten_fwd": [_P] * 11 + [_I] * 8 + [_P],
                      "gpitch_fused_whiten_fwd_workspace": [_I] * 3,
                      "gpitch_fused_whiten_bwd": [_P] * 13 + [_I] * 8 + [_P],
-                     "gpitch_fused_whiten_bwd_workspace": [_I] * 3,
+                     "gpitch_fused_whiten_bwd_workspace": [_I] * 4,
                      "gpitch_fused_whiten_splits": [_I] * 6 + [ctypes.POINTER(_I)],
                      "gpitch_fused_whiten_bwd_roles": [_I] * 3,
+                     "gpitch_fused_whiten_bwd_phases": [_I] * 3,
                      "gpitch_fused_whiten_source_chunks": [_I] * 4},
     # a graph's top-level nodes; the chain of n parts (graphs, conditions,
     # the new graph and its executable out); launch (executable, stream); free

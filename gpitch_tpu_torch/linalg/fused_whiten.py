@@ -35,8 +35,8 @@ import torch
 from . import _cuda
 
 __all__ = ["fused_whiten", "fused_whiten_flat", "fused_whiten_bwd",
-           "fused_whiten_bwd_roles", "fused_whiten_source_chunks", "fused_whiten_plain",
-           "fused_whiten_bwd_plain", "MAX_M", "TILE_T", "ROLE_TILE_T"]
+           "fused_whiten_bwd_roles", "fused_whiten_bwd_phases", "fused_whiten_source_chunks",
+           "fused_whiten_plain", "fused_whiten_bwd_plain", "MAX_M", "TILE_T", "ROLE_TILE_T"]
 
 MAX_M = 160      # the largest kernel instance (csrc/fused_whiten.cu, kRows)
 TILE_T = 32      # samples per tile of kernel A and B's present body (kTile)
@@ -46,12 +46,19 @@ ROLE_TILE_T = 64  # samples per tile of kernel B's role-split body (kRTile)
 # M <= 112 where every pair's features fit), a part of fused_whiten_bwd's.
 fused_whiten_bwd_roles = _cuda.counter("fused_whiten_bwd_roles")
 
+# Kernel B's launches that took its two-phase body (csrc/fused_whiten.cu: M
+# 160 where the present body's plan walks 3 source chunks or more), a part
+# of fused_whiten_bwd's.
+fused_whiten_bwd_phases = _cuda.counter("fused_whiten_bwd_phases")
+
 # The source chunks that one launch of kernel A (``fwd``) and of kernel B
-# (``bwd``) walks a tile, from the plan of the last launch on the card (its
-# shared memory holds so many sources' features at once; 1 where it holds
-# every source).  Set where a wrapper plans its launch, so a captured
-# step's replays leave it as its capture set it; 0 until a launch.
-fused_whiten_source_chunks = types.SimpleNamespace(fwd=0, bwd=0)
+# (``bwd``) walks a tile in its build, from the plan of the last launch on
+# the card (its shared memory holds so many sources' features at once; 1
+# where it holds every source), and (``sums``) the sources that one item of
+# the two-phase body's per-source sums holds (0 where kernel B takes another
+# body).  Set where a wrapper plans its launch, so a captured step's replays
+# leave it as its capture set it; 0 until a launch.
+fused_whiten_source_chunks = types.SimpleNamespace(fwd=0, bwd=0, sums=0)
 
 _TWO_PI = 2.0 * math.pi
 
@@ -178,6 +185,13 @@ def _roles(m: int, s: int, p: int) -> bool:
 
 
 @functools.lru_cache(maxsize=256)
+def _phases(m: int, s: int, p: int) -> int:
+    """The sources a phase-2 item of kernel B's two-phase body holds at
+    these sizes, 0 where kernel B takes another body."""
+    return _cuda.load("fused_whiten").gpitch_fused_whiten_bwd_phases(m, s, p)
+
+
+@functools.lru_cache(maxsize=256)
 def _source_chunks(bwd: bool, m: int, s: int, p: int) -> int:
     """The source chunks a launch of kernel A or B walks at these sizes."""
     return _cuda.load("fused_whiten").gpitch_fused_whiten_source_chunks(int(bwd), m, s, p)
@@ -242,19 +256,21 @@ def _backward_kernel(zc, xc, err, linv, du, dv, energy, freq, var, inv_l,
                      splits=None):
     """Kernel B on CUDA tensors; ``splits`` overrides the plan of its main
     kernel: the records a window takes (the present body: its blocks; the
-    role-split body: at most that many blocks cover a window).  The record
+    role-split body: at most that many blocks cover a window; the two-phase
+    body: its phase-1 items, each a share of the window's tiles).  The record
     of a block is [dLinv (M M), dvar (S), dinvl (S), de (S P), df (S P)].
     Like kernel A it reads Linv's lower triangle only."""
     sizes, tensors, strides = _prepare(zc, xc, err, linv, energy, freq, var,
                                        inv_l, du, dv)
-    nw, m, _, s, p = sizes
+    nw, m, n, s, p = sizes
     dev = zc.device
     lib = _cuda.load("fused_whiten")
     splits = splits or _splits(True, sizes, dev.index)
     fused_whiten_source_chunks.bwd = _source_chunks(True, m, s, p)
+    fused_whiten_source_chunks.sums = _phases(m, s, p)
     rec = m * m + 2 * s + 2 * s * p
     part, sums = _records(nw, splits, rec, dev)
-    ws = torch.empty((nw, lib.gpitch_fused_whiten_bwd_workspace(m, s, p)),
+    ws = torch.empty((nw, lib.gpitch_fused_whiten_bwd_workspace(m, n, s, p)),
                      dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         rc = lib.gpitch_fused_whiten_bwd(
@@ -283,6 +299,8 @@ def fused_whiten_bwd(zc, xc, err, linv, du, dv, energy, freq, var, inv_l):
     fused_whiten_bwd.launches += 1
     if _roles(zc.shape[1], *energy.shape[-2:]):
         fused_whiten_bwd_roles.launches += 1
+    if _phases(zc.shape[1], *energy.shape[-2:]):
+        fused_whiten_bwd_phases.launches += 1
     return out
 
 

@@ -23,7 +23,8 @@ of two blocks interleaved.
 
     python3 phase_clocks.py --bwd TREE [TREE ...]
 
-does the same for kernel B, whose tiles take six phases: the build of
+does the same for kernel B (the AMT widths too: ``c_amt63``, 87 windows,
+M 160, 63 x 20), whose tiles take six phases: the build of
 Kuf's tile (``// ---- the build``), A = tril(Linv) Kuf (``// ---- A =
 tril(Linv) Kuf``), dA = G A + dv err^T (``// ---- dA = G A``), dLinv +=
 dA Kuf^T (``// ---- dLinv += dA Kuf^T``), dK = tril(Linv)^T dA (``// ----
@@ -44,7 +45,16 @@ tile t + 2``, and the two before the loop), into de[w].  A wait is settled
 by a shared load before its clock is read (a barrier's wait is deferred to
 a later instruction).  Each counter is summed over the blocks that cover a
 window (the records' sum) and divided by the window's tiles: cycles a
-64-sample tile of one block, alone on its SM.  Needs a CUDA card.
+64-sample tile of one block, alone on its SM.  Where kernel B takes its
+two-phase body (M 160 over several build chunks), its phase-1 items are
+clocked as the present body's tiles (the last phase the store of dK's
+tile; summed over the window's items at the body's own plan), and each
+phase-2 item's warp 0 at its own comments: the item's start and the wait at
+each tile's first barrier, W = dK E (``// ---- W = dK E``), the x features
+and the barrier after them (``// ---- the tile's x features``), the three
+products (``// ---- the three products``) and the item's end, into de[w,
+s0, :5]; the median over items, divided by the window's tiles: cycles a
+32-sample tile of one item.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -121,15 +131,19 @@ sosp_f0 = 261.6 * 2 ** (np.array([0, 4, 7]) / 12)
 cases = {"a_sosp": cs._whiten_inputs(222, 2001, 112, cs._harmonics(sosp_f0, 5, 16000.0),
                                      16000.0),
          "b_amt": cs._whiten_inputs(43, 2001, 160, cs._harmonics(amt_f0, 10, 44100.0),
-                                    44100.0)}
+                                    44100.0),
+         "c_amt63": cs._whiten_inputs(87, 2001, 160, cs._harmonics(
+             27.5 * 2 ** (np.arange(63) / 12), 20, 44100.0), 44100.0)}
 names = ("zc", "xc", "err", "linv", "du", "dv", "energy", "freq", "var", "inv_l")
 phases = ("build", "A", "GA", "dLinv", "dK", "sums")
+items = ("start_wait", "W", "xfeat", "products", "end")
 out = {}
 for k, d in cases.items():
     args = [torch.as_tensor(np.array(d[n]), dtype=torch.float32, device=dev) for n in names]
     roles = hasattr(fw, "_roles") and fw._roles(args[0].shape[1], *args[6].shape[-2:])
+    si = fw._phases(args[0].shape[1], *args[6].shape[-2:]) if hasattr(fw, "_phases") else 0
     for _ in range(2):
-        rec = fw._backward_kernel(*args, splits=None if roles else 1)
+        rec = fw._backward_kernel(*args, splits=None if roles or si else 1)
     torch.cuda.synchronize()
     if roles:
         tiles = -(-args[1].shape[-1] // fw.ROLE_TILE_T)
@@ -145,6 +159,10 @@ for k, d in cases.items():
     c = rec[0][:, 0, :12].double().cpu().numpy() / tiles
     out[k] = {"warp0": dict(zip(phases, np.median(c[:, :6], 0).round(0).tolist())),
               "warp2": dict(zip(phases, np.median(c[:, 6:], 0).round(0).tolist()))}
+    if si:
+        z = rec[3][:, ::si, :5].double().cpu().numpy().reshape(-1, 5) / tiles
+        out[k]["phase2_item_warp0_per_tile"] = dict(zip(items, np.median(z, 0).round(0).tolist()))
+        out[k]["sources_a_phase2_item"] = si
 print(json.dumps(out))
 """
 
@@ -155,7 +173,11 @@ def instrument_bwd(src: str) -> str:
     start = src.index("// ------------------------------------------------------------- kernel B")
     end = src.index("// out[w][e] = sum over splits of part[w][split][e]")
     head, body, tail = src[:start], src[start:end], src[end:]
-    kern = body.index("fused_whiten_bwd_kernel(BwdArgs a) {")
+    # the present body's tiles: a function of their own where the two-phase
+    # body's phase 1 shares them (bwd_tiles), else the kernel itself
+    kern = body.find("void bwd_tiles(")
+    if kern < 0:
+        kern = body.index("fused_whiten_bwd_kernel(BwdArgs a) {")
     pre, body = body[:kern], body[kern:]
     i = body.index(_BWD_LOOP)
     body = (body[:i] + "  long long tp[6] = {0, 0, 0, 0, 0, 0}, c0 = 0, c1;\n" + _BWD_LOOP
@@ -166,8 +188,13 @@ def instrument_bwd(src: str) -> str:
             raise ValueError(f"anchor not found: {anchor.strip()!r}")
         body = body[:j] + f"    c1 = clock64(); tp[{n}] += c1 - c0; c0 = c1;\n" + body[j:]
     # the per-source sums end where the tile loop does: before the comment
-    # after it, close the last phase inside the loop's closing brace
+    # after it, close the last phase inside the loop's closing brace (and at
+    # phase 1's ``continue`` after its dK store)
     j = body.index(_BWD_AFTER)
+    i = body.find("      continue;\n", body.index(_BWD_PHASES[-1]), j)
+    if i >= 0:
+        body = body[:i] + "      tp[5] += clock64() - c0;\n" + body[i:]
+        j = body.index(_BWD_AFTER)
     k = body.rindex("  }\n", 0, j)
     body = body[:k] + "    tp[5] += clock64() - c0;\n" + body[k:]
     k = body.index("\n}\n", body.index(_BWD_AFTER))
@@ -241,6 +268,46 @@ def instrument_roles(src: str) -> str:
     return head + body + tail
 
 
+_SUMS_SETTLE = "    if (*reinterpret_cast<volatile float*>(sm + l.z) == 1.25e30f) c0 -= 1;\n"
+_SUMS_PHASES = ("    // ---- W = dK E", "    // ---- the tile's x features",
+                "    // ---- the three products")
+_SUMS_AFTER = "  // ---- the z features once"
+
+
+def instrument_phases(src: str) -> str:
+    """kernel B's two-phase body with counters in its phase-2 items (the
+    source unchanged where it has no such body): the item's start and each
+    tile's wait at its first barrier, W = dK E, the x features with the
+    barrier after them, the three products, and the item's end (the z
+    features, the lanes' sums, the record), thread 0's cycles into de[w,
+    s0, :5]; raises if an anchor is missing."""
+    start = src.find("__device__ void bwd_sums(")
+    if start < 0:
+        return src
+    end = src.index("\n}\n", start) + 3
+    head, body, tail = src[:start], src[start:end], src[end:]
+
+    def at(text, anchor, before):
+        i = text.find(anchor)
+        if i < 0:
+            raise ValueError(f"anchor not found: {anchor.strip()!r}")
+        return text[:i] + before + text[i:]
+
+    body = at(body, "  const bool active = ",
+              "  long long tz[5] = {}, c0 = clock64(), c1;\n")
+    for k, anchor in enumerate(_SUMS_PHASES):
+        body = at(body, anchor, (_SUMS_SETTLE if k != 1 else "")
+                  + f"    c1 = clock64(); tz[{k}] += c1 - c0; c0 = c1;\n")
+    j = body.index(_SUMS_AFTER)
+    k = body.rindex("  }\n", 0, j)
+    body = body[:k] + "    c1 = clock64(); tz[3] += c1 - c0; c0 = c1;\n" + body[k:]
+    k = body.rindex("}\n")
+    body = (body[:k] + "  __syncthreads();\n  tz[4] += clock64() - c0;\n"
+            "  if (threadIdx.x == 0)\n"
+            "    for (int q = 0; q < 5; ++q) rde[s0 * P + q] = (float)tz[q];\n" + body[k:])
+    return head + body + tail
+
+
 def instrument(src: str) -> str:
     """kernel A's source with the counters; raises if an anchor is missing."""
     def insert(text, anchor, before):
@@ -279,7 +346,8 @@ def main() -> int:
         with open(cu) as fh:
             src = fh.read()
         with open(cu, "w") as fh:
-            fh.write(instrument_roles(instrument_bwd(src)) if bwd else instrument(src))
+            fh.write(instrument_phases(instrument_roles(instrument_bwd(src))) if bwd
+                     else instrument(src))
         res = subprocess.run([sys.executable, "-c", _BWD_CHILD if bwd else _CHILD, dst],
                              capture_output=True,
                              text=True, timeout=600, cwd=dst)

@@ -6,7 +6,10 @@
 // barrier (bar.sync / bar.arrive with an id and a thread count) a counter
 // that releases its waiting threads when the count has arrived, and a warp
 // shuffle an exchange through memory between two barriers of the warp's
-// 32 threads.  Dynamic shared memory starts as NaN at every block.  Only
+// 32 threads; atomics and fences act on host memory, so a block that
+// waits on a counter finds what the blocks before it counted, and cp.async
+// copies are plain copies, done when issued.  Dynamic
+// shared memory starts as NaN at every block.  Only
 // what the kernels compute is emulated: not their speed, their occupancy
 // or the card's SM count (the split plan sees 132 SMs, one block each).
 #pragma once
@@ -71,6 +74,11 @@ inline cudaError_t cudaGetDevice(int* d) {
 inline cudaError_t cudaFuncSetAttribute(const void*, int, int) { return cudaSuccess; }
 inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
   std::memset(p, v, n);
+  return cudaSuccess;
+}
+inline cudaError_t cudaMemset2DAsync(void* p, size_t pitch, int v, size_t width, size_t height,
+                                     cudaStream_t) {
+  for (size_t r = 0; r < height; ++r) std::memset(static_cast<char*>(p) + r * pitch, v, width);
   return cudaSuccess;
 }
 inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) {
@@ -158,6 +166,13 @@ Launch<K> launch(dim3 grid, dim3 block, K kernel) {
 
 inline void __syncthreads() { emu::block_barrier->arrive_and_wait(); }
 inline void __threadfence_block() { std::atomic_thread_fence(std::memory_order_seq_cst); }
+inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
+inline void __nanosleep(unsigned) { std::this_thread::yield(); }
+inline int atomicAdd(int* p, int v) { return std::atomic_ref<int>(*p).fetch_add(v); }
+#define GPITCH_ASYNC_COPY
+inline void copy16_async(float* dst, const float* src) { std::memcpy(dst, src, 16); }
+inline void copy4_async(float* dst, const float* src, bool valid) { *dst = valid ? *src : 0.f; }
+inline void copy_async_wait() {}
 
 #define GPITCH_WARP_ROLES
 inline void named_sync(int id, int count) { emu::named_barrier(id, count, true); }

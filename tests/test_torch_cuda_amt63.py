@@ -1,7 +1,10 @@
 """Kernels A and B at the transcription cell's shape (benchmark cell
 amt63-adam: 87 windows, M 160, N 2001, 63 keys x 20 partials), on the card,
 against their plain versions.  At this width both kernels walk the sources
-in many chunks a tile (kernel A 16, kernel B 32).
+in many chunks a tile in their builds (kernel A 16, kernel B 32), and kernel
+B takes its two-phase body (its per-source sums as products over each
+window's samples, 2 sources an item); at the separation cell's width it
+does not.
 
 Every test needs a CUDA card and skips without one.  The file imports
 nothing of JAX, so on a machine with a card and without JAX it runs as
@@ -65,17 +68,23 @@ def test_cuda_kernels_at_the_transcription_cell_match_plain(cuda):
     ``_bwd_rows`` allow) within 4x the f32 plain version's own gap to f64
     where that is larger: f32 sums over 63 x 20 components of every Kuf
     entry and over 2001 samples of every source's gradient.  The plan walks
-    the sources in 16 chunks in kernel A and 32 in kernel B, and the
-    counter records it."""
+    the sources in 16 chunks in kernel A and 32 in kernel B's build, and the
+    counter records it; kernel B takes its two-phase body (2 sources a
+    phase-2 item), and two of its launches give the same bits."""
     from gpitch_tpu_torch.linalg.fused_whiten import (
-        fused_whiten, fused_whiten_bwd, fused_whiten_bwd_plain, fused_whiten_plain,
-        fused_whiten_source_chunks)
+        fused_whiten, fused_whiten_bwd, fused_whiten_bwd_phases, fused_whiten_bwd_plain,
+        fused_whiten_plain, fused_whiten_source_chunks)
     args, du, dv = _dictionary_inputs(cuda)
     with torch.no_grad():
         got_a = fused_whiten(*args)
+        phases = fused_whiten_bwd_phases.launches
         got_b = fused_whiten_bwd(*args[:4], du, dv, *args[4:])
+        again = fused_whiten_bwd(*args[:4], du, dv, *args[4:])
         torch.cuda.synchronize()
         assert (fused_whiten_source_chunks.fwd, fused_whiten_source_chunks.bwd) == (16, 32)
+        assert fused_whiten_source_chunks.sums == 2
+        assert fused_whiten_bwd_phases.launches == phases + 2
+        assert all(torch.equal(g, h) for g, h in zip(got_b, again))
         want_a = _blocked(fused_whiten_plain, args, torch.float64)
         bwd = (*args[:4], du, dv, *args[4:])
         want_b = _blocked(fused_whiten_bwd_plain, bwd, torch.float64)
@@ -91,3 +100,28 @@ def test_cuda_kernels_at_the_transcription_cell_match_plain(cuda):
         gaps[name] = _max_gap(g, w) / scale
         assert _max_gap(g, w) <= max(1e-4 * scale, 4 * _max_gap(q, w)), gaps
     print(gaps)
+
+
+def test_cuda_kernel_b_keeps_its_role_split_body_at_the_separation_width(cuda):
+    """At the separation cells' width (sosp-14s: 222 windows, M 112, N 2001,
+    3 x 5) kernel B takes its role-split body, not the two phases: the
+    phases' counter does not move, the role-split body's does, and the
+    outputs are finite."""
+    from fused_whiten_inputs import prototype_inputs as inputs
+    from gpitch_tpu_torch.linalg.fused_whiten import (
+        fused_whiten_bwd, fused_whiten_bwd_phases, fused_whiten_bwd_roles,
+        fused_whiten_source_chunks)
+    nw, m, n, s, p = 222, 112, 2001, 3, 5
+    args = [torch.as_tensor(a).to(cuda, torch.float32)
+            for a in inputs(nw, m, n, s, p, per_window=True, seed=3)]
+    gen = torch.Generator().manual_seed(4)
+    du = (torch.randn(nw, m, m, generator=gen) * 0.01).to(cuda)
+    dv = (torch.randn(nw, m, 1, generator=gen) * 0.01).to(cuda)
+    before = (fused_whiten_bwd_phases.launches, fused_whiten_bwd_roles.launches)
+    with torch.no_grad():
+        out = fused_whiten_bwd(*args[:4], du, dv, *args[4:])
+        torch.cuda.synchronize()
+    assert (fused_whiten_bwd_phases.launches, fused_whiten_bwd_roles.launches) == \
+        (before[0], before[1] + 1)
+    assert fused_whiten_source_chunks.sums == 0
+    assert all(bool(torch.isfinite(g).all()) for g in out)

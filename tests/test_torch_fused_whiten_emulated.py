@@ -62,8 +62,9 @@ def _f32(ts):
     return [t.float().contiguous() for t in ts]
 
 
-def run_bwd(lib, a, du, dv, splits):
-    """Kernel B on CPU tensors (float32): its five outputs."""
+def run_bwd(lib, a, du, dv, splits, ws=None):
+    """Kernel B on CPU tensors (float32): its five outputs; the scratch it
+    was given, which starts as NaN, is appended to the list ``ws``."""
     zc, xc, err, linv, e, f, v, il = _f32(a)
     du, dv = _f32((du, dv))
     nw, m = zc.shape[:2]
@@ -71,10 +72,12 @@ def run_bwd(lib, a, du, dv, splits):
     rec = m * m + 2 * s + 2 * s * p
     part = torch.full((nw, splits, rec), float("nan"))    # every output must be written
     sums = torch.full((nw, rec), float("nan")) if splits > 1 else part
-    ws = torch.zeros(nw, lib.gpitch_fused_whiten_bwd_workspace(m, s, p))
+    scratch = torch.full((nw, lib.gpitch_fused_whiten_bwd_workspace(m, n, s, p)), float("nan"))
+    if ws is not None:
+        ws.append(scratch)
     rc = lib.gpitch_fused_whiten_bwd(
         *(t.data_ptr() for t in (zc, xc, err, linv, e, f, v, il, du, dv)), part.data_ptr(),
-        sums.data_ptr(), ws.data_ptr(), s * p, s, nw, m, n, s, p, splits, None)
+        sums.data_ptr(), scratch.data_ptr(), s * p, s, nw, m, n, s, p, splits, None)
     assert rc == 0
     buf = sums.reshape(nw, rec)
     o = m * m
@@ -160,8 +163,8 @@ def test_emulated_kernel_b_takes_the_role_split_body_where_its_plan_fits(lib):
                              (160, 8, 10), (160, 3, 5)]}
     assert [k for k, v in roles.items() if v] == [(16, 2, 3), (30, 3, 3), (40, 3, 5),
                                                   (112, 3, 5), (112, 1, 19)]
-    assert lib.gpitch_fused_whiten_bwd_workspace(112, 3, 5) == 0
-    assert lib.gpitch_fused_whiten_bwd_workspace(160, 8, 10) > 0
+    assert lib.gpitch_fused_whiten_bwd_workspace(112, 2001, 3, 5) == 0
+    assert lib.gpitch_fused_whiten_bwd_workspace(160, 2001, 8, 10) > 0
 
 
 @pytest.mark.parametrize("splits", [1, 2, 3, 4, 5])
