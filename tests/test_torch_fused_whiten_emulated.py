@@ -4,45 +4,30 @@ subset they use (tests/cuda_emulation/cuda_runtime.h), against the f64
 plain versions.
 
 A CUDA kernel has no interpret mode.  The source is compiled here by g++
-as it stands, with the emulation header in the place of CUDA's: each CUDA
-thread is an OS thread, barriers and warp shuffles are emulated, and
-shared memory starts as NaN.  This holds the kernels' own indexing,
-layouts, padding, source chunks, ragged tiles and split sums to the plain
-versions at small sizes, on the CPU; the card tests
-(tests/test_torch_cuda.py) hold the compiled kernels.  Skips where no g++
-that takes -std=c++20 is found.
+as it stands, with the emulation header in the place of CUDA's: a block's
+CUDA threads are fibers on one core in a fixed order, barriers and warp
+shuffles are emulated, and shared memory starts as NaN.  This holds the
+kernels' own indexing, layouts, padding, source chunks, ragged tiles and
+split sums to the plain versions at small sizes, on the CPU; the card
+tests (tests/test_torch_cuda.py) hold the compiled kernels.  Skips where
+no g++ that takes -std=c++20 is found.
 """
 
 import ctypes
-import shutil
-import subprocess
-from pathlib import Path
 
 import pytest
 import torch
 
+from emulation_build import emulated_library
 from fused_whiten_inputs import prototype_inputs
 from gpitch_tpu_torch.linalg import _cuda
 from gpitch_tpu_torch.linalg.fused_whiten import fused_whiten_bwd_plain, fused_whiten_plain
-
-HERE = Path(__file__).resolve().parent
 
 
 @pytest.fixture(scope="module")
 def lib(tmp_path_factory):
     """csrc/fused_whiten.cu built for the CPU with the emulation header."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("needs g++ to build the CPU emulation of the kernels")
-    out = tmp_path_factory.mktemp("emulated") / "libfused_whiten.so"
-    cmd = [gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
-           f"-I{HERE / 'cuda_emulation'}", "-x", "c++", "-o", str(out),
-           str(_cuda.CSRC_DIR / "fused_whiten.cu")]
-    res = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
-    if res.returncode != 0 and "c++20" in res.stderr:
-        pytest.skip(f"g++ does not take -std=c++20: {res.stderr[-300:]}")
-    assert res.returncode == 0, res.stderr[-4000:]
-    so = ctypes.CDLL(str(out))
+    so = emulated_library(tmp_path_factory, _cuda.CSRC_DIR / "fused_whiten.cu")
     for fn, argtypes in _cuda.SIGNATURES["fused_whiten"].items():
         getattr(so, fn).argtypes = argtypes
         getattr(so, fn).restype = ctypes.c_int
